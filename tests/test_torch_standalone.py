@@ -1,0 +1,103 @@
+"""The port stands alone: importing every repro_torch module loads no JAX
+and nothing of the reference package, the kernel wrappers never fall
+back to the plain version behind an ``except``, and they refuse what
+the CUDA kernels do not take."""
+
+import ast
+import os
+import pkgutil
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import pytest
+import torch
+
+import repro_torch
+from repro_torch.kernels import _build, ops
+
+SRC = Path(repro_torch.__file__).resolve().parent
+
+
+def _modules():
+    return sorted(
+        m.name for m in pkgutil.walk_packages([str(SRC)], prefix="repro_torch.")
+    )
+
+
+def test_every_module_imports_without_jax_or_reference():
+    mods = _modules()
+    assert {"repro_torch.sim.engine", "repro_torch.kernels.ops", "repro_torch.convert"} <= set(mods)
+    code = textwrap.dedent(
+        f"""
+        import importlib, sys
+        for name in {mods!r}:
+            importlib.import_module(name)
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith(("jax.", "jaxlib"))
+                     or m == "repro" or m.startswith("repro."))
+        print("BAD", bad)
+        """
+    )
+    env = dict(os.environ, PYTHONPATH=str(SRC.parent))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=env, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "BAD []"
+
+
+def test_kernel_modules_hold_no_except():
+    """No try/except anywhere in the kernels package: a CUDA tensor
+    launches the kernel or raises, it never falls back."""
+    for path in sorted((SRC / "kernels").glob("*.py")):
+        tree = ast.parse(path.read_text())
+        tries = [n.lineno for n in ast.walk(tree) if isinstance(n, ast.Try)]
+        assert not tries, f"{path.name}: try blocks at lines {tries}"
+
+
+def test_every_kernel_has_a_source_and_a_counter():
+    for name in _build.KERNELS:
+        src = (_build.CSRC / f"{name}.cu").read_text()
+        assert 'extern "C"' in src and "cudaGetLastError" in src
+        assert "Replaces the Pallas TPU kernel" in src
+    assert set(ops.launch_counts()) == set(_build.KERNELS)
+    path = _build.library_path("sparse_mix")
+    assert path.suffix == ".so" and path.parent == _build.build_dir()
+
+
+def test_cpu_tensors_take_the_plain_version_without_launching():
+    ops.reset_launch_counts()
+    theta = torch.randn(6, 3)
+    idx = torch.tensor([[0, 1], [2, 3]], dtype=torch.int32)
+    w = torch.rand(2, 2)
+    got = ops.sparse_mix(idx, w, theta)
+    torch.testing.assert_close(got, w[:, :1] * theta[[0, 2]] + w[:, 1:] * theta[[1, 3]])
+    ops.graph_mix(torch.eye(6), theta)
+    assert ops.launch_counts() == {k: 0 for k in _build.KERNELS}
+
+
+def test_cuda_wrappers_refuse_what_the_kernels_do_not_take():
+    """The checks run before any build or launch, so they hold on the CPU."""
+    from repro_torch.kernels.fused_row_update import MAX_P, fused_row_update_cuda
+    from repro_torch.kernels.sparse_mix import sparse_mix_cuda
+
+    cpu = torch.device("cpu")
+    theta = torch.randn(8, 4)
+    with pytest.raises(TypeError, match="int32"):
+        sparse_mix_cuda(torch.zeros((2, 2), dtype=torch.int64), torch.rand(2, 2), theta)
+    with pytest.raises(TypeError, match="float32"):
+        sparse_mix_cuda(torch.zeros((2, 2), dtype=torch.int32), torch.rand(2, 2), theta.double())
+    with pytest.raises(ValueError, match="shape"):
+        sparse_mix_cuda(torch.zeros((2, 2), dtype=torch.int32), torch.rand(2, 3), theta)
+    with pytest.raises(ValueError, match="contiguous"):
+        _build.check_tensor(theta.t(), "theta", dtype=torch.float32, ndim=2, device=cpu)
+    with pytest.raises(ValueError, match="is on"):
+        _build.check_tensor(theta, "theta", dtype=torch.float32, ndim=2,
+                            device=torch.device("cuda", 0))
+    B, K, m, p = 2, 3, 2, MAX_P + 1
+    args = (torch.zeros(B, dtype=torch.int32), torch.zeros((B, K), dtype=torch.int32),
+            torch.rand(B, K), torch.rand(B, 4), torch.rand(B, m, p), torch.rand(B, m),
+            torch.rand(B, m), None, torch.rand(8, p))
+    with pytest.raises(ValueError, match="p <= "):
+        fused_row_update_cuda(*args, 8)
