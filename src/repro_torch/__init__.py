@@ -15,10 +15,11 @@ kernels of the reference are hand-written CUDA kernels here
 (:mod:`repro_torch.kernels`), built from ``csrc/`` at first use.
 
 Ported so far: graphs, the Eq. 2 objective, the neighbour-sum operator,
-sequential coordinate descent, and the static-topology single-device
-batched engine driving the Eq. 4 update (unfused and fused). Privacy,
-model propagation, sharding, telemetry, dynamic topology, checkpoints
-and serving are queued in ``ROADMAP.md``.
+sequential coordinate descent, the private algorithm (Eq. 6) with its
+accounting, model propagation and the private warm start, and the
+static-topology single-device batched engine driving the Eq. 4, Eq. 6
+and Eq. 16 updates (unfused and fused). Sharding, telemetry, dynamic
+topology, checkpoints and serving are queued in ``ROADMAP.md``.
 """
 
 from repro_torch.device import resolve_device

@@ -9,8 +9,11 @@ build the port's, or give the port's back as numpy:
   the padded data, and the constants;
 * :func:`objective_from_reference` — the same, read off any object with
   the reference ``Objective``'s attribute names;
+* :func:`dp_update_from_reference` — a :class:`~repro_torch.sim.updates.DPCDUpdate`
+  from the reference's (its plan read as numpy, not recomputed);
 * :func:`sim_state_from_numpy` / :func:`sim_state_to_numpy` — an engine
-  ``SimState``. The random key is not carried: the two packages' random
+  ``SimState``, with a private update's (n,) applied-update counts
+  (``ustate``). The random key is not carried: the two packages' random
   streams differ, so the port's state takes a fresh generator seed.
 """
 
@@ -19,10 +22,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core.dp_cd import DPConfig
 from repro_torch.core.graph import AgentGraph, CSRGraph
 from repro_torch.core.objective import AgentData, Objective, make_objective
 from repro_torch.device import resolve_device
 from repro_torch.sim.engine import SimState
+from repro_torch.sim.updates import DPCDUpdate
 
 
 def objective_from_numpy(
@@ -86,6 +91,19 @@ def objective_from_reference(obj) -> Objective:
     )
 
 
+def dp_update_from_reference(upd) -> DPCDUpdate:
+    """A :class:`DPCDUpdate` from an object laid out like the reference's
+    (``obj``, ``cfg``, ``planned_Ti``, ``eps_step``, ``scales``): the same
+    plan, its numbers read as numpy, over the port's copy of ``upd.obj``."""
+    c = upd.cfg
+    cfg = DPConfig(eps_bar=float(c.eps_bar), delta_bar=float(c.delta_bar), schedule=c.schedule,
+                   T_total=int(c.T_total), mechanism=c.mechanism,
+                   delta_step=float(c.delta_step))
+    return DPCDUpdate(obj=objective_from_reference(upd.obj), cfg=cfg,
+                      planned_Ti=int(upd.planned_Ti), eps_step=float(upd.eps_step),
+                      scales=np.array(upd.scales, dtype=np.float64, copy=True))
+
+
 def sim_state_from_numpy(
     Theta,
     hist,
@@ -100,11 +118,22 @@ def sim_state_from_numpy(
     seed: int = 0,
     ustate=(),
 ) -> SimState:
-    """An engine state from numpy leaves; the generator starts from ``seed``."""
+    """An engine state from numpy leaves; the generator starts from ``seed``.
+
+    ``ustate``: the update's state — ``()`` for the stateless rules, or a
+    private update's (n,) integer counts, which land on ``device`` as int32.
+    """
     dev = resolve_device(device)
 
     def t(a, dt):
         return torch.as_tensor(np.array(a, copy=True)).to(device=dev, dtype=dt)
+
+    if not (isinstance(ustate, tuple) and not ustate):
+        counts = np.asarray(ustate)
+        if counts.ndim != 1 or not np.issubdtype(counts.dtype, np.integer):
+            raise TypeError(f"ustate must be () or (n,) integer counts, got {counts.dtype} "
+                            f"of shape {counts.shape}")
+        ustate = t(counts, torch.int32)
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
@@ -122,6 +151,11 @@ def sim_state_from_numpy(
 
 
 def sim_state_to_numpy(state: SimState) -> dict:
-    """The numpy leaves of an engine state (the generator is not carried)."""
+    """The numpy leaves of an engine state (the generator is not carried);
+    ``ustate`` is there when the update keeps a tensor state (the private
+    update's counts)."""
     leaves = ("Theta", "hist", "ptr", "active", "applied", "dropped", "messages")
-    return {k: getattr(state, k).to("cpu", copy=True).numpy() for k in leaves}
+    out = {k: getattr(state, k).to("cpu", copy=True).numpy() for k in leaves}
+    if isinstance(state.ustate, torch.Tensor):
+        out["ustate"] = state.ustate.to("cpu", copy=True).numpy()
+    return out

@@ -38,5 +38,26 @@ from repro_torch.core.coordinate_descent import (
     sample_wake_sequence,
     synchronous_round,
 )
+from repro_torch.core.privacy import (
+    PrivacyAccountant,
+    compose_kairouz,
+    compose_uniform,
+    gaussian_scale,
+    invert_uniform_budget,
+    laplace_scale,
+    proposition2_allocation,
+    schedule_renormalization,
+    theorem2_bound,
+    uniform_noise_limit,
+)
+from repro_torch.core.dp_cd import DPCDResult, DPConfig, run_private
+from repro_torch.core.local_dp import perturb_dataset
+from repro_torch.core.model_propagation import (
+    private_local_models,
+    private_warm_start,
+    propagation_objective,
+    run_propagation,
+    train_local_models,
+)
 
 __all__ = [k for k in dir() if not k.startswith("_")]

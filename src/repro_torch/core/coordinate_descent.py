@@ -31,12 +31,35 @@ from repro_torch.core.graph import neighbor_counts
 from repro_torch.core.objective import Objective
 from repro_torch.device import resolve_device
 
+
 @dataclasses.dataclass
 class CDResult:
     Theta: np.ndarray  # final (n, p)
     objective: np.ndarray  # recorded Q values (0 = init)
     messages: np.ndarray  # cumulative p-vectors transmitted at the same ticks
     wake_sequence: np.ndarray  # (T,)
+
+
+def laplace_from_uniform(u):
+    """Standard Laplace draws ``sign(u) log1p(-|u|)`` from ``u`` uniform on
+    [-1, 1], the transform ``jax.random.laplace`` applies.
+
+    ``|u|`` is clamped to ``1 - eps`` of its dtype, so both ends of the
+    interval give finite draws (-log(eps): about 15.9 in float32): a
+    uniform draw that lands on an end, or rounds onto one, never yields an
+    infinite noise value.
+    """
+    a = u.abs().clamp(max=1.0 - torch.finfo(u.dtype).eps)
+    return torch.sign(u) * torch.log1p(-a)
+
+
+def standard_laplace(shape, generator, device, dtype):
+    """Standard Laplace(0, 1) draws of ``shape`` from ``generator`` on
+    ``device``: the port's one Laplace recipe (``run_scan``,
+    ``dp_cd.run_private`` and ``sim.updates.DPCDUpdate`` all draw here).
+    Never infinite (:func:`laplace_from_uniform`)."""
+    u = torch.rand(shape, generator=generator, device=device, dtype=dtype) * 2.0 - 1.0
+    return laplace_from_uniform(u)
 
 
 def sample_wake_sequence(n: int, T: int, rng: np.random.Generator) -> np.ndarray:
@@ -213,8 +236,7 @@ def run_scan(
         if noise_seed is None:
             noise_seed = int(rng.integers(2**31 - 1))
         gen = torch.Generator(device=dev).manual_seed(noise_seed)
-        u = torch.rand((T, p), generator=gen, device=dev, dtype=dtype) - 0.5
-        lap = -torch.sign(u) * torch.log1p(-2.0 * u.abs())  # standard Laplace
+        lap = standard_laplace((T, p), gen, dev, dtype)
         noise = lap * torch.as_tensor(np.asarray(noise_scales), device=dev, dtype=dtype)[:, None]
 
     Theta = torch.as_tensor(np.asarray(Theta0)).to(device=dev, dtype=dtype).clone()

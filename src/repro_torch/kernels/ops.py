@@ -11,11 +11,13 @@ went through the kernels.
 from __future__ import annotations
 
 from repro_torch.kernels._build import launch_counts, reset_launch_counts
+from repro_torch.kernels.dp_clip_noise import dp_clip_noise_cuda, dp_clip_noise_plain
 from repro_torch.kernels.fused_row_update import fused_row_update_cuda, fused_row_update_plain
 from repro_torch.kernels.graph_mix import graph_mix_cuda, graph_mix_plain
 from repro_torch.kernels.sparse_mix import sparse_mix_cuda, sparse_mix_plain
 
 __all__ = [
+    "dp_clip_noise",
     "fused_row_update",
     "graph_mix",
     "launch_counts",
@@ -57,3 +59,13 @@ def fused_row_update(rows, idx, w, coef, X, y, mask, noise, theta, limit, clip=N
     if _on_cpu(theta):
         return fused_row_update_plain(rows, idx, w, coef, X, y, mask, noise, theta, limit, clip)
     return fused_row_update_cuda(rows, idx, w, coef, X, y, mask, noise, theta, limit, clip)
+
+
+def dp_clip_noise(grads, noise, clip, noise_scale):
+    """Per-example L2 clip to ``clip``, mean over the N rows, plus
+    ``noise_scale * noise``. grads (N, D) float32 or bfloat16, noise (D,)
+    standard draws -> (D,) float32. Reached only from here, as in the
+    reference: no engine path calls it."""
+    if _on_cpu(grads):
+        return dp_clip_noise_plain(grads, noise, clip, noise_scale)
+    return dp_clip_noise_cuda(grads, noise, clip, noise_scale)

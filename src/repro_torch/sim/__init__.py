@@ -1,9 +1,9 @@
 """Batched asynchronous simulation engine (port of ``repro.sim``).
 
 Poisson-thinned super-ticks with churn / delay / straggler scenarios,
-driving the Eq. 4 update through the ``LocalUpdate`` protocol on one
-device: the static-topology, single-device ``AsyncEngine``. The
-reference's sharded engine, private and propagation updates, arrivals
+driving the Eq. 4, private Eq. 6 and model-propagation Eq. 16 updates
+through the ``LocalUpdate`` protocol on one device: the static-topology,
+single-device ``AsyncEngine``. The reference's sharded engine, arrivals
 and dynamic topology are queued in ``ROADMAP.md``.
 """
 
@@ -17,7 +17,7 @@ from repro_torch.sim.clocks import (
 from repro_torch.sim.config import EngineConfig, make_engine
 from repro_torch.sim.engine import AsyncEngine, SimResult, SimState
 from repro_torch.sim.scenarios import ChurnConfig, DelayConfig, Scenario, StragglerConfig
-from repro_torch.sim.updates import CDUpdate, LocalUpdate
+from repro_torch.sim.updates import CDUpdate, DPCDUpdate, LocalUpdate, PropagationUpdate
 
 __all__ = [
     # engine and configuration
@@ -28,7 +28,9 @@ __all__ = [
     "make_engine",
     # update rules
     "CDUpdate",
+    "DPCDUpdate",
     "LocalUpdate",
+    "PropagationUpdate",
     # scenarios
     "ChurnConfig",
     "DelayConfig",

@@ -3,9 +3,9 @@
 Port of ``repro.sim.engine``'s single-device, static-topology
 :class:`AsyncEngine`. The n i.i.d. Poisson clocks are time-slotted by
 binomial thinning (:mod:`repro_torch.sim.clocks`): each **super-tick**
-wakes a random subset of agents, computes their Eq. 4 updates from the
-start-of-slot snapshot and writes them back. Two paths run the woken
-rows:
+wakes a random subset of agents, computes their updates (Eq. 4, the
+private Eq. 6 or Eq. 16, by the ``LocalUpdate``) from the start-of-slot
+snapshot and writes them back. Two paths run the woken rows:
 
 * unfused — ``MixOp.gather_rows`` (the ``sparse_mix`` CUDA kernel on a
   sparse graph) → ``LocalUpdate.apply`` → scatter;
@@ -50,8 +50,8 @@ def _resolve_fused(update, fused, device: torch.device, dtype, has_delay: bool) 
     """Resolve the tri-state ``fused`` knob against what the kernel serves.
 
     ``"auto"`` engages the fused kernel on a CUDA device for a float32
-    engine whose update implements the fused row math (quadratic loss)
-    and has no per-edge delays. ``True`` asks for the fused path wherever
+    engine whose update implements the fused row math (CD or DP-CD with
+    the quadratic loss) and has no per-edge delays. ``True`` asks for the fused path wherever
     the update supports it — the kernel on CUDA, its plain version on the
     CPU — and raises where it cannot serve (a delay scenario, another
     loss, or a float64 engine: the kernel computes in float32). ``False``
@@ -226,13 +226,16 @@ class AsyncEngine:
             hist = torch.zeros((0, 0, 0), dtype=self.dtype, device=dev)  # no-delay placeholder
         gen = torch.Generator(device=dev)
         gen.manual_seed(self._seed if seed is None else int(seed))
+        ustate = self.update.init_state()
+        if isinstance(ustate, torch.Tensor):
+            ustate = ustate.to(dev)
         return SimState(
             Theta=Theta,
             hist=hist,
             ptr=torch.zeros((), dtype=torch.long, device=dev),
             active=torch.ones(self.n, dtype=torch.bool, device=dev),
             generator=gen,
-            ustate=self.update.init_state(),
+            ustate=ustate,
             applied=torch.zeros((), dtype=torch.long, device=dev),
             dropped=torch.zeros((), dtype=torch.long, device=dev),
             messages=torch.zeros((), dtype=torch.float32, device=dev),
