@@ -17,6 +17,9 @@ Phases, one line each (any failure ends the run with a non-zero code):
    (the larger of bytes over 3.35 TB/s and flops over 67 TFLOP/s);
    ``dp_clip_noise`` at the (256, 4096) float32 shape of
    ``benchmarks/bench_kernels.py`` and at (200, 1000) in bfloat16;
+   ``ssm_chunk`` at the zamba2-1.2b prefill's shape (G = 4 x 16 chunks x
+   64 heads, Q = 128, N = P = 64, float32, C and B shared by the heads)
+   and at a small ragged shape in bfloat16;
 4. the main path at a deployment size, config ``rgg500k_p100``: the
    batched engine on 500k agents (random geometric graph, average degree
    16, p = 100, m = 8, quadratic loss, mu = 0.5, 4096 expected wakes per
@@ -44,12 +47,24 @@ Phases, one line each (any failure ends the run with a non-zero code):
    ``run_private`` and ``private_warm_start`` at the Fig. 2 size (n = 100,
    p = 100, logistic, clip 1.0, eps 0.55, T = 1000) on the card vs the CPU,
    with injected draws;
-6. a JSON line of every ported kernel (launches, error, times, bound),
+6. zamba2-1.2b serving at its full width and depth (38 layers, d_model
+   2048, bfloat16, random weights from a seeded generator on the card):
+   4 prompts of 2048 tokens through ``bundle.prefill`` (a warm-up, then 5
+   timed prefills, each of which must launch ``ssm_chunk`` once per layer,
+   38 times; one more traced with torch.profiler: device time by block
+   and kernel kind, device idle share), then 64 greedy ``bundle.decode``
+   steps (2 more traced: device time and idle share per step); and two
+   correctness gates on a float32 instance of the same
+   config: the prefill of 2 x 256 tokens against the same tokens fed one
+   at a time through decode, and the prefill through the kernel against
+   the einsum route;
+7. a JSON line of every ported kernel (launches, error, times, bound),
    then the last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import bisect
 import dataclasses
 import json
 import math
@@ -73,7 +88,8 @@ DENSE_N = 2047  # just under the dense/sparse crossover of 2048 agents
 # sums taken in another order (<= 38 neighbour terms, <= 2047 terms for
 # graph_mix, m = 8 data points in the fused step, N = 256 rows for
 # dp_clip_noise).
-TOL = {"sparse_mix": 1e-5, "fused_row_update": 2e-5, "graph_mix": 1e-5, "dp_clip_noise": 1e-5}
+TOL = {"sparse_mix": 1e-5, "fused_row_update": 2e-5, "graph_mix": 1e-5, "dp_clip_noise": 1e-5,
+       "ssm_chunk": 2e-5}  # ssm_chunk: up to 128 + 64 terms per output
 PARITY_TOL = 1e-5
 # The private legs (see PERF.md, "Cells"): the budget of bench_privacy_utility.py's
 # Fig. 2/3 sweeps and the paper's delta; the per-point clip makes L0 finite.
@@ -88,6 +104,13 @@ PROFILE_SLOTS = 16
 WARM_STEPS = 8
 WINDOWS = 7
 WINDOW_STEPS = 200
+# Phase 6: zamba2-1.2b serving (see PERF.md, "Cells").
+ZAMBA = dict(arch="zamba2-1.2b", seed=0, batch=4, prompt=2048, prefills=5, decode_steps=64)
+ZAMBA_GATE = dict(batch=2, tokens=256)  # two chunks of 128: the inter-chunk recurrence runs
+DECODE_TRACED = 2  # decode steps traced with torch.profiler
+# max |a - b| of the float32 gates, relative to max(1, max |logit|): 38
+# layers whose two routes take their float32 sums in different orders.
+MODEL_TOL = 1e-4
 
 
 def log(msg: str) -> None:
@@ -271,6 +294,49 @@ def kernel_checks(obj, engine, dense_obj, results) -> None:
     results["dp_clip_noise"] = results["dp_clip_noise_f32"]  # the bench shape
 
 
+def ssm_chunk_checks(dev, results) -> None:
+    """Phase 3, ``ssm_chunk``: at the zamba2-1.2b prefill's shape (batch 4 x
+    16 chunks x 64 heads, Q = 128, N = P = 64, float32, C and B given once
+    per (batch, chunk) and shared by its 64 heads, as the Mamba2 block
+    passes them), then at a small ragged bfloat16 shape. The bound counts
+    the causal float32 work, 2 G [Q(Q+1)/2 (N + P) + Q P N] flops, and
+    each distinct input read once. No single PyTorch call computes the
+    function, so there is no library time."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for label, (G, Q, N, P, heads), dt in (("prefill", (4 * 16 * 64, 128, 64, 64, 64), torch.float32),
+                                           ("bf16", (6, 77, 40, 96, 3), torch.bfloat16)):
+        C = torch.randn((G // heads, Q, N), generator=gen, device=dev).to(dt)
+        B = torch.randn((G // heads, Q, N), generator=gen, device=dev).to(dt)
+        cum = torch.cumsum(-0.1 * torch.rand((G, Q), generator=gen, device=dev), dim=1)
+        dtv = 0.5 * torch.rand((G, Q), generator=gen, device=dev)
+        x = torch.randn((G, Q, P), generator=gen, device=dev).to(dt)
+        args = (C, B, cum, dtv, x, heads)
+        got = torch.cat([t.flatten() for t in ops.ssm_chunk(*args)])
+        want = torch.cat([t.flatten() for t in ref.ssm_chunk_ref(*args)])
+        flops = 2.0 * G * (Q * (Q + 1) / 2 * (N + P) + Q * P * N)
+        nbytes = ((2 * C.numel() + x.numel()) * C.element_size() + 2 * G * Q * 4
+                  + (G * Q * P + G * P * N) * 4)
+        timing = dict(
+            G=G, Q=Q, N=N, P=P, heads=heads, dtype=str(dt).replace("torch.", ""), gflop=flops / 1e9,
+            ms=time_ms(lambda: ops.ssm_chunk(*args)),
+            plain_ms=time_ms(lambda: ref.ssm_chunk_ref(*args)),
+            library_ms=None, **bound(nbytes, flops),
+        )
+        check_kernel("ssm_chunk", got, want, results, **timing)
+        results[f"ssm_chunk_{label}"] = results["ssm_chunk"]
+    results["ssm_chunk"] = results["ssm_chunk_prefill"]  # the main path's shape
+
+
+def _device_events(events) -> list:
+    """The device's events of a Chrome trace: kernels, copies and fills."""
+    return [e for e in events
+            if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+
+
 def profile_slots(label, engine, state, slots: int, out_dir: Path, ms_per_slot: float):
     """Trace ``slots`` sampled super-ticks with torch.profiler; print the
     device time per slot by kernel name, from the exported Chrome trace
@@ -291,10 +357,9 @@ def profile_slots(label, engine, state, slots: int, out_dir: Path, ms_per_slot: 
     prof.export_chrome_trace(str(trace))
     events = json.loads(trace.read_text()).get("traceEvents", [])
     by_name: dict = {}
-    for e in events:
-        if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
-            us, count = by_name.get(e["name"], (0.0, 0))
-            by_name[e["name"]] = (us + float(e["dur"]), count + 1)
+    for e in _device_events(events):
+        us, count = by_name.get(e["name"], (0.0, 0))
+        by_name[e["name"]] = (us + float(e["dur"]), count + 1)
     busy_us = sum(us for us, _ in by_name.values())
     if busy_us <= 0:
         raise SystemExit(f"{label}: the profiler saw no device time")
@@ -355,7 +420,8 @@ def spread(values) -> dict:
 # in its own leg: no engine path calls it).
 PATH_KERNEL = {"fused": "fused_row_update", "unfused": "sparse_mix",
                "dp_fused": "fused_row_update", "dp_unfused": "sparse_mix",
-               "dense": "graph_mix", "dp_clip_noise": "dp_clip_noise"}
+               "dense": "graph_mix", "dp_clip_noise": "dp_clip_noise",
+               "zamba2_prefill": "ssm_chunk"}
 ENGINE_LEGS = ("fused", "unfused", "dp_fused", "dp_unfused")
 
 
@@ -635,6 +701,224 @@ def private_parity(obj, masks, Theta0, dev) -> dict:
     return errs
 
 
+def _kernel_kind(name: str) -> str:
+    low = name.lower()
+    if "ssm_chunk" in low:
+        return "ssm_chunk"
+    if any(k in low for k in ("gemm", "nvjet", "xmma", "cutlass", "cublas")):
+        return "matmul"
+    return "softmax" if "softmax" in low else "other"
+
+
+def traced(fn, trace: Path):
+    """Run ``fn()`` under torch.profiler (host and device), write the Chrome
+    trace to ``trace``; return its events and the wall milliseconds."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    trace.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(trace))
+    return json.loads(trace.read_text()).get("traceEvents", []), wall_ms
+
+
+def profile_prefill(bundle, model, batch, out_dir: Path, ms_untraced: float) -> dict:
+    """Trace one prefill with torch.profiler. Device time by block (the
+    model's "mamba2" and "shared_attn" profiler ranges, "outside" for the
+    embedding, final norm and lm head), each kernel assigned to the range
+    that launched it, and by kernel kind (``ssm_chunk``, matmul, softmax,
+    other); the device idle share of the traced prefill and of the
+    untraced one (``ms_untraced``)."""
+    trace = out_dir / "trace_zamba2_prefill.json"
+    events, wall_ms = traced(lambda: bundle.prefill(model, batch), trace)
+    ranges = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+                    if e.get("cat") == "user_annotation" and e.get("name") in ("mamba2", "shared_attn"))
+    starts = [r[0] for r in ranges]
+    # Host-side CUDA API calls (the launches) by correlation id.
+    launched = {e["args"]["correlation"]: e["ts"] for e in events
+                if e.get("cat", "").startswith("cuda_") and "correlation" in e.get("args", {})}
+
+    def block(e) -> str:
+        t = launched.get(e.get("args", {}).get("correlation"))
+        i = bisect.bisect_right(starts, t) - 1 if t is not None else -1
+        return ranges[i][2] if i >= 0 and t <= ranges[i][1] else "outside"
+
+    by_key, by_name = {}, {}
+    for e in _device_events(events):
+        key = f"{block(e)}/{_kernel_kind(e['name'])}"
+        by_key[key] = by_key.get(key, 0.0) + float(e["dur"]) / 1e3
+        us, count = by_name.get(e["name"], (0.0, 0))
+        by_name[e["name"]] = (us + float(e["dur"]), count + 1)
+    busy_ms = sum(by_key.values())
+    if busy_ms <= 0:
+        raise SystemExit("zamba2 prefill: the profiler saw no device time")
+    out = dict(traced_ms=wall_ms, device_busy_ms=busy_ms,
+               device_ops=sum(c for _, c in by_name.values()),
+               idle_share_traced=1.0 - busy_ms / wall_ms,
+               idle_share_untraced=1.0 - busy_ms / ms_untraced,
+               ms_by_block_and_kind=dict(sorted(by_key.items(), key=lambda kv: -kv[1])))
+    log(f"[6p] zamba2 prefill traced: {fmt({k: v for k, v in out.items() if k != 'ms_by_block_and_kind'})} "
+        f"trace={trace}")
+    for key, ms in out["ms_by_block_and_kind"].items():
+        log(f"[6p]   {ms:9.3f} ms  {key}")
+    for name, (us, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
+        log(f"[6p]   {us / 1e3:9.3f} ms  x{count:4d}  {name[:110]}")
+    return out
+
+
+def zamba2_serve(dev, launches: dict) -> dict:
+    """Phase 6: zamba2-1.2b serving at full width and depth, bfloat16.
+
+    Prefill: a warm-up, then ``prefills`` timed prefills of the same batch
+    (host clock around a synchronize), launch counts reset just before each
+    and read just after: each must launch ``ssm_chunk`` once per layer.
+    One more prefill is traced. Decode: ``decode_steps`` greedy steps from
+    the prefill's argmax tokens on a fresh cache, each step timed (after a
+    2-step warm-up on its own cache). Then the float32 gates (see
+    :func:`zamba2_gates`). Fails on a count, shape, non-finite value or gate."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build, ops
+    from repro_torch.models.registry import build_model
+
+    z = ZAMBA
+    cfg = get_config(z["arch"])
+    t0 = time.perf_counter()
+    bundle = build_model(cfg, device=dev)
+    model = bundle.init(z["seed"])
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[6] set-up {cfg.name}: layers={cfg.num_layers} d_model={cfg.d_model} "
+        f"heads={cfg.num_heads}x{cfg.resolved_head_dim} d_ff={cfg.d_ff} vocab={cfg.padded_vocab} "
+        f"ssm(state={cfg.ssm.state_dim} head_dim={cfg.ssm.head_dim} chunk={cfg.ssm.chunk}) "
+        f"shared attention every {cfg.shared_attn_every} dtype={cfg.dtype} params={n_params} "
+        f"(config's count {cfg.param_count()}) in {time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator(device=dev).manual_seed(z["seed"] + 1)
+    B, S = z["batch"], z["prompt"]
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device=dev)}
+    bundle.prefill(model, batch)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    times = []
+    for _ in range(z["prefills"]):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        logits, _ = bundle.prefill(model, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        counts = ops.launch_counts()
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        if counts[PATH_KERNEL["zamba2_prefill"]] != cfg.num_layers:
+            raise SystemExit(f"zamba2 prefill: {counts} launches, not one ssm_chunk per layer "
+                             f"({cfg.num_layers})")
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    if logits.shape != (B, 1, cfg.padded_vocab) or not bool(torch.isfinite(logits).all()):
+        raise SystemExit(f"zamba2 prefill: logits {tuple(logits.shape)} or not finite")
+    ms = spread(times)
+    out = dict(params=n_params, batch=B, prompt=S, prefill_ms=ms["median"],
+               prefill_ms_min=ms["min"], prefill_ms_max=ms["max"],
+               prefill_tokens_per_s=B * S / ms["median"] * 1e3,
+               prefill_tokens_per_s_min=B * S / ms["max"] * 1e3,
+               prefill_tokens_per_s_max=B * S / ms["min"] * 1e3,
+               ssm_chunk_launches_per_prefill=cfg.num_layers, prefill_peak_gb=peak_gb)
+    log(f"[6] {cfg.name} prefill {B} x {S}: {fmt(out)}")
+    out["prefill_trace"] = profile_prefill(bundle, model, batch, _build.build_dir() / "traces",
+                                           ms["median"])
+
+    first = logits[:, -1].argmax(dim=-1, keepdim=True)  # (B, 1) greedy tokens
+    # Warm-up and traced steps on a cache of their own: 2 warm-up steps,
+    # then DECODE_TRACED steps under the profiler (positions 2 and 3).
+    warm = bundle.init_cache(model, B, 2 + DECODE_TRACED)
+    for pos in range(2):
+        bundle.decode(model, first, warm, pos)
+
+    def traced_steps():
+        for pos in range(2, 2 + DECODE_TRACED):
+            bundle.decode(model, first, warm, pos)
+
+    events, wall_ms = traced(traced_steps,
+                             _build.build_dir() / "traces" / "trace_zamba2_decode.json")
+    dev_events = _device_events(events)
+    decode_trace = dict(traced_ms_per_step=wall_ms / DECODE_TRACED,
+                        device_busy_ms_per_step=sum(float(e["dur"]) for e in dev_events)
+                        / 1e3 / DECODE_TRACED,
+                        device_ops_per_step=len(dev_events) / DECODE_TRACED)
+    del warm
+    steps = z["decode_steps"]
+    caches = bundle.init_cache(model, B, steps + 1)
+    token, step_ms = first, []
+    for pos in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step_logits, caches = bundle.decode(model, token, caches, pos)
+        token = step_logits[:, -1].argmax(dim=-1, keepdim=True)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    if not bool(torch.isfinite(step_logits).all()):
+        raise SystemExit("zamba2 decode: logits not finite")
+    ms = spread(step_ms)
+    decode_trace["idle_share_traced"] = (1.0 - decode_trace["device_busy_ms_per_step"]
+                                         / decode_trace["traced_ms_per_step"])
+    decode_trace["idle_share_untraced"] = 1.0 - decode_trace["device_busy_ms_per_step"] / ms["median"]
+    out.update(decode_steps=steps, decode_ms_per_step=ms["median"],
+               decode_ms_per_step_min=ms["min"], decode_ms_per_step_max=ms["max"],
+               decode_tokens_per_s=B / ms["median"] * 1e3,
+               decode_tokens_per_s_min=B / ms["max"] * 1e3,
+               decode_tokens_per_s_max=B / ms["min"] * 1e3)
+    log(f"[6] {cfg.name} decode {B} x {steps} greedy steps: "
+        f"{fmt({k: v for k, v in out.items() if k.startswith('decode')})}")
+    log(f"[6p] zamba2 decode, {DECODE_TRACED} traced steps: {fmt(decode_trace)}")
+    out["decode_trace"] = decode_trace
+    del model, bundle, caches, logits, step_logits
+    torch.cuda.empty_cache()
+    out["gates"] = zamba2_gates(cfg, dev, gen)
+    return out
+
+
+def zamba2_gates(cfg, dev, gen) -> dict:
+    """The float32 correctness gates at full width and depth (TF32 off):
+    (1) the prefill of ``ZAMBA_GATE`` tokens (through ``ssm_chunk``) against
+    the same tokens fed one at a time through decode, last-token logits;
+    (2) the prefill through the kernel against the einsum route on the
+    card. Errors relative to max(1, max |logit|), each at most MODEL_TOL."""
+    import torch
+
+    from repro_torch.models import hybrid
+    from repro_torch.models.registry import build_model
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    bundle = build_model(cfg32, device=dev)
+    model = bundle.init(ZAMBA["seed"])
+    B, S = ZAMBA_GATE["batch"], ZAMBA_GATE["tokens"]
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device=dev)
+    prefill, _ = bundle.prefill(model, {"tokens": tokens})
+    caches = bundle.init_cache(model, B, S)
+    for pos in range(S):
+        step, caches = bundle.decode(model, tokens[:, pos:pos + 1], caches, pos)
+    with torch.inference_mode():
+        einsum, _ = hybrid.forward(model, tokens, cfg32, last_only=True, use_kernel=False)
+    scale = max(1.0, float(prefill.abs().max()))
+    gates = dict(prefill_vs_decode=float((prefill - step).abs().max()) / scale,
+                 kernel_vs_einsum=float((prefill - einsum).abs().max()) / scale,
+                 max_abs_logit=float(prefill.abs().max()), batch=B, tokens=S)
+    finite = all(bool(torch.isfinite(t).all()) for t in (prefill, step, einsum))
+    log(f"[6] {cfg.name} float32 gates: {fmt(gates)} (tol {MODEL_TOL:.0e} relative)")
+    if not finite or not (gates["prefill_vs_decode"] <= MODEL_TOL
+                          and gates["kernel_vs_einsum"] <= MODEL_TOL):
+        raise SystemExit(f"zamba2 float32 gates failed: {gates}, finite={finite}")
+    del model, bundle, caches
+    torch.cuda.empty_cache()
+    return gates
+
+
 def main() -> int:
     import torch
 
@@ -710,6 +994,7 @@ def main() -> int:
     # [3] kernel checks (these launches are not the main path's)
     results: dict = {}
     kernel_checks(obj, engines["fused"], dense_obj, results)
+    ssm_chunk_checks(dev, results)
 
     # [4] the main path: each path's counts are reset before it and read after
     main_path, states, launches = drive_main_path(engines, dense_obj, dev)
@@ -729,11 +1014,16 @@ def main() -> int:
     # [5] parity on the card
     parity(dev)
 
-    # [6] the kernel table and the result
+    # [6] zamba2-1.2b serving: the prefill's counts are reset before each
+    # prefill and read after it
+    serve = zamba2_serve(dev, launches)
+
+    # [7] the kernel table and the result
     src = {"sparse_mix": "src/repro/kernels/sparse_mix.py:60",
            "fused_row_update": "src/repro/kernels/fused_row_update.py:133",
            "graph_mix": "src/repro/kernels/graph_mix.py:38",
-           "dp_clip_noise": "src/repro/kernels/dp_clip_noise.py:67"}
+           "dp_clip_noise": "src/repro/kernels/dp_clip_noise.py:67",
+           "ssm_chunk": "src/repro/kernels/ssm_scan.py:43"}
     kernels = [
         {
             "name": name,
@@ -751,7 +1041,9 @@ def main() -> int:
         for name in _build.KERNELS
     ]
     log(json.dumps({"main_path": main_path, "sparse_mix_Rn": results["sparse_mix_Rn"],
-                    "dp_clip_noise_bf16": results["dp_clip_noise_bf16"]}))
+                    "dp_clip_noise_bf16": results["dp_clip_noise_bf16"],
+                    "ssm_chunk_bf16": results["ssm_chunk_bf16"]}))
+    log(json.dumps({"zamba2_serve": serve}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))

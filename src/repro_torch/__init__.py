@@ -16,10 +16,13 @@ kernels of the reference are hand-written CUDA kernels here
 
 Ported so far: graphs, the Eq. 2 objective, the neighbour-sum operator,
 sequential coordinate descent, the private algorithm (Eq. 6) with its
-accounting, model propagation and the private warm start, and the
+accounting, model propagation and the private warm start, the
 static-topology single-device batched engine driving the Eq. 4, Eq. 6
-and Eq. 16 updates (unfused and fused). Sharding, telemetry, dynamic
-topology, checkpoints and serving are queued in ``ROADMAP.md``.
+and Eq. 16 updates (unfused and fused), and, from the LLM scaffold, the
+model configs and zamba2 serving (``repro_torch.models``: prefill and
+decode of the Mamba2 + shared-attention hybrid). Sharding, telemetry,
+dynamic topology, checkpoints, the engine's serving layer, training and
+the other model families are queued in ``ROADMAP.md``.
 """
 
 from repro_torch.device import resolve_device

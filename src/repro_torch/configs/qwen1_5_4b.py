@@ -1,0 +1,18 @@
+"""qwen1.5-4b [dense] — QKV bias, MHA-style kv=heads/..., [hf:Qwen/Qwen1.5-0.5B family]."""
+
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen1.5-4b",
+    family="dense",
+    num_layers=40,
+    d_model=2560,
+    num_heads=20,
+    num_kv_heads=20,
+    d_ff=6912,
+    vocab_size=151936,
+    head_dim=128,
+    qkv_bias=True,
+    rope_theta=1000000.0,
+    citation="hf:Qwen/Qwen1.5-0.5B",
+)

@@ -14,7 +14,11 @@ build the port's, or give the port's back as numpy:
 * :func:`sim_state_from_numpy` / :func:`sim_state_to_numpy` — an engine
   ``SimState``, with a private update's (n,) applied-update counts
   (``ustate``). The random key is not carried: the two packages' random
-  streams differ, so the port's state takes a fresh generator seed.
+  streams differ, so the port's state takes a fresh generator seed;
+* :func:`load_reference_params` — a model parameter tree (nested dicts of
+  arrays) into an ``nn.Module`` whose ``state_dict`` names follow it;
+* :func:`hybrid_params_from_reference` — the zamba2 hybrid's
+  ``init_params`` tree as a :class:`~repro_torch.models.hybrid.HybridLM`.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from repro_torch.core.dp_cd import DPConfig
 from repro_torch.core.graph import AgentGraph, CSRGraph
 from repro_torch.core.objective import AgentData, Objective, make_objective
 from repro_torch.device import resolve_device
+from repro_torch.models.hybrid import HybridLM
 from repro_torch.sim.engine import SimState
 from repro_torch.sim.updates import DPCDUpdate
 
@@ -159,3 +164,51 @@ def sim_state_to_numpy(state: SimState) -> dict:
     if isinstance(state.ustate, torch.Tensor):
         out["ustate"] = state.ustate.to("cpu", copy=True).numpy()
     return out
+
+
+def _flatten(tree, prefix=""):
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            yield from _flatten(value, f"{prefix}{key}.")
+        else:
+            yield f"{prefix}{key}", np.asarray(value)
+
+
+def load_reference_params(module: torch.nn.Module, tree, stacked=()) -> torch.nn.Module:
+    """Copy the reference parameter ``tree`` into ``module`` and return it.
+
+    Leaf ``a.b.c`` of the tree goes to the state-dict entry ``a.b.c``; under
+    a top-level key in ``stacked`` the leaves carry a leading layer axis,
+    and layer i goes to ``<key>.<i>.<rest>`` (a ``ModuleList``). Names,
+    shapes and types must match exactly (bfloat16 leaves, as numpy reads
+    them, included); anything else raises.
+    """
+    state = {}
+    for name, arr in _flatten(tree):
+        head, _, rest = name.partition(".")
+        if head in stacked:
+            for i in range(arr.shape[0]):
+                state[f"{head}.{i}.{rest}"] = arr[i]
+        else:
+            state[name] = arr
+    own = module.state_dict()
+    if set(own) != set(state):
+        raise KeyError(f"parameter names differ: missing {sorted(set(own) - set(state))}, "
+                       f"unexpected {sorted(set(state) - set(own))}")
+    with torch.no_grad():
+        for name, dst in own.items():
+            arr = state[name]
+            bf16 = arr.dtype.name == "bfloat16"  # numpy reads it as ml_dtypes' type
+            src = torch.from_numpy(np.array(arr, dtype=np.float32 if bf16 else arr.dtype))
+            src_dtype = torch.bfloat16 if bf16 else src.dtype
+            if src_dtype != dst.dtype or tuple(src.shape) != tuple(dst.shape):
+                raise ValueError(f"{name}: reference {src_dtype} {tuple(src.shape)}, "
+                                 f"port {dst.dtype} {tuple(dst.shape)}")
+            dst.copy_(src)
+    return module
+
+
+def hybrid_params_from_reference(tree, cfg, device="cuda"):
+    """The reference hybrid's ``init_params(key, cfg)`` tree (its leaves as
+    numpy, the ``layers`` axis stacked) -> a :class:`HybridLM` on ``device``."""
+    return load_reference_params(HybridLM(cfg, device=device), tree, stacked=("layers",))

@@ -8,7 +8,10 @@ ported so far, each beside its plain PyTorch version:
   (``csrc/graph_mix.cu``);
 * ``dp_clip_noise``    — per-example L2 clip, mean and noise of the DP
   gradient aggregation (``csrc/dp_clip_noise.cu``; reached only through
-  ``ops.dp_clip_noise``, as in the reference).
+  ``ops.dp_clip_noise``, as in the reference);
+* ``ssm_chunk``        — Mamba2's intra-chunk SSD, the chunk output and
+  chunk-end state (``csrc/ssm_chunk.cu``; the Mamba2 block of
+  ``repro_torch.models.ssm`` launches it in every prefill on the card).
 
 ``ops`` holds the dispatching wrappers and the launch counts, ``ref`` the
 plain versions under the reference's names, ``_build`` the nvcc build.

@@ -26,7 +26,7 @@ from pathlib import Path
 
 import torch
 
-KERNELS = ("sparse_mix", "fused_row_update", "graph_mix", "dp_clip_noise")
+KERNELS = ("sparse_mix", "fused_row_update", "graph_mix", "dp_clip_noise", "ssm_chunk")
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -10,11 +10,14 @@ went through the kernels.
 
 from __future__ import annotations
 
+import torch
+
 from repro_torch.kernels._build import launch_counts, reset_launch_counts
 from repro_torch.kernels.dp_clip_noise import dp_clip_noise_cuda, dp_clip_noise_plain
 from repro_torch.kernels.fused_row_update import fused_row_update_cuda, fused_row_update_plain
 from repro_torch.kernels.graph_mix import graph_mix_cuda, graph_mix_plain
 from repro_torch.kernels.sparse_mix import sparse_mix_cuda, sparse_mix_plain
+from repro_torch.kernels.ssm_chunk import ssm_chunk_cuda, ssm_chunk_plain
 
 __all__ = [
     "dp_clip_noise",
@@ -23,6 +26,8 @@ __all__ = [
     "launch_counts",
     "reset_launch_counts",
     "sparse_mix",
+    "ssm_chunk",
+    "ssm_chunk_ad",
 ]
 
 
@@ -69,3 +74,39 @@ def dp_clip_noise(grads, noise, clip, noise_scale):
     if _on_cpu(grads):
         return dp_clip_noise_plain(grads, noise, clip, noise_scale)
     return dp_clip_noise_cuda(grads, noise, clip, noise_scale)
+
+
+def ssm_chunk(C, B, cum, dt, x, heads: int = 1):
+    """Mamba2 intra-chunk SSD -> (y (G, Q, P), s_loc (G, P, N)), float32.
+    C, B (G / heads, Q, N), cum, dt (G, Q), x (G, Q, P); group g reads
+    block g // heads of C and B (``heads=1``: the reference's layout). See
+    :mod:`repro_torch.kernels.ssm_chunk`."""
+    if _on_cpu(x):
+        return ssm_chunk_plain(C, B, cum, dt, x, heads)
+    return ssm_chunk_cuda(C, B, cum, dt, x, heads)
+
+
+class _SSMChunk(torch.autograd.Function):
+    """Forward: :func:`ssm_chunk` (the kernel on the card). Backward: the
+    autograd of the plain version, recomputed from the saved inputs, as
+    the reference's custom VJP takes the oracle's (there is no backward
+    kernel in either package)."""
+
+    @staticmethod
+    def forward(ctx, C, B, cum, dt, x, heads):
+        ctx.heads = heads
+        ctx.save_for_backward(C, B, cum, dt, x)
+        return ssm_chunk(C, B, cum, dt, x, heads)
+
+    @staticmethod
+    def backward(ctx, gy, gs):
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
+            outs = ssm_chunk_plain(*leaves, ctx.heads)
+            grads = torch.autograd.grad(outs, leaves, (gy, gs))
+        return (*grads, None)
+
+
+def ssm_chunk_ad(C, B, cum, dt, x, heads: int = 1):
+    """:func:`ssm_chunk` with a gradient (the plain version's)."""
+    return _SSMChunk.apply(C, B, cum, dt, x, heads)

@@ -1,26 +1,34 @@
 """The CUDA kernels on the card: each against its plain version over a
-shape grid, launch counting, refusal of what a kernel does not take, and
-the engine's fused and unfused routes (non-private and private) against
-the CPU route.
+shape grid, launch counting, refusal of what a kernel does not take, the
+engine's fused and unfused routes (non-private and private) against the
+CPU route, and the zamba2 path (a Mamba2 block through ``ssm_chunk``, a
+2-layer full-width hybrid's prefill against its decode loop).
 
 Marked ``cuda``: every test skips where there is no CUDA device. Run on a
 GPU machine with ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``
 (add ``--noconftest`` where JAX is not installed: the suite's conftest
 imports it, this file does not).
 Tolerance 1e-5 relative to the largest output: float32 sums taken in
-another order than the plain version's.
+another order than the plain version's; 1e-4 (``MODEL_TOL``) for whole
+Mamba2 blocks and models, whose float32 routes differ in many sums.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_config
 from repro_torch.core import AgentData, DPConfig, knn_graph, make_objective
 from repro_torch.kernels import ops, ref
+from repro_torch.models import ssm
+from repro_torch.models.registry import build_model
 from repro_torch.sim import AsyncEngine, CDUpdate, DPCDUpdate
 
 pytestmark = pytest.mark.cuda
 TOL = 1e-5
+MODEL_TOL = 1e-4
 
 
 @pytest.fixture
@@ -30,9 +38,9 @@ def dev():
     return torch.device("cuda", 0)
 
 
-def _close(got, want):
+def _close(got, want, tol=TOL):
     scale = max(1.0, float(want.abs().max()))
-    assert float((got - want).abs().max()) <= TOL * scale
+    assert float((got - want).abs().max()) <= tol * scale
 
 
 @pytest.mark.parametrize("R,n,K,p", [(1, 8, 1, 1), (37, 500, 7, 100), (300, 300, 40, 257),
@@ -219,3 +227,99 @@ def test_dp_engine_routes_on_the_card_match(dev):
     _close(out["auto"][1], out[False][1])
     assert torch.equal(out["auto"][2], out[False][2])
     assert torch.equal(out["auto"][2], torch.full((n,), 3, dtype=torch.int32))
+
+
+def _ssm_inputs(dev, G, Q, N, P, heads, dtype, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    C = torch.randn((G // heads, Q, N), generator=g, device=dev).to(dtype)
+    B = torch.randn((G // heads, Q, N), generator=g, device=dev).to(dtype)
+    cum = torch.cumsum(-0.1 * torch.rand((G, Q), generator=g, device=dev), dim=1)
+    dt = 0.5 * torch.rand((G, Q), generator=g, device=dev)
+    x = torch.randn((G, Q, P), generator=g, device=dev).to(dtype)
+    return C, B, cum, dt, x
+
+
+# (4096, 128, 64, 64, 64) is the zamba2-1.2b prefill: 4 x 16 chunks x 64 heads.
+@pytest.mark.parametrize("G,Q,N,P,heads", [(4096, 128, 64, 64, 64), (2, 16, 8, 16, 1),
+                                           (4, 64, 64, 64, 2), (3, 32, 16, 128, 1),
+                                           (6, 77, 40, 96, 3), (5, 1, 1, 1, 5),
+                                           (2, 128, 128, 128, 1), (7, 33, 64, 17, 7)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssm_chunk_matches_plain(dev, G, Q, N, P, heads, dtype):
+    args = _ssm_inputs(dev, G, Q, N, P, heads, dtype, seed=G + Q + N + P)
+    before = ops.launch_counts()["ssm_chunk"]
+    y, s = ops.ssm_chunk(*args, heads=heads)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["ssm_chunk"] == before + 1
+    assert y.dtype == s.dtype == torch.float32 and y.shape == (G, Q, P) and s.shape == (G, P, N)
+    y_p, s_p = ref.ssm_chunk_ref(*args, heads)
+    _close(y, y_p)
+    _close(s, s_p)
+    # The sum order is fixed: a second launch gives the same bits.
+    y2, s2 = ops.ssm_chunk(*args, heads=heads)
+    assert torch.equal(y, y2) and torch.equal(s, s2)
+
+
+def test_ssm_chunk_head_shared_entry_equals_expanded(dev):
+    C, B, cum, dt, x = _ssm_inputs(dev, 128, 128, 64, 64, 64, torch.float32, seed=9)
+    y, s = ops.ssm_chunk(C, B, cum, dt, x, heads=64)
+    y_e, s_e = ops.ssm_chunk(C.repeat_interleave(64, 0), B.repeat_interleave(64, 0), cum, dt, x)
+    assert torch.equal(y, y_e) and torch.equal(s, s_e)
+
+
+def test_ssm_chunk_refuses_on_the_card(dev):
+    C, B, cum, dt, x = _ssm_inputs(dev, 4, 129, 8, 8, 1, torch.float32, seed=1)
+    before = ops.launch_counts()["ssm_chunk"]
+    with pytest.raises(ValueError, match="Q <= "):
+        ops.ssm_chunk(C, B, cum, dt, x)
+    C, B, cum, dt, x = _ssm_inputs(dev, 4, 16, 8, 8, 1, torch.float32, seed=1)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ops.ssm_chunk(C.double(), B.double(), cum, dt, x.double())
+    with pytest.raises(TypeError, match="cum must be torch.float32"):
+        ops.ssm_chunk(C, B, cum.double(), dt, x)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.ssm_chunk(C, B, cum, dt, x.transpose(1, 2).contiguous().transpose(1, 2))
+    with pytest.raises(ValueError, match="heads=3"):
+        ops.ssm_chunk(C, B, cum, dt, x, heads=3)
+    assert ops.launch_counts()["ssm_chunk"] == before
+
+
+def _full_width(num_layers, every):
+    """zamba2-1.2b at its full width, cut to ``num_layers`` layers, float32."""
+    return dataclasses.replace(get_config("zamba2-1.2b"), num_layers=num_layers,
+                               shared_attn_every=every, dtype="float32")
+
+
+def test_mamba2_block_launches_the_kernel_and_matches_the_einsums(dev):
+    cfg = _full_width(1, None)
+    block = ssm.Mamba2(cfg, device=dev, dtype=torch.float32,
+                       generator=torch.Generator(device=dev).manual_seed(0))
+    x = torch.randn((2, 256, cfg.d_model), generator=torch.Generator(device=dev).manual_seed(1),
+                    device=dev)
+    with torch.inference_mode():
+        before = ops.launch_counts()["ssm_chunk"]
+        got = ssm.mamba2_forward(block, x, cfg)
+        assert ops.launch_counts()["ssm_chunk"] == before + 1
+        want = ssm.mamba2_forward(block, x, cfg, use_kernel=False)
+    _close(got, want, MODEL_TOL)
+
+
+def test_full_width_hybrid_prefill_matches_its_decode_loop(dev):
+    """Two full-width layers (the shared block after the second), float32
+    with TF32 off: the chunked prefill through the kernel over two chunks
+    against the same 256 tokens fed one at a time through decode."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = _full_width(2, 2)
+    bundle = build_model(cfg)
+    model = bundle.init(0)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 256),
+                           generator=torch.Generator(device=dev).manual_seed(2), device=dev)
+    before = ops.launch_counts()["ssm_chunk"]
+    logits, _ = bundle.prefill(model, {"tokens": tokens})
+    assert ops.launch_counts()["ssm_chunk"] == before + 2
+    caches = bundle.init_cache(model, 2, 256)
+    for pos in range(256):
+        step, caches = bundle.decode(model, tokens[:, pos:pos + 1], caches, pos)
+    assert logits.shape == step.shape == (2, 1, cfg.padded_vocab)
+    assert bool(torch.isfinite(logits).all())
+    _close(step, logits, MODEL_TOL)

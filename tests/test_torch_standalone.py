@@ -28,7 +28,8 @@ def _modules():
 
 def test_every_module_imports_without_jax_or_reference():
     mods = _modules()
-    assert {"repro_torch.sim.engine", "repro_torch.kernels.ops", "repro_torch.convert"} <= set(mods)
+    assert {"repro_torch.sim.engine", "repro_torch.kernels.ops", "repro_torch.convert",
+            "repro_torch.models.hybrid", "repro_torch.kernels.ssm_chunk"} <= set(mods)
     code = textwrap.dedent(
         f"""
         import importlib, sys
@@ -101,3 +102,28 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take():
             torch.rand(B, m), None, torch.rand(8, p))
     with pytest.raises(ValueError, match="p <= "):
         fused_row_update_cuda(*args, 8)
+
+
+def test_ssm_chunk_wrapper_refuses_what_the_kernel_does_not_take():
+    """The checks run before any build or launch, so they hold on the CPU."""
+    from repro_torch.kernels.ssm_chunk import MAX_Q, ssm_chunk_cuda
+
+    def args(G=4, Q=16, N=8, P=8, heads=1, dtype=torch.float32):
+        return (torch.rand(G // heads, Q, N, dtype=dtype), torch.rand(G // heads, Q, N, dtype=dtype),
+                torch.rand(G, Q), torch.rand(G, Q), torch.rand(G, Q, P, dtype=dtype))
+
+    with pytest.raises(ValueError, match="Q <= "):
+        ssm_chunk_cuda(*args(Q=MAX_Q + 1))
+    with pytest.raises(ValueError, match="N <= "):
+        ssm_chunk_cuda(*args(N=129))
+    with pytest.raises(ValueError, match="heads=3"):
+        ssm_chunk_cuda(*args(G=4), heads=3)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ssm_chunk_cuda(*args(dtype=torch.float64))
+    C, B, cum, dt, x = args()
+    with pytest.raises(TypeError, match="C must be torch.bfloat16"):
+        ssm_chunk_cuda(C, B, cum, dt, x.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        ssm_chunk_cuda(C, B, cum, dt, x.transpose(1, 2).contiguous().transpose(1, 2))
+    with pytest.raises(ValueError, match="shape"):
+        ssm_chunk_cuda(C, B, cum, dt, x, heads=2)
