@@ -15,6 +15,10 @@ Phases, one line each (any failure ends the run with a non-zero code):
    CUDA-event medians of the kernel, the plain version and, where one
    PyTorch call computes the same function, that call, beside the bound
    (the larger of bytes over 3.35 TB/s and flops over 67 TFLOP/s);
+   ``sparse_mix`` at R = B and R = n with ``gather_ms`` beside the bound
+   (every real entry's Theta row over HBM bandwidth: what the access
+   pattern allows); ``graph_mix`` with its split-K plan, its library
+   call with TF32 off (printed);
    ``dp_clip_noise`` at the (256, 4096) float32 shape of
    ``benchmarks/bench_kernels.py`` and at (200, 1000) in bfloat16;
    ``ssm_chunk`` at the zamba2-1.2b prefill's shape (G = 4 x 16 chunks x
@@ -28,15 +32,18 @@ Phases, one line each (any failure ends the run with a non-zero code):
    engine on the same problem with the per-point clip 1.0 (``DPCDUpdate``,
    eps_bar = 0.5, delta_bar = exp(-5), Laplace, each agent planning for
    the expected wakes of the whole leg, so agents that wake more often stop
-   at their budget), fused and unfused; and the dense path (synchronous
-   rounds at n = 2047 through ``graph_mix``). After a warm-up the five legs
+   at their budget), fused and unfused; the dense path (synchronous
+   rounds at n = 2047 through ``graph_mix``); and the paper's synchronous
+   baseline on the 500k problem (``synchronous_round``: ``MixOp.all``
+   through ``sparse_mix`` at R = n). After a warm-up the six legs
    take turns over 7 timed windows of 200 slots (rounds) each; each rate is
    the median window's, printed with the slowest and fastest, and the
    fused/unfused ratio is taken window by window. Launch counts are reset
    before and read after every window, and each leg must launch its own
-   kernel in every window. Then 16 slots of each engine leg run under
-   torch.profiler (traces in ``build/repro_torch/``): device time per slot
-   by kernel, and the device idle share. Last, the ``dp_clip_noise`` leg:
+   kernel in every window. Then 16 slots of each engine leg, and 16
+   rounds of each synchronous leg, run under torch.profiler (traces in
+   ``build/repro_torch/``): device time per slot (round) by kernel, and the
+   device idle share. Last, the ``dp_clip_noise`` leg:
    200 DP aggregation rounds of (256, 4096) per-example gradients through
    ``ops.dp_clip_noise``, the path by which the kernel is reached (no engine
    path calls it, as in the JAX package);
@@ -192,6 +199,8 @@ def kernel_checks(obj, engine, dense_obj, results) -> None:
     import torch
 
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels._build import vector_loads
+    from repro_torch.kernels.graph_mix import split_plan
     from repro_torch.sim.updates import _eq4_fused_args, fused_rows
 
     dev = engine.device
@@ -222,13 +231,16 @@ def kernel_checks(obj, engine, dense_obj, results) -> None:
         csr = torch.sparse_csr_tensor(crow, idx[real].long(), w[real], size=(R, n),
                                       check_invariants=True)
         lib_err = float((torch.sparse.mm(csr, theta) - want).abs().max())
+        edges = int(real.sum())
         timing = dict(
-            R=R, K=K,
+            R=R, K=K, edges=edges, float4=vector_loads(theta),
             ms=time_ms(lambda: ops.sparse_mix(idx, w, theta)),
             plain_ms=time_ms(lambda: ref.sparse_mix_ref(idx, w, theta)),
             library_ms=time_ms(lambda: torch.sparse.mm(csr, theta)),
             library_err=lib_err,
-            **bound(nbytes, 2.0 * int(real.sum()) * p),
+            # What the access pattern allows: every real entry's row from HBM.
+            gather_ms=edges * p * 4 / HBM_BYTES_PER_S * 1e3,
+            **bound(nbytes, 2.0 * edges * p),
         )
         check_kernel("sparse_mix", got, want, results, **timing)
         results[f"sparse_mix_R{label}"] = results["sparse_mix"]
@@ -259,17 +271,21 @@ def kernel_checks(obj, engine, dense_obj, results) -> None:
     )
     check_kernel("fused_row_update", got, want, results, **timing)
 
-    # graph_mix: dense A @ Theta at n = 2047, p = 100 (MixOp.all, dense).
+    # graph_mix: dense A @ Theta at n = 2047, p = 100 (MixOp.all, dense); the
+    # library call in full float32.
     A = dense_obj.mix.table("W", dev, f32)
     th = torch.randn((dense_obj.n, p), generator=gen, device=dev, dtype=f32)
     got = ops.graph_mix(A, th)
     want = ref.graph_mix_ref(A, th)
     dn = dense_obj.n
+    plan = split_plan(dn, p, torch.cuda.get_device_properties(dev).multi_processor_count)
+    torch.backends.cuda.matmul.allow_tf32 = False
     timing = dict(
-        n=dn, p=p,
+        n=dn, p=p, splits=plan.splits, chunk=plan.chunk, theta_float4=vector_loads(th),
         ms=time_ms(lambda: ops.graph_mix(A, th)),
         plain_ms=time_ms(lambda: ref.graph_mix_ref(A, th)),
         library_ms=time_ms(lambda: torch.matmul(A, th)),
+        library_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
         **bound((dn * dn + 2 * dn * p) * 4, 2.0 * dn * dn * p),
     )
     check_kernel("graph_mix", got, want, results, **timing)
@@ -337,25 +353,11 @@ def _device_events(events) -> list:
             if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
 
 
-def profile_slots(label, engine, state, slots: int, out_dir: Path, ms_per_slot: float):
-    """Trace ``slots`` sampled super-ticks with torch.profiler; print the
-    device time per slot by kernel name, from the exported Chrome trace
-    (kernel, memcpy and memset events), and the device idle share: of the
-    traced window, and of the untraced slot time ``ms_per_slot`` measured
-    before (the tracer itself slows the host)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        state = engine.advance(state, slots)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    out_dir.mkdir(parents=True, exist_ok=True)
-    trace = out_dir / f"trace_{label.replace(' ', '_')}.json"
-    prof.export_chrome_trace(str(trace))
-    events = json.loads(trace.read_text()).get("traceEvents", [])
+def report_trace(label, events, wall_ms, steps, unit, ms_per_step):
+    """Print and return the device time per step by kernel name, from a
+    Chrome trace's kernel, memcpy and memset events, and the device idle
+    share: of the traced window, and of the untraced step time
+    ``ms_per_step`` measured before (the tracer itself slows the host)."""
     by_name: dict = {}
     for e in _device_events(events):
         us, count = by_name.get(e["name"], (0.0, 0))
@@ -363,16 +365,45 @@ def profile_slots(label, engine, state, slots: int, out_dir: Path, ms_per_slot: 
     busy_us = sum(us for us, _ in by_name.values())
     if busy_us <= 0:
         raise SystemExit(f"{label}: the profiler saw no device time")
-    launches = sum(c for _, c in by_name.values())
-    busy_ms = busy_us / slots / 1e3
-    log(f"[4p] {label}: {slots} traced slots: traced_ms_per_slot={wall_us / slots / 1e3:.6g} "
-        f"device_busy_ms_per_slot={busy_ms:.6g} device_ops_per_slot={launches / slots:.6g} "
-        f"idle_share_traced={1.0 - busy_us / wall_us:.6g} "
-        f"idle_share_untraced={1.0 - busy_ms / ms_per_slot:.6g} trace={trace}")
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
-    for name, (us, count) in top:
-        log(f"[4p]   {us / slots:9.2f} us/slot  x{count / slots:5.2f}/slot  {name[:110]}")
-    return state
+    busy_ms = busy_us / steps / 1e3
+    out = {f"traced_ms_per_{unit}": wall_ms / steps, f"device_busy_ms_per_{unit}": busy_ms,
+           f"device_ops_per_{unit}": sum(c for _, c in by_name.values()) / steps,
+           "idle_share_traced": 1.0 - busy_us / 1e3 / wall_ms,
+           "idle_share_untraced": 1.0 - busy_ms / ms_per_step}
+    log(f"[4p] {label}: {steps} traced {unit}s: {fmt(out)}")
+    for name, (us, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
+        log(f"[4p]   {us / steps:9.2f} us/{unit}  x{count / steps:5.2f}/{unit}  {name[:110]}")
+    return out
+
+
+def profile_slots(label, engine, state, slots: int, out_dir: Path, ms_per_slot: float):
+    """Trace ``slots`` sampled super-ticks with torch.profiler (Chrome trace
+    in ``out_dir``) and report them (:func:`report_trace`)."""
+    box = [state]
+
+    def run():
+        box[0] = engine.advance(box[0], slots)
+
+    events, wall_ms = traced(run, out_dir / f"trace_{label.replace(' ', '_')}.json")
+    report_trace(label, events, wall_ms, slots, "slot", ms_per_slot)
+    return box[0]
+
+
+def profile_rounds(label, obj, rounds: int, out_dir: Path, ms_per_round: float, dev) -> dict:
+    """Trace ``rounds`` synchronous rounds from zeros on ``obj`` (after one
+    untraced warm-up round) and report them (:func:`report_trace`)."""
+    import torch
+
+    from repro_torch.core.coordinate_descent import synchronous_round
+
+    box = [synchronous_round(obj, torch.zeros((obj.n, obj.p), device=dev, dtype=torch.float32))]
+
+    def run():
+        for _ in range(rounds):
+            box[0] = synchronous_round(obj, box[0])
+
+    events, wall_ms = traced(run, out_dir / f"trace_{label.replace(' ', '_')}.json")
+    return report_trace(label, events, wall_ms, rounds, "round", ms_per_round)
 
 
 def timed_windows(legs: dict, launches: dict) -> dict:
@@ -420,9 +451,10 @@ def spread(values) -> dict:
 # in its own leg: no engine path calls it).
 PATH_KERNEL = {"fused": "fused_row_update", "unfused": "sparse_mix",
                "dp_fused": "fused_row_update", "dp_unfused": "sparse_mix",
-               "dense": "graph_mix", "dp_clip_noise": "dp_clip_noise",
-               "zamba2_prefill": "ssm_chunk"}
+               "dense": "graph_mix", "sparse_sync": "sparse_mix",
+               "dp_clip_noise": "dp_clip_noise", "zamba2_prefill": "ssm_chunk"}
 ENGINE_LEGS = ("fused", "unfused", "dp_fused", "dp_unfused")
+SYNC_LEGS = ("dense", "sparse_sync")  # synchronous_round: graph_mix, sparse_mix at R = n
 
 
 def check_windows(label: str, timed_leg: dict) -> None:
@@ -433,10 +465,12 @@ def check_windows(label: str, timed_leg: dict) -> None:
         raise SystemExit(f"{label} leg: {want} not launched in every window ({per})")
 
 
-def drive_main_path(engines, dense_obj, dev):
+def drive_main_path(engines, dense_obj, sparse_obj, dev):
     """Phase 4: the engine legs of ``engines`` (``ENGINE_LEGS``: the fused
-    and unfused slots, non-private and private) and dense synchronous
-    rounds (``graph_mix``), warmed up, then timed in interleaved windows.
+    and unfused slots, non-private and private), dense synchronous rounds
+    (``graph_mix``) and synchronous rounds on the sparse main-path
+    objective (the paper's synchronous baseline: ``MixOp.all`` through
+    ``sparse_mix`` at R = n), warmed up, then timed in interleaved windows.
     Fails unless each leg launched its kernel in every window and kept
     Theta finite, and each non-private leg lowered its objective. Returns
     the legs' numbers, the engine states and the launch counts of the
@@ -452,22 +486,28 @@ def drive_main_path(engines, dense_obj, dev):
         state = eng.init_state(np.zeros((eng.n, eng.p), dtype=np.float32))
         q0 = eng._objective_value(state)
         states[key] = dict(q0=q0, state=eng.advance(state, WARM_STEPS))
-    dense = dict(Theta=torch.zeros((dense_obj.n, dense_obj.p), device=dev, dtype=torch.float32))
-    dense["q0"] = float(dense_obj.value(dense["Theta"]))
+    sync = {}  # the synchronous legs: objective, iterate, starting value
+    for key, o in (("dense", dense_obj), ("sparse_sync", sparse_obj)):
+        Theta = torch.zeros((o.n, o.p), device=dev, dtype=torch.float32)
+        sync[key] = dict(obj=o, Theta=Theta, q0=float(o.value(Theta)))
 
     def slots(key):
         def step(k):
             states[key]["state"] = engines[key].advance(states[key]["state"], k)
         return step, lambda: int(states[key]["state"].applied)
 
-    def rounds(k):
-        for _ in range(k):
-            dense["Theta"] = synchronous_round(dense_obj, dense["Theta"])
+    def rounds(key):
+        def step(k):
+            leg = sync[key]
+            for _ in range(k):
+                leg["Theta"] = synchronous_round(leg["obj"], leg["Theta"])
+        return step, None
 
-    rounds(WARM_STEPS)
     launches: dict = {}
     legs = {key: slots(key) for key in ENGINE_LEGS}
-    legs["dense"] = (rounds, None)
+    for key in SYNC_LEGS:
+        legs[key] = rounds(key)
+        legs[key][0](WARM_STEPS)
     timed = timed_windows(legs, launches)
 
     main_path = {}
@@ -494,15 +534,19 @@ def drive_main_path(engines, dense_obj, dev):
         ratios = [f / u for f, u in zip(timed[a]["rates"], timed[b]["rates"])]
         main_path[f"{a}_over_{b}"] = spread(ratios)
         log(f"[4] {a} / {b} slots/s, window by window: {fmt(spread(ratios))}")
-    rate = spread(timed["dense"]["rates"])
-    q1 = float(dense_obj.value(dense["Theta"]))
-    main_path["dense"] = dict(rounds_per_s=rate["median"], rounds_per_s_min=rate["min"],
-                              rounds_per_s_max=rate["max"], Q0=dense["q0"], Q=q1)
-    log(f"[4] dense n={dense_obj.n} synchronous rounds: {fmt(main_path['dense'])} "
-        f"launches={timed['dense']['counts']}")
-    check_windows("dense", timed["dense"])
-    if not q1 < dense["q0"] or not bool(torch.isfinite(dense["Theta"]).all()):
-        raise SystemExit("dense leg: Q not decreasing, or Theta not finite")
+    for key in SYNC_LEGS:
+        leg = sync[key]
+        rate = spread(timed[key]["rates"])
+        q1 = float(leg["obj"].value(leg["Theta"]))
+        finite = bool(torch.isfinite(leg["Theta"]).all())
+        main_path[key] = dict(rounds_per_s=rate["median"], rounds_per_s_min=rate["min"],
+                              rounds_per_s_max=rate["max"], ms_per_round=1e3 / rate["median"],
+                              Q0=leg["q0"], Q=q1, finite=finite)
+        log(f"[4] {key} n={leg['obj'].n} synchronous rounds ({leg['obj'].mix.kind} mix): "
+            f"{fmt(main_path[key])} launches={timed[key]['counts']}")
+        check_windows(key, timed[key])
+        if not q1 < leg["q0"] or not finite:
+            raise SystemExit(f"{key} leg: Q not decreasing, or Theta not finite")
     return main_path, {k: v["state"] for k, v in states.items()}, launches
 
 
@@ -997,7 +1041,7 @@ def main() -> int:
     ssm_chunk_checks(dev, results)
 
     # [4] the main path: each path's counts are reset before it and read after
-    main_path, states, launches = drive_main_path(engines, dense_obj, dev)
+    main_path, states, launches = drive_main_path(engines, dense_obj, obj, dev)
 
     # [4p] where a slot's device time goes, traced after every timed leg
     # (an attached tracer slows what runs after it).
@@ -1005,6 +1049,10 @@ def main() -> int:
         states[key] = profile_slots(f"rgg500k_p100 {key}", engines[key], states[key],
                                     PROFILE_SLOTS, _build.build_dir() / "traces",
                                     main_path[key]["ms_per_slot"])
+    for key, o in (("dense", dense_obj), ("sparse_sync", obj)):
+        main_path[key]["trace"] = profile_rounds(
+            f"{key} n={o.n}", o, PROFILE_SLOTS, _build.build_dir() / "traces",
+            main_path[key]["ms_per_round"], dev)
     budget_check(engines, states, main_path)
     main_path["dp_clip_noise"] = dp_clip_noise_leg(dev, launches)
     missing = [k for k in _build.KERNELS if k not in PATH_KERNEL.values()]

@@ -159,6 +159,14 @@ def check_tensor(t, name: str, *, dtype, ndim: int, device, shape=None) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+def vector_loads(t) -> bool:
+    """Whether a kernel may read the rows of the float32 matrix ``t`` 16
+    bytes at a time: a width of a multiple of 4 and a start on a 16-byte
+    boundary (a contiguous view at any other storage offset is not). The
+    wrappers launch their scalar instances otherwise."""
+    return t.shape[1] % 4 == 0 and t.data_ptr() % 16 == 0
+
+
 def stream_of(device) -> int:
     """PyTorch's current CUDA stream on ``device``, as the C entry points take it."""
     return torch.cuda.current_stream(device).cuda_stream

@@ -20,8 +20,9 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.core import AgentData, DPConfig, knn_graph, make_objective
-from repro_torch.kernels import ops, ref
+from repro_torch.core import AgentData, DPConfig, knn_graph, make_objective, random_geometric_graph
+from repro_torch.core.mixing import mix_op
+from repro_torch.kernels import _build, ops, ref
 from repro_torch.models import ssm
 from repro_torch.models.registry import build_model
 from repro_torch.sim import AsyncEngine, CDUpdate, DPCDUpdate
@@ -323,3 +324,114 @@ def test_full_width_hybrid_prefill_matches_its_decode_loop(dev):
     assert logits.shape == step.shape == (2, 1, cfg.padded_vocab)
     assert bool(torch.isfinite(logits).all())
     _close(step, logits, MODEL_TOL)
+
+
+# The redesigned graph_mix (split-K, cp.async ring) and sparse_mix (only the
+# real entries walked, float4 and scalar instances).
+
+
+@pytest.mark.parametrize("n,p,layout", [
+    (2047, 100, "aligned"),  # the dense main path: odd row stride of A, 16 parts
+    (50, 100, "aligned"),    # under one 128-row tile and one part
+    (300, 37, "aligned"),    # p % 4 != 0: 4-byte copies of Theta
+    (700, 129, "aligned"),
+    (129, 1, "aligned"),
+    (4000, 64, "aligned"),   # 32 row tiles, 8 parts
+    (1000, 100, "offset"),   # Theta at a storage offset of one float: unaligned
+])
+def test_graph_mix_split_k_matches_plain_and_repeats_its_bits(dev, n, p, layout):
+    g = torch.Generator(device=dev).manual_seed(n + p)
+    A = torch.rand((n, n), generator=g, device=dev)
+    if layout == "offset":
+        theta = torch.randn(n * p + 1, generator=g, device=dev)[1:].view(n, p)
+        assert not _build.vector_loads(theta)
+    else:
+        theta = torch.randn((n, p), generator=g, device=dev)
+    before = ops.launch_counts()["graph_mix"]
+    got = ops.graph_mix(A, theta)
+    again = ops.graph_mix(A, theta)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["graph_mix"] == before + 2
+    _close(got, ref.graph_mix_ref(A, theta))
+    assert torch.equal(got, again)  # fixed summation order: the same bits
+
+
+def _zero_scattered(R, n, K, p, dev, seed, zero_share=0.5):
+    """Tables whose weight-0 entries lie anywhere in a row (not only at its
+    end), rows 0 and R // 2 all padding."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    idx = torch.randint(0, n, (R, K), generator=g, device=dev, dtype=torch.int32)
+    w = torch.rand((R, K), generator=g, device=dev) + 0.1
+    w[torch.rand((R, K), generator=g, device=dev) < zero_share] = 0.0
+    w[0] = 0.0
+    w[R // 2] = 0.0
+    theta = torch.randn((n, p), generator=g, device=dev)
+    return idx, w, theta
+
+
+@pytest.mark.parametrize("R,n,K,p", [(500, 800, 38, 100), (300, 300, 1, 100), (300, 300, 33, 100),
+                                     (200, 400, 64, 100), (257, 300, 33, 37), (100, 200, 64, 129),
+                                     (64, 100, 38, 3), (40, 60, 70, 260)])
+def test_sparse_mix_walks_only_real_entries(dev, R, n, K, p):
+    idx, w, theta = _zero_scattered(R, n, K, p, dev, seed=R + K + p)
+    before = ops.launch_counts()["sparse_mix"]
+    got = ops.sparse_mix(idx, w, theta)
+    again = ops.sparse_mix(idx, w, theta)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["sparse_mix"] == before + 2
+    _close(got, ref.sparse_mix_ref(idx, w, theta))
+    assert torch.equal(got, again)  # fixed summation order: the same bits
+    assert torch.equal(got[0], torch.zeros(p, device=dev))  # all padding: zero
+    assert torch.equal(got[R // 2], torch.zeros(p, device=dev))
+
+
+def test_sparse_mix_scalar_instance_at_a_storage_offset(dev):
+    """A Theta view one float into its buffer is not 16-byte aligned: the
+    wrapper launches the scalar instance, which sums in the same order as
+    the float4 one, so the bits agree."""
+    R, n, K, p = 300, 500, 38, 100
+    idx, w, aligned = _zero_scattered(R, n, K, p, dev, seed=7)
+    buf = torch.empty(n * p + 1, device=dev)
+    buf[1:] = aligned.flatten()
+    shifted = buf[1:].view(n, p)
+    assert _build.vector_loads(aligned) and not _build.vector_loads(shifted)
+    got = ops.sparse_mix(idx, w, shifted)
+    _close(got, ref.sparse_mix_ref(idx, w, shifted))
+    assert torch.equal(got, ops.sparse_mix(idx, w, aligned))
+
+
+def test_sparse_mix_full_neighbour_sum_on_a_random_geometric_graph(dev):
+    """R = n on a 20k-agent random geometric graph (MixOp.all's tables):
+    against the plain version and against the COO index_add_ route."""
+    n, p = 20_000, 100
+    mix = mix_op(random_geometric_graph(n, np.random.default_rng(0), avg_degree=16.0), "sparse")
+    theta = torch.randn((n, p), generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+    idx, w = mix.table("idx", dev, torch.int32), mix.table("w", dev, torch.float32)
+    assert float((w == 0).float().mean()) > 0.3  # padding is there to skip
+    before = ops.launch_counts()["sparse_mix"]
+    got = mix.all(theta)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["sparse_mix"] == before + 1
+    _close(got, ref.sparse_mix_ref(idx, w, theta))
+    _close(got, mix.all(theta, use_kernel=False))
+    assert torch.equal(got, mix.all(theta))
+
+
+def test_sparse_mix_nan_reached_only_at_weight_zero_stays_out(dev):
+    """The recorded deviation: a non-finite Theta row that a row reaches
+    only through weight-0 entries leaves that output finite (the kernel
+    skips the entry), where the plain version gives NaN (0 * NaN). A row
+    that reaches it at a nonzero weight is NaN on both routes."""
+    n, p = 50, 100
+    theta = torch.randn((n, p), device=dev)
+    theta[7] = float("nan")
+    idx = torch.tensor([[3, 7, 9], [7, 2, 7], [1, 2, 3]], dtype=torch.int32, device=dev)
+    w = torch.tensor([[0.5, 0.0, 0.25], [0.0, 1.0, 0.0], [0.1, 0.2, 0.3]], device=dev)
+    got = ops.sparse_mix(idx, w, theta)
+    plain = ref.sparse_mix_ref(idx, w, theta)
+    assert bool(torch.isfinite(got[:2]).all()) and bool(torch.isnan(plain[:2]).all())
+    torch.testing.assert_close(got[0], 0.5 * theta[3] + 0.25 * theta[9])
+    assert torch.equal(got[1], theta[2])
+    _close(got[2], plain[2])
+    w[0, 1] = 0.5
+    assert bool(torch.isnan(ops.sparse_mix(idx, w, theta)[0]).all())

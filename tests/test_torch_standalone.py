@@ -127,3 +127,28 @@ def test_ssm_chunk_wrapper_refuses_what_the_kernel_does_not_take():
         ssm_chunk_cuda(C, B, cum, dt, x.transpose(1, 2).contiguous().transpose(1, 2))
     with pytest.raises(ValueError, match="shape"):
         ssm_chunk_cuda(C, B, cum, dt, x, heads=2)
+
+
+def test_mix_wrappers_take_theta_at_any_offset_and_refuse_strides():
+    """A contiguous Theta at a storage offset passes the checks (the
+    kernels' scalar instances read it; see tests/test_torch_mix_plans.py);
+    a transposed mix or Theta is refused, as is a mix of another size. The
+    checks run before any build or launch, so they hold on the CPU."""
+    from repro_torch.kernels.graph_mix import graph_mix_cuda
+    from repro_torch.kernels.sparse_mix import sparse_mix_cuda
+
+    cpu = torch.device("cpu")
+    shifted = torch.rand(6 * 4 + 1)[1:].view(6, 4)
+    _build.check_tensor(shifted, "theta", dtype=torch.float32, ndim=2, device=cpu)
+    A = torch.rand(6, 6)
+    with pytest.raises(ValueError, match="contiguous"):
+        graph_mix_cuda(A.t(), shifted)
+    with pytest.raises(ValueError, match="shape"):
+        graph_mix_cuda(torch.rand(5, 5), shifted)
+    with pytest.raises(ValueError, match="contiguous"):
+        graph_mix_cuda(A, torch.rand(4, 6).t())
+    idx, w = torch.zeros((3, 2), dtype=torch.int32), torch.rand(3, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        sparse_mix_cuda(idx, w, torch.rand(4, 6).t())
+    with pytest.raises(ValueError, match="contiguous"):
+        sparse_mix_cuda(idx, torch.rand(2, 3).t(), shifted)
