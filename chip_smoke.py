@@ -175,6 +175,28 @@ def quadratic_rgg_problem(n, p, m, avg_degree, mu, seed, mix_mode="auto"):
     return make_objective(graph, data, "quadratic", mu=mu, mix_mode=mix_mode)
 
 
+def ptxas_summary(logs: dict) -> list:
+    """``kernel<template arguments>: registers, spill bytes`` for every
+    entry function in nvcc's ``-Xptxas -v`` output."""
+    import re
+
+    out, name, stores = [], "?", 0
+    for text in logs.values():
+        for line in text.splitlines():
+            hit = re.search(r"Compiling entry function '(.*)'", line)
+            if hit:
+                m = re.search(r"\d+([a-z_]+_kernel)(I.*?EE)?", hit.group(1))
+                args = ",".join(re.findall(r"L[a-z](\d+)E", m.group(2) or "")) if m else ""
+                name = (m.group(1) if m else hit.group(1)) + (f"<{args}>" if args else "")
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if spill:
+                stores = int(spill.group(1)) + int(spill.group(2))
+            regs = re.search(r"Used (\d+) registers", line)
+            if regs:
+                out.append(f"{name}: {regs.group(1)} regs, {stores} B spill")
+    return out
+
+
 def fmt(values: dict) -> str:
     return " ".join(f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}"
                     for k, v in values.items())
@@ -200,6 +222,7 @@ def kernel_checks(obj, engine, dense_obj, results) -> None:
 
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels._build import vector_loads
+    from repro_torch.kernels.fused_row_update import row_plan
     from repro_torch.kernels.graph_mix import split_plan
     from repro_torch.sim.updates import _eq4_fused_args, fused_rows
 
@@ -263,8 +286,9 @@ def kernel_checks(obj, engine, dense_obj, results) -> None:
               + rows_read * p * 4 + nvalid * p * 4)
     flops = 2.0 * int(real.sum()) * p + nvalid * (4.0 * m * p + 8.0 * p)
     slab_k, slab_p = theta.clone(), theta.clone()
+    plan = row_plan(B, p, (theta, args[4], args[7]))
     timing = dict(
-        B=B, K=K, valid=nvalid,
+        B=B, K=K, valid=nvalid, passes=plan.passes, float4=plan.vec,
         ms=time_ms(lambda: ops.fused_row_update(*args, slab_k, n)),
         plain_ms=time_ms(lambda: ref.fused_row_update_ref(*args, slab_p, n)),
         library_ms=None, **bound(nbytes, flops),
@@ -315,13 +339,20 @@ def ssm_chunk_checks(dev, results) -> None:
     16 chunks x 64 heads, Q = 128, N = P = 64, float32, C and B given once
     per (batch, chunk) and shared by its 64 heads, as the Mamba2 block
     passes them), then at a small ragged bfloat16 shape. The bound counts
-    the causal float32 work, 2 G [Q(Q+1)/2 (N + P) + Q P N] flops, and
-    each distinct input read once. No single PyTorch call computes the
-    function, so there is no library time."""
+    the causal float32 work the function needs, C.B^T once per C/B block:
+    2 [(G / heads) Q(Q+1)/2 N + G Q(Q+1)/2 P + G Q P N] flops, and each
+    distinct input read once; ``gflop_cb_per_group`` is the earlier count,
+    which took C.B^T once per group, printed so older rows compare. At the
+    prefill shape every divisor of the 64 heads is timed as the heads per
+    block (``hg_ms``) beside the plan's choice. No single PyTorch call
+    computes the function, so there is no library time."""
     import torch
 
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels.ssm_chunk import blocks_per_sm, head_plan, smem_bytes, ssm_chunk_cuda
 
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    smem = _build.load("ssm_chunk").ssm_chunk_smem_bytes
     gen = torch.Generator(device=dev).manual_seed(3)
     for label, (G, Q, N, P, heads), dt in (("prefill", (4 * 16 * 64, 128, 64, 64, 64), torch.float32),
                                            ("bf16", (6, 77, 40, 96, 3), torch.bfloat16)):
@@ -333,11 +364,23 @@ def ssm_chunk_checks(dev, results) -> None:
         args = (C, B, cum, dtv, x, heads)
         got = torch.cat([t.flatten() for t in ops.ssm_chunk(*args)])
         want = torch.cat([t.flatten() for t in ref.ssm_chunk_ref(*args)])
-        flops = 2.0 * G * (Q * (Q + 1) / 2 * (N + P) + Q * P * N)
+        tri = Q * (Q + 1) / 2
+        flops = 2.0 * (G // heads * tri * N + G * tri * P + G * Q * P * N)
         nbytes = ((2 * C.numel() + x.numel()) * C.element_size() + 2 * G * Q * 4
                   + (G * Q * P + G * P * N) * 4)
+        hg = head_plan(G, heads, sms, Q, N, P)
+        if smem(Q, N, P) != smem_bytes(Q, N, P):
+            raise SystemExit(f"ssm_chunk: the plan's shared memory {smem_bytes(Q, N, P)} is not "
+                             f"the kernel's {smem(Q, N, P)}")
+        if label == "prefill":
+            hg_ms = {d: time_ms(lambda: ssm_chunk_cuda(*args[:5], heads=heads, head_group=d))
+                     for d in range(1, heads + 1) if heads % d == 0}
+            log(f"[3] ssm_chunk heads per block at the prefill: {fmt(hg_ms)} (plan: {hg})")
         timing = dict(
-            G=G, Q=Q, N=N, P=P, heads=heads, dtype=str(dt).replace("torch.", ""), gflop=flops / 1e9,
+            G=G, Q=Q, N=N, P=P, heads=heads, dtype=str(dt).replace("torch.", ""),
+            head_group=hg, blocks=G // hg, smem_bytes=smem(Q, N, P),
+            blocks_per_sm=blocks_per_sm(Q, N, P),
+            gflop=flops / 1e9, gflop_cb_per_group=2.0 * G * (tri * (N + P) + Q * P * N) / 1e9,
             ms=time_ms(lambda: ops.ssm_chunk(*args)),
             plain_ms=time_ms(lambda: ref.ssm_chunk_ref(*args)),
             library_ms=None, **bound(nbytes, flops),
@@ -353,11 +396,18 @@ def _device_events(events) -> list:
             if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
 
 
+# The __global__ functions of src/repro_torch/csrc, as the trace names them.
+OUR_KERNELS = ("sparse_mix_kernel", "fused_rows_kernel", "scatter_rows_kernel",
+               "graph_mix_kernel", "split_sum_kernel", "norms_kernel",
+               "clip_mean_kernel", "ssm_chunk_kernel")
+
+
 def report_trace(label, events, wall_ms, steps, unit, ms_per_step):
     """Print and return the device time per step by kernel name, from a
     Chrome trace's kernel, memcpy and memset events, and the device idle
     share: of the traced window, and of the untraced step time
-    ``ms_per_step`` measured before (the tracer itself slows the host)."""
+    ``ms_per_step`` measured before (the tracer itself slows the host);
+    ``our_kernels_us`` sums the kernels of ``src/repro_torch/csrc``."""
     by_name: dict = {}
     for e in _device_events(events):
         us, count = by_name.get(e["name"], (0.0, 0))
@@ -366,7 +416,9 @@ def report_trace(label, events, wall_ms, steps, unit, ms_per_step):
     if busy_us <= 0:
         raise SystemExit(f"{label}: the profiler saw no device time")
     busy_ms = busy_us / steps / 1e3
+    ours = sum(us for name, (us, _) in by_name.items() if any(k in name for k in OUR_KERNELS))
     out = {f"traced_ms_per_{unit}": wall_ms / steps, f"device_busy_ms_per_{unit}": busy_ms,
+           f"our_kernels_us_per_{unit}": ours / steps,
            f"device_ops_per_{unit}": sum(c for _, c in by_name.values()) / steps,
            "idle_share_traced": 1.0 - busy_us / 1e3 / wall_ms,
            "idle_share_untraced": 1.0 - busy_ms / ms_per_step}
@@ -994,9 +1046,7 @@ def main() -> int:
     t0 = time.perf_counter()
     logs = _build.build(ptxas_info=True)
     secs = time.perf_counter() - t0
-    regs = [line.split("ptxas info    : ")[-1] for text in logs.values()
-            for line in text.splitlines() if "registers" in line]
-    log(f"[2] built {len(logs)} kernels in {secs:.2f} s; ptxas: {'; '.join(regs)}")
+    log(f"[2] built {len(logs)} kernels in {secs:.2f} s; ptxas: {'; '.join(ptxas_summary(logs))}")
 
     # The main-path problem (host set-up) and the dense problem.
     t0 = time.perf_counter()

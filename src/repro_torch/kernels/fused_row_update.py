@@ -11,15 +11,17 @@ update ``theta`` IN PLACE and return it — saving the (nt, p) copy each
 super-tick. They keep the reference's snapshot rule: every new row is
 computed from the slab as it was before any row is written, even when a
 woken row is another woken row's neighbour. The CUDA kernel
-(``csrc/fused_row_update.cu``) does that with two launches, compute into
-a (B, p) scratch then scatter. The valid rows of one call must be
-distinct. :func:`fused_row_update_plain` is the plain PyTorch version:
-the CPU path and the kernel's yardstick.
+(``csrc/fused_row_update.cu``, a warp per woken row) computes the new
+rows into a (B, p) scratch, then scatters them. The valid rows of one
+call must be distinct. :func:`row_plan` plans its launch here, in Python,
+so the CPU tests reach it. :func:`fused_row_update_plain` is the plain
+PyTorch version: the CPU path and the kernel's yardstick.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -30,6 +32,35 @@ from repro_torch.kernels import _build
 # kMaxP / kMaxM.
 MAX_P = 1024
 MAX_M = 2048
+PASS_COLS = 128  # columns a warp covers in one pass: 4 a lane
+ROWS_PER_BLOCK = 4  # woken rows (warps) a block
+
+
+@dataclasses.dataclass(frozen=True)
+class RowPlan:
+    """The launch: ``blocks`` blocks of ``ROWS_PER_BLOCK`` warps, a warp a
+    woken row; a row in ``passes`` passes of ``PASS_COLS`` columns held in
+    registers; 16-byte loads where ``vec``."""
+
+    passes: int
+    vec: bool
+    blocks: int
+
+    def rows(self, block: int, B: int) -> range:
+        """The woken rows block ``block`` computes (one a warp)."""
+        return range(block * ROWS_PER_BLOCK, min((block + 1) * ROWS_PER_BLOCK, B))
+
+
+def row_plan(B: int, p: int, tensors) -> RowPlan:
+    """The launch for B woken rows of width p: as few passes (1, 2, 4 or
+    8) as cover p, and the float4 instance exactly when p % 4 == 0 and
+    every one of ``tensors`` (Theta, X, noise: the (., p) rows the kernel
+    reads; None is skipped) starts on a 16-byte boundary."""
+    if not 0 <= p <= MAX_P:
+        raise ValueError(f"the fused kernel takes p <= {MAX_P}, got p={p}")
+    passes = next(n for n in (1, 2, 4, 8) if n * PASS_COLS >= p)
+    vec = p % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors if t is not None)
+    return RowPlan(passes=passes, vec=vec, blocks=-(-B // ROWS_PER_BLOCK))
 
 
 def fused_row_update_plain(rows, idx, w, coef, X, y, mask, noise, theta, limit, clip=None):
@@ -67,7 +98,7 @@ def fused_row_update_plain(rows, idx, w, coef, X, y, mask, noise, theta, limit, 
 
 _ARGTYPES = (
     [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 6
-    + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    + [ctypes.c_int] * 5 + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 )
 
 
@@ -101,6 +132,7 @@ def fused_row_update_cuda(rows, idx, w, coef, X, y, mask, noise, theta, limit, c
         raise ValueError(f"the fused kernel takes p <= {MAX_P} and m <= {MAX_M}, got p={p}, m={m}")
     if not 0 < int(limit) <= nt:
         raise ValueError(f"limit must lie in (0, {nt}], got {limit}")
+    plan = row_plan(B, p, (theta, X, noise))
     scratch = torch.empty((B, p), dtype=f32, device=dev)
     fn = _build.bind("fused_row_update", "fused_row_update_launch", _ARGTYPES)
     with _build.on_device(dev):
@@ -111,7 +143,7 @@ def fused_row_update_cuda(rows, idx, w, coef, X, y, mask, noise, theta, limit, c
             theta.data_ptr(), scratch.data_ptr(),
             B, K, m, p, int(limit),
             0.0 if clip is None else float(clip), 0 if clip is None else 1,
-            _build.stream_of(dev),
+            plan.passes, int(plan.vec), _build.stream_of(dev),
         )
     _build.finish_launch("fused_row_update", status)
     return theta

@@ -435,3 +435,122 @@ def test_sparse_mix_nan_reached_only_at_weight_zero_stays_out(dev):
     _close(got[2], plain[2])
     w[0, 1] = 0.5
     assert bool(torch.isnan(ops.sparse_mix(idx, w, theta)[0]).all())
+
+
+def _fused_case(dev, B, K, m, p, nt, seed, zero_share=0.58):
+    """A woken batch like the engine's: distinct rows with sentinels (nt)
+    among them, weight-0 padding anywhere in a row, row 0 all padding,
+    woken rows that are each other's neighbours."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rows = torch.randperm(nt, generator=g, device=dev)[:B].to(torch.int32)
+    rows[torch.arange(B, device=dev) % 11 == 5] = nt  # sentinels
+    idx = torch.randint(0, nt, (B, K), generator=g, device=dev, dtype=torch.int32)
+    idx[:, 0] = rows.clamp(max=nt - 1).flip(0)  # woken rows read each other
+    w = torch.rand((B, K), generator=g, device=dev) + 0.05
+    w[torch.rand((B, K), generator=g, device=dev) < zero_share] = 0.0
+    w[:, 0] = 0.5
+    w[0] = 0.0  # all padding
+    coef = torch.stack([torch.rand(B, generator=g, device=dev) * 0.7 + 0.2,
+                        torch.rand(B, generator=g, device=dev) * K + 1.0,
+                        torch.rand(B, generator=g, device=dev) * 0.4,
+                        torch.rand(B, generator=g, device=dev) * 0.3], dim=1)
+    X = torch.randn((B, m, p), generator=g, device=dev) / p ** 0.5
+    y = torch.randn((B, m), generator=g, device=dev)
+    mask = (torch.rand((B, m), generator=g, device=dev) < 0.8).float()
+    noise = 0.01 * torch.randn((B, p), generator=g, device=dev)
+    theta = torch.randn((nt, p), generator=g, device=dev)
+    return rows, idx, w, coef, X, y, mask, noise, theta
+
+
+# (4471, 38, 8, 100) is the main path's slot (rgg500k_p100: 4097 valid rows).
+@pytest.mark.parametrize("B,K,m,p,nt", [(4471, 38, 8, 100, 20_000), (300, 70, 8, 100, 900),
+                                        (200, 38, 5, 257, 600), (200, 38, 8, 102, 600),
+                                        (100, 33, 20, 64, 400), (64, 1, 3, 1000, 200)])
+@pytest.mark.parametrize("clip", [None, 0.5])
+def test_fused_row_update_warp_per_row(dev, B, K, m, p, nt, clip):
+    """Against the plain version at 2e-5 (phase 3's tolerance): only the
+    real entries walked, X held in registers (chunks beyond 8 / passes
+    points), the snapshot rule, an all-padding row, sentinels untouched,
+    and the same bits on a second launch."""
+    rows, idx, w, coef, X, y, mask, noise, theta = _fused_case(dev, B, K, m, p, nt, B + K + p)
+    a, b, c = theta.clone(), theta.clone(), theta.clone()
+    before = ops.launch_counts()["fused_row_update"]
+    ops.fused_row_update(rows, idx, w, coef, X, y, mask, noise, a, nt, clip)
+    ops.fused_row_update(rows, idx, w, coef, X, y, mask, noise, c, nt, clip)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["fused_row_update"] == before + 2
+    ref.fused_row_update_ref(rows, idx, w, coef, X, y, mask, noise, b, nt, clip)
+    _close(a, b, 2e-5)
+    assert torch.equal(a, c)  # fixed summation order: the same bits
+    untouched = torch.ones(nt, dtype=torch.bool, device=dev)
+    untouched[rows[rows < nt].long()] = False
+    assert torch.equal(a[untouched], theta[untouched])
+
+
+def test_fused_row_update_scalar_instance_at_a_storage_offset(dev):
+    """Theta one float into its buffer is not 16-byte aligned: the wrapper
+    launches the scalar instance. Its lanes hold columns 32 apart, not 4
+    consecutive ones, so the residual dots reduce in another order: it
+    agrees with the plain version and the float4 instance at 2e-5."""
+    from repro_torch.kernels.fused_row_update import row_plan
+
+    B, K, m, p, nt = 500, 38, 8, 100, 2000
+    rows, idx, w, coef, X, y, mask, noise, theta = _fused_case(dev, B, K, m, p, nt, 3)
+    buf = torch.empty(nt * p + 1, device=dev)
+    buf[1:] = theta.flatten()
+    shifted = buf[1:].view(nt, p)
+    assert row_plan(B, p, (theta, X, noise)).vec and not row_plan(B, p, (shifted, X, noise)).vec
+    aligned = theta.clone()
+    want = theta.clone()
+    ops.fused_row_update(rows, idx, w, coef, X, y, mask, noise, shifted, nt)
+    ops.fused_row_update(rows, idx, w, coef, X, y, mask, noise, aligned, nt)
+    ref.fused_row_update_ref(rows, idx, w, coef, X, y, mask, noise, want, nt)
+    _close(shifted, want, 2e-5)
+    _close(shifted, aligned, 2e-5)
+
+
+def test_fused_row_update_nan_reached_only_at_weight_zero_stays_out(dev):
+    """The recorded deviation, as for sparse_mix: a non-finite Theta row
+    that a woken row reaches only through weight-0 entries leaves its new
+    row finite (the kernel skips the entry), where the plain version's is
+    NaN; at a nonzero weight both are NaN."""
+    B, K, m, p, nt = 3, 3, 4, 100, 50
+    rows, _, _, coef, X, y, mask, noise, theta = _fused_case(dev, B, K, m, p, nt, 5)
+    rows = torch.tensor([10, 11, 12], dtype=torch.int32, device=dev)
+    theta[7] = float("nan")
+    idx = torch.tensor([[3, 7, 9], [7, 2, 7], [1, 2, 3]], dtype=torch.int32, device=dev)
+    w = torch.tensor([[0.5, 0.0, 0.25], [0.0, 1.0, 0.0], [0.1, 0.2, 0.3]], device=dev)
+    got, plain = theta.clone(), theta.clone()
+    ops.fused_row_update(rows, idx, w, coef, X, y, mask, noise, got, nt)
+    ref.fused_row_update_ref(rows, idx, w, coef, X, y, mask, noise, plain, nt)
+    assert bool(torch.isfinite(got[10:12]).all()) and bool(torch.isnan(plain[10:12]).all())
+    _close(got[12], plain[12], 2e-5)
+    w[0, 1] = 0.5
+    again = theta.clone()
+    ops.fused_row_update(rows, idx, w, coef, X, y, mask, noise, again, nt)
+    assert bool(torch.isnan(again[10]).all())
+
+
+@pytest.mark.parametrize("G,Q,N,P,heads", [(4096, 128, 64, 64, 64), (12, 77, 40, 96, 1),
+                                           (21, 128, 128, 128, 3), (14, 64, 64, 64, 7),
+                                           (64, 33, 16, 20, 64)])
+def test_ssm_chunk_every_head_group_gives_the_same_bits(dev, G, Q, N, P, heads):
+    """Each divisor of ``heads`` as the heads per block (what head_plan may
+    choose): against the plain version, and the same bits for all of
+    them, C.B^T shared or not."""
+    from repro_torch.kernels.ssm_chunk import head_plan, ssm_chunk_cuda
+
+    args = _ssm_inputs(dev, G, Q, N, P, heads, torch.float32, seed=G + N)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    groups = [d for d in range(1, heads + 1) if heads % d == 0]
+    assert head_plan(G, heads, sms, Q, N, P) in groups
+    y_p, s_p = ref.ssm_chunk_ref(*args, heads)
+    first = None
+    for hg in groups:
+        y, s = ssm_chunk_cuda(*args, heads=heads, head_group=hg)
+        torch.cuda.synchronize()
+        _close(y, y_p, 2e-5)
+        _close(s, s_p, 2e-5)
+        if first is None:
+            first = (y, s)
+        assert torch.equal(y, first[0]) and torch.equal(s, first[1])

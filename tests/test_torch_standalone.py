@@ -129,6 +129,18 @@ def test_ssm_chunk_wrapper_refuses_what_the_kernel_does_not_take():
         ssm_chunk_cuda(C, B, cum, dt, x, heads=2)
 
 
+def test_ssm_chunk_wrapper_refuses_a_head_group_not_dividing_heads():
+    """The override of head_plan is checked before any build or launch."""
+    from repro_torch.kernels.ssm_chunk import ssm_chunk_cuda
+
+    G, Q, N, P, heads = 8, 16, 8, 8, 4
+    args = (torch.rand(G // heads, Q, N), torch.rand(G // heads, Q, N), torch.rand(G, Q),
+            torch.rand(G, Q), torch.rand(G, Q, P))
+    for bad in (0, 3, 8):
+        with pytest.raises(ValueError, match=f"head_group={bad} must divide heads=4"):
+            ssm_chunk_cuda(*args, heads=heads, head_group=bad)
+
+
 def test_mix_wrappers_take_theta_at_any_offset_and_refuse_strides():
     """A contiguous Theta at a storage offset passes the checks (the
     kernels' scalar instances read it; see tests/test_torch_mix_plans.py);
