@@ -20,7 +20,11 @@ Phases, one line each (any failure ends the run with a non-zero code):
    pattern allows); ``graph_mix`` with its split-K plan, its library
    call with TF32 off (printed);
    ``dp_clip_noise`` at the (256, 4096) float32 shape of
-   ``benchmarks/bench_kernels.py`` and at (200, 1000) in bfloat16;
+   ``benchmarks/bench_kernels.py`` and at (200, 1000) in bfloat16, the
+   same bits on a second launch; at the float32 shape, as context, the
+   other tile layouts of its plan (``plan_ms``), the two-call composite
+   ``vector_norm`` + ``addmv`` (``composite_ms``) and one near-empty
+   launch (``launch_floor_ms``);
    ``ssm_chunk`` at the zamba2-1.2b prefill's shape (G = 4 x 16 chunks x
    64 heads, Q = 128, N = P = 64, float32, C and B shared by the heads)
    and at a small ragged shape in bfloat16;
@@ -65,7 +69,16 @@ Phases, one line each (any failure ends the run with a non-zero code):
    config: the prefill of 2 x 256 tokens against the same tokens fed one
    at a time through decode, and the prefill through the kernel against
    the einsum route;
-7. a JSON line of every ported kernel (launches, error, times, bound),
+7. the paper's benches on the card (``repro_torch.bench``): Fig. 1, CD
+   against gossip ADMM at the reference bench's size (n = p = 100,
+   logistic, mu = 0.3, T_cd = 3000, T_admm = 300, seed 0), and Table 1 on
+   the MovieLens twin at the size of ``BENCH_summary.json``'s row (150
+   users, 400 items, p = 20, 40 ticks a user, eps 1, 0.5, 0.1). Each
+   derived quantity is printed beside the reference's CPU row, with the
+   seconds each bench took; the run fails unless CD beats ADMM per
+   message, CD beats the local models on accuracy and on RMSE, and every
+   private RMSE is finite. These benches launch none of the kernels;
+8. a JSON line of every ported kernel (launches, error, times, bound),
    then the last line ``{"ok": true, "device": {...}}``.
 """
 
@@ -118,6 +131,12 @@ DECODE_TRACED = 2  # decode steps traced with torch.profiler
 # max |a - b| of the float32 gates, relative to max(1, max |logit|): 38
 # layers whose two routes take their float32 sums in different orders.
 MODEL_TOL = 1e-4
+# Phase 7: the paper benches, at the reference's sizes, and the reference's
+# CPU rows (BENCH_summary.json) printed beside the card's.
+FIG1 = dict(n=100, p=100, mu=0.3, T_cd=3000, T_admm=300, seed=0)
+TABLE1 = dict(fast=True, seed=0)  # 150 users, 400 items, p = 20, 40 ticks a user
+REFERENCE_ROWS = {"fig1_cd_vs_admm": "cd_beats_admm_per_message=True",
+                  "table1_movielens": "rmse_local=1.490,rmse_cd=1.345"}
 
 
 def log(msg: str) -> None:
@@ -316,19 +335,51 @@ def kernel_checks(obj, engine, dense_obj, results) -> None:
 
     # dp_clip_noise: the (256, 4096) float32 shape of bench_kernels.py, then
     # one bfloat16 shape of tests/test_kernels.py. No single PyTorch call
-    # computes the clip-mean-noise function, so there is no library time.
+    # computes the clip-mean-noise function, so there is no library time;
+    # the two-call composite (vector_norm, then addmv) is timed as context.
+    from repro_torch.kernels.dp_clip_noise import ClipPlan, clip_plan, dp_clip_noise_cuda
+
     for label, (N, D), dt in (("f32", DP_CLIP_SHAPE, f32), ("bf16", (200, 1000), torch.bfloat16)):
         grads = (3.0 * torch.randn((N, D), generator=gen, device=dev)).to(dt)
         noise = torch.randn(D, generator=gen, device=dev)
         got = ops.dp_clip_noise(grads, noise, 1.5, 0.37)
         want = ref.dp_clip_noise_ref(grads, noise, 1.5, 0.37)
+        if not torch.equal(ops.dp_clip_noise(grads, noise, 1.5, 0.37), got):
+            raise SystemExit(f"dp_clip_noise {label}: a second launch gave other bits")
+        plan = clip_plan(N, D, grads.element_size(), vector_loads(grads))
         timing = dict(
-            N=N, D=D, dtype=str(dt).replace("torch.", ""),
+            N=N, D=D, dtype=str(dt).replace("torch.", ""), cluster=plan.cluster, rows=plan.rows,
+            row_blocks=plan.row_blocks, blocks=plan.blocks, passes=plan.passes, vec=plan.vec,
+            combine_blocks=plan.combine_blocks,
             ms=time_ms(lambda: ops.dp_clip_noise(grads, noise, 1.5, 0.37)),
             plain_ms=time_ms(lambda: ref.dp_clip_noise_ref(grads, noise, 1.5, 0.37)),
             library_ms=None,
             **bound(grads.numel() * grads.element_size() + 2 * D * 4, 4.0 * N * D),
         )
+        if dt == f32:
+            # The other layouts of the tile at this shape: a cluster across D
+            # lets a block take more rows and leaves fewer partial rows.
+            alt = {f"c{c}_p{q}_r{r}": ClipPlan(N=N, D=D, vec=plan.vec, per=plan.per, passes=q,
+                                                cluster=c, rows=r)
+                   for c, q, r in ((1, 4, 2), (1, 4, 1), (2, 2, 4), (4, 1, 8), (4, 1, 4))}
+            plan_ms = {}
+            for key, p_alt in alt.items():
+                out_alt = dp_clip_noise_cuda(grads, noise, 1.5, 0.37, plan=p_alt)
+                if float((out_alt - want).abs().max()) > TOL["dp_clip_noise"] * max(
+                        1.0, float(want.abs().max())):
+                    raise SystemExit(f"dp_clip_noise plan {key} disagrees with the plain version")
+                plan_ms[key] = time_ms(lambda: dp_clip_noise_cuda(grads, noise, 1.5, 0.37,
+                                                                  plan=p_alt))
+            log(f"[3] dp_clip_noise plans (cluster, passes, rows) at {N} x {D}: {fmt(plan_ms)}")
+            timing["plan_ms"] = plan_ms
+
+            def composite():
+                scale = (1.5 / torch.linalg.vector_norm(grads, dim=1).clamp(min=1e-12)).clamp(max=1.0)
+                return torch.addmv(noise, grads.t(), scale, beta=0.37, alpha=1.0 / N)
+            tiny = torch.zeros(16, device=dev)
+            timing.update(composite_ms=time_ms(composite),
+                          composite_err=float((composite() - want).abs().max()),
+                          launch_floor_ms=time_ms(lambda: tiny.zero_()))  # one empty-ish launch
         check_kernel("dp_clip_noise", got, want, results, **timing)
         results[f"dp_clip_noise_{label}"] = results["dp_clip_noise"]
     results["dp_clip_noise"] = results["dp_clip_noise_f32"]  # the bench shape
@@ -398,8 +449,8 @@ def _device_events(events) -> list:
 
 # The __global__ functions of src/repro_torch/csrc, as the trace names them.
 OUR_KERNELS = ("sparse_mix_kernel", "fused_rows_kernel", "scatter_rows_kernel",
-               "graph_mix_kernel", "split_sum_kernel", "norms_kernel",
-               "clip_mean_kernel", "ssm_chunk_kernel")
+               "graph_mix_kernel", "split_sum_kernel", "clip_partial_kernel",
+               "combine_kernel", "ssm_chunk_kernel")
 
 
 def report_trace(label, events, wall_ms, steps, unit, ms_per_step):
@@ -1015,6 +1066,43 @@ def zamba2_gates(cfg, dev, gen) -> dict:
     return gates
 
 
+def paper_benches(dev) -> dict:
+    """Phase 7: Fig. 1 and Table 1 through the port's runners on the card,
+    each beside the reference's CPU row. Launch counts are reset before and
+    read after: the benches run none of the kernels. Fails unless CD beats
+    ADMM per message, CD beats the local models (accuracy, RMSE), and every
+    private RMSE is finite."""
+    from repro_torch.bench import cd_vs_admm, movielens
+    from repro_torch.kernels import ops
+
+    ops.reset_launch_counts()
+    fig = cd_vs_admm.run(verbose=False, device=dev, **FIG1)
+    fig1 = {k: fig[k] for k in ("n", "p", "mu", "acc_local", "acc_cd", "acc_admm", "obj_init",
+                                "obj_cd_final", "obj_admm_final", "messages_admm",
+                                "obj_cd_at_admm_budget", "cd_beats_admm_per_message",
+                                "elapsed_s")}
+    log(f"[7] fig1_cd_vs_admm on the card: {fmt(fig1)}; "
+        f"reference CPU row: {REFERENCE_ROWS['fig1_cd_vs_admm']}")
+    tab = movielens.run(verbose=False, device=dev, **TABLE1)
+    table1 = {k: v for k, v in tab.items() if k not in ("name", "device", "derived")}
+    log(f"[7] table1_movielens on the card: {fmt(table1)}; "
+        f"reference CPU row: {REFERENCE_ROWS['table1_movielens']} "
+        f"(the private rows use the port's own random stream: printed, not compared)")
+    counts = ops.launch_counts()
+    private = [table1[k] for k in table1 if k.startswith("rmse_eps_")]
+    fails = [msg for ok, msg in (
+        (fig1["cd_beats_admm_per_message"], "CD does not beat ADMM per message"),
+        (fig1["acc_cd"] > fig1["acc_local"], "CD accuracy not above the local models'"),
+        (table1["rmse_cd"] < table1["rmse_local"], "CD RMSE not below the local models'"),
+        (len(private) == 3 and all(math.isfinite(r) for r in private),
+         "a private RMSE is not finite"),
+        (not any(counts.values()), f"the benches launched kernels: {counts}"),
+    ) if not ok]
+    if fails:
+        raise SystemExit(f"paper benches: {'; '.join(fails)}")
+    return {"fig1_cd_vs_admm": fig1, "table1_movielens": table1}
+
+
 def main() -> int:
     import torch
 
@@ -1116,7 +1204,10 @@ def main() -> int:
     # prefill and read after it
     serve = zamba2_serve(dev, launches)
 
-    # [7] the kernel table and the result
+    # [7] the paper benches on the card
+    benches = paper_benches(dev)
+
+    # [8] the kernel table and the result
     src = {"sparse_mix": "src/repro/kernels/sparse_mix.py:60",
            "fused_row_update": "src/repro/kernels/fused_row_update.py:133",
            "graph_mix": "src/repro/kernels/graph_mix.py:38",
@@ -1142,6 +1233,7 @@ def main() -> int:
                     "dp_clip_noise_bf16": results["dp_clip_noise_bf16"],
                     "ssm_chunk_bf16": results["ssm_chunk_bf16"]}))
     log(json.dumps({"zamba2_serve": serve}))
+    log(json.dumps({"paper_benches": benches}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))

@@ -51,6 +51,7 @@ from repro_torch.core.privacy import (
     uniform_noise_limit,
 )
 from repro_torch.core.dp_cd import DPCDResult, DPConfig, run_private
+from repro_torch.core.admm_baseline import ADMMResult, run_admm
 from repro_torch.core.local_dp import perturb_dataset
 from repro_torch.core.model_propagation import (
     private_local_models,

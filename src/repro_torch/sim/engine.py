@@ -40,32 +40,42 @@ import torch
 
 from repro_torch.core.graph import as_csr, neighbor_counts
 from repro_torch.device import resolve_device
+from repro_torch.kernels.fused_row_update import MAX_M, MAX_P
 from repro_torch.sim import clocks
 from repro_torch.sim.config import EngineConfig, resolve_config
 from repro_torch.sim.scenarios import Scenario
 from repro_torch.sim.updates import LocalUpdate
 
 
-def _resolve_fused(update, fused, device: torch.device, dtype, has_delay: bool) -> bool:
+def _resolve_fused(update, fused, device: torch.device, dtype, has_delay: bool, p: int,
+                   m: int) -> bool:
     """Resolve the tri-state ``fused`` knob against what the kernel serves.
 
     ``"auto"`` engages the fused kernel on a CUDA device for a float32
     engine whose update implements the fused row math (CD or DP-CD with
-    the quadratic loss) and has no per-edge delays. ``True`` asks for the fused path wherever
-    the update supports it — the kernel on CUDA, its plain version on the
-    CPU — and raises where it cannot serve (a delay scenario, another
-    loss, or a float64 engine: the kernel computes in float32). ``False``
+    the quadratic loss), has no per-edge delays, and whose width ``p`` and
+    points per agent ``m`` the kernel takes (``p <= MAX_P``,
+    ``m <= MAX_M``); anything else keeps the unfused path. ``True`` asks
+    for the fused path wherever the update supports it — the kernel on
+    CUDA, its plain version on the CPU — and raises at construction where
+    it cannot serve (a delay scenario, another loss, a float64 engine: the
+    kernel computes in float32, or p or m beyond the kernel's limits, on
+    either device, so a CPU run refuses what the card would). ``False``
     keeps the unfused path.
     """
     supported = bool(getattr(update, "fused_supported", False)) and not has_delay
+    fits = p <= MAX_P and m <= MAX_M
     if fused == "auto":
-        return supported and device.type == "cuda" and dtype == torch.float32
+        return supported and fits and device.type == "cuda" and dtype == torch.float32
     if fused:
         if not supported:
             reason = "a delay scenario" if has_delay else type(update).__name__
             raise ValueError(f"fused=True but the fused path does not serve {reason}")
         if dtype != torch.float32:
             raise ValueError(f"fused=True runs the float32 kernel; the engine dtype is {dtype}")
+        if not fits:
+            raise ValueError(f"fused=True but the fused kernel takes p <= {MAX_P} and "
+                             f"m <= {MAX_M}, got p={p}, m={m}")
         return True
     return False
 
@@ -194,7 +204,9 @@ class AsyncEngine:
         else:
             self._idx = self._w = self._delays = None
 
-        self.fused = _resolve_fused(update, cfg.fused, dev, self.dtype, delay is not None)
+        obj = getattr(update, "obj", None)  # the data of the updates the kernel serves
+        self.fused = _resolve_fused(update, cfg.fused, dev, self.dtype, delay is not None,
+                                    self.p, obj.data.X.shape[1] if obj is not None else 0)
         if self.fused:
             # The fused kernel consumes padded (n, K) neighbour tables
             # whatever the MixOp backend (dense graphs go through the CSR form).

@@ -134,8 +134,30 @@ def test_engine_routes_on_the_card_match_the_cpu(dev, mix_mode):
     assert np.abs(fused - cpu).max() < TOL and np.abs(unfused - cpu).max() < TOL
 
 
+def test_engine_beyond_the_fused_limits_runs_unfused_on_the_card(dev):
+    """p = 1025 is past the fused kernel's width: ``fused="auto"`` builds an
+    unfused card engine that runs and matches the CPU route."""
+    rng = np.random.default_rng(8)
+    n, p, m = 40, 1025, 2
+    X = rng.normal(size=(n, m, p)) / np.sqrt(p)
+    obj = make_objective(knn_graph(rng.normal(size=(n, 6)), k=5),
+                         AgentData(X=X, y=rng.normal(size=(n, m)), mask=np.ones((n, m))),
+                         "quadratic", mu=0.5)
+    masks = [rng.random(n) < 0.3 for _ in range(5)]
+    outs = []
+    for device in (dev, "cpu"):
+        eng = AsyncEngine(CDUpdate(obj), slot_wakes=8.0, device=device)
+        assert not eng.fused
+        state = eng.init_state(np.zeros((n, p)))
+        for mask in masks:
+            state = eng.step(state, mask)
+        outs.append(state.Theta.cpu().numpy())
+    assert np.abs(outs[0] - outs[1]).max() < TOL
+
+
 @pytest.mark.parametrize("N,D", [(8, 128), (33, 200), (128, 512), (200, 1000), (1, 128),
-                                 (256, 4096), (77, 301), (1, 3), (1500, 5)])
+                                 (256, 4096), (77, 301), (1, 3), (1500, 5), (4097, 1000),
+                                 (3, 65537), (1, 1), (33, 20000)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_dp_clip_noise_matches_plain(dev, N, D, dtype):
     g = torch.Generator(device=dev).manual_seed(N * 1000 + D)
@@ -149,6 +171,48 @@ def test_dp_clip_noise_matches_plain(dev, N, D, dtype):
     _close(got, ref.dp_clip_noise_ref(grads, noise, 1.5, 0.37))
     # The sum order is fixed: a second launch gives the same bits.
     assert torch.equal(ops.dp_clip_noise(grads, noise, 1.5, 0.37), got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dp_clip_noise_scalar_instance_at_a_storage_offset(dev, dtype):
+    """grads one element into its storage: not 16-byte aligned, so the
+    wrapper plans the scalar instance; it agrees with the plain version at
+    the same tolerance and repeats its bits."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    N, D = 256, 4096
+    base = (3.0 * torch.randn(N * D + 1, generator=g, device=dev)).to(dtype)
+    grads = base[1:].view(N, D)
+    assert grads.is_contiguous() and not _build.vector_loads(grads)
+    noise = torch.randn(D, generator=g, device=dev)
+    got = ops.dp_clip_noise(grads, noise, 1.5, 0.37)
+    _close(got, ref.dp_clip_noise_ref(grads, noise, 1.5, 0.37))
+    assert torch.equal(ops.dp_clip_noise(grads, noise, 1.5, 0.37), got)
+    aligned = ops.dp_clip_noise(grads.clone(), noise, 1.5, 0.37)  # the 16-byte instance
+    _close(got, aligned)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dp_clip_noise_every_plan_layout_matches_plain(dev, dtype):
+    """Every layout of the tile at (256, 4096): no cluster, clusters of 2
+    and 4 across D, resident and streamed, agrees with the plain version
+    and repeats its bits; a plan for another shape is refused."""
+    from repro_torch.kernels.dp_clip_noise import ClipPlan, dp_clip_noise_cuda
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    N, D = 256, 4096
+    grads = (3.0 * torch.randn((N, D), generator=g, device=dev)).to(dtype)
+    noise = torch.randn(D, generator=g, device=dev)
+    want = ref.dp_clip_noise_ref(grads, noise, 1.5, 0.37)
+    per = 16 // grads.element_size()
+    for passes, rows in ((4, 2), (4, 8), (2, 4), (1, 8), (1, 3)):
+        passes = max(1, passes * 4 // per)  # bf16: twice the columns a pass
+        cluster = -(-D // (passes * 256 * per))
+        plan = ClipPlan(N=N, D=D, vec=True, per=per, passes=passes, cluster=cluster, rows=rows)
+        got = dp_clip_noise_cuda(grads, noise, 1.5, 0.37, plan=plan)
+        _close(got, want)
+        assert torch.equal(dp_clip_noise_cuda(grads, noise, 1.5, 0.37, plan=plan), got)
+    with pytest.raises(ValueError, match="does not fit"):
+        dp_clip_noise_cuda(grads[:8].contiguous(), noise, 1.5, 0.37, plan=plan)
 
 
 def test_dp_clip_noise_clips_and_refuses(dev):

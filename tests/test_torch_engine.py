@@ -380,6 +380,38 @@ def test_fused_gate():
         AsyncEngine(CDUpdate(quad), fused=True, device="cpu", dtype=torch.float64)
 
 
+@pytest.mark.parametrize("p,m,fits", [(100, 8, True), (1024, 2048, True), (1025, 8, False),
+                                      (100, 2049, False), (1025, 2049, False)])
+def test_fused_auto_respects_the_kernel_limits(p, m, fits):
+    """On a CUDA device (named, no card needed) ``"auto"`` takes the fused
+    kernel only within its limits, p <= 1024 and m <= 2048, and the
+    unfused path outside them; ``fused=True`` raises there, naming them."""
+    from repro_torch.sim.engine import _resolve_fused
+
+    _, quad = _quad(16, seed=6)
+    upd, cuda, f32 = CDUpdate(quad), torch.device("cuda"), torch.float32
+    assert _resolve_fused(upd, "auto", cuda, f32, False, p, m) == fits
+    assert not _resolve_fused(upd, "auto", torch.device("cpu"), f32, False, p, m)
+    assert not _resolve_fused(upd, False, cuda, f32, False, p, m)
+    if fits:
+        assert _resolve_fused(upd, True, cuda, f32, False, p, m)
+    else:
+        with pytest.raises(ValueError, match="p <= 1024 and m <= 2048"):
+            _resolve_fused(upd, True, cuda, f32, False, p, m)
+
+
+def test_fused_true_refuses_a_wide_problem_at_construction():
+    """The engine passes its p and the data's m: a p = 1025 problem refuses
+    ``fused=True`` when the engine is built, and runs unfused otherwise."""
+    _, wide = _quad(12, p=1025, m=2, seed=7)
+    with pytest.raises(ValueError, match="got p=1025, m=2"):
+        AsyncEngine(CDUpdate(wide), fused=True, device="cpu")
+    eng = AsyncEngine(CDUpdate(wide), slot_wakes=4.0, device="cpu")
+    assert not eng.fused
+    state = eng.step(eng.init_state(np.zeros((12, 1025))), np.ones(12, dtype=bool))
+    assert bool(torch.isfinite(state.Theta).all()) and float(state.Theta.abs().max()) > 0
+
+
 def test_record_every_needs_an_objective(small):
     _, port = small
 

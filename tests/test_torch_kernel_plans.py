@@ -14,7 +14,13 @@ here and reached by these CPU tests:
   when p % 4 == 0 and Theta, X and noise start on 16-byte boundaries,
   and the grid fills the SMs at the main path's slot; the kernel's order
   written out (only the nonzero-weight neighbours, the data points in
-  chunks of 8 / passes) agrees with the JAX Pallas kernel at 4e-6.
+  chunks of 8 / passes) agrees with the JAX Pallas kernel at 4e-6;
+* ``dp_clip_noise.clip_plan``: every row and column is covered by
+  exactly one block, a cluster of at most 8 blocks spans D, the grid is
+  about one wave of the SMs at (256, 4096) float32 (no longer 16 column
+  blocks), ragged N and D leave no block empty, and the kernel's order
+  written out agrees with the JAX Pallas kernel in
+  interpret mode at the port's 1e-5 (3e-2 in bfloat16).
 """
 
 import jax.numpy as jnp
@@ -23,6 +29,7 @@ import pytest
 import torch
 
 from repro.kernels import ops as jops
+from repro_torch.kernels import dp_clip_noise as dcn
 from repro_torch.kernels import fused_row_update as fru
 from repro_torch.kernels import ssm_chunk
 
@@ -220,3 +227,123 @@ def test_fused_kernel_order_matches_pallas(B, K, m, p, passes, clip):
     want = jops.fused_row_update(*(jnp.asarray(a) for a in args), limit=nt, clip=clip,
                                  interpret=True)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=KTOL, atol=KTOL)
+
+
+CLIP_SHAPES = [(256, 4096, 4, True), (200, 1000, 2, True), (4097, 1000, 4, True),
+               (3, 65537, 4, False), (3, 65537, 2, False), (1, 1, 4, False), (1500, 5, 4, False),
+               (77, 301, 4, False), (8, 128, 4, True), (9, 8193, 4, False), (1, 16384, 2, True),
+               (33, 20000, 4, True), (256, 4096, 4, False), (256, 4096, 2, True),
+               (2, 70000, 4, True)]
+
+
+@pytest.mark.parametrize("N,D,itemsize,vec", CLIP_SHAPES)
+def test_clip_plan_covers_every_row_and_column_once(N, D, itemsize, vec):
+    plan = dcn.clip_plan(N, D, itemsize, vec)
+    assert 1 <= plan.cluster <= dcn.MAX_CLUSTER and 1 <= plan.rows <= min(dcn.MAX_ROWS, N)
+    assert plan.per == (16 // itemsize if vec else 1)
+    rows = [r for y in range(plan.row_blocks) for r in plan.rows_of(y)]
+    assert rows == list(range(N))  # each row once, no row block empty
+    cols = [c for x in range(plan.cluster) for c in plan.columns_of(x)]
+    assert cols == list(range(D))  # the cluster spans D, each column once
+    assert all(len(plan.columns_of(x)) > 0 for x in range(plan.cluster))
+    assert plan.partial_floats == (plan.row_blocks * D if plan.row_blocks > 1 else 0)
+    if plan.row_blocks > 1:
+        assert plan.combine_blocks * dcn.COMBINE_COLS >= D > (plan.combine_blocks - 1) * 32
+    else:
+        assert plan.combine_blocks == 0  # one row block writes the result itself
+
+    def cluster_of(passes):
+        return -(-D // (passes * dcn.THREADS * plan.per))
+
+    if plan.resident:  # the tile fills the registers: the smallest cluster, then fewest passes
+        assert plan.passes in (1, 2, 4, 8) and plan.rows == min(dcn.SLOTS // plan.passes, N)
+        fits = [q for q in (1, 2, 4, 8) if cluster_of(q) <= dcn.MAX_CLUSTER]
+        assert (plan.cluster, plan.passes) == min((cluster_of(q), q) for q in fits)
+    else:  # too wide for eight passes of eight blocks: streamed, the widest cluster
+        assert cluster_of(8) > dcn.MAX_CLUSTER and plan.rows == min(dcn.MAX_ROWS, N)
+        assert plan.cluster <= dcn.MAX_CLUSTER < cluster_of(plan.passes - 1)
+
+
+def test_clip_plan_fills_the_card_at_the_bench_shape():
+    """(256, 4096) float32: a block holds two whole rows in registers (4
+    passes of 1024 columns, grads read once, no cluster), 128 blocks: one
+    wave of the H100's 132 SMs, where the earlier column pass had 16; the
+    combine also has 128 blocks."""
+    plan = dcn.clip_plan(256, 4096, 4, True)
+    assert (plan.cluster, plan.rows, plan.row_blocks, plan.passes) == (1, 2, 128, 4)
+    assert 0.9 * H100_SMS <= plan.blocks <= H100_SMS and plan.resident
+    assert plan.combine_blocks == 128 and plan.partial_floats == 128 * 4096
+    bf16 = dcn.clip_plan(200, 1000, 2, True)  # phase 3's bfloat16 shape
+    assert (bf16.cluster, bf16.rows, bf16.passes) == (1, 8, 1) and bf16.resident
+    scalar = dcn.clip_plan(256, 4096, 4, False)  # a misaligned copy: a cluster of 2
+    assert (scalar.cluster, scalar.rows, scalar.passes, scalar.blocks) == (2, 1, 8, 512)
+
+
+@pytest.mark.parametrize("N,D,rows,last", [(4097, 1000, 8, 1), (1500, 5, 8, 4), (77, 301, 4, 1)])
+def test_clip_plan_ragged_edges(N, D, rows, last):
+    plan = dcn.clip_plan(N, D, 4, D % 4 == 0)
+    assert plan.rows == rows
+    assert len(plan.rows_of(plan.row_blocks - 1)) == last
+    wide = dcn.clip_plan(3, 65537, 4, False)  # the scalar instance, streamed
+    assert (wide.cluster, wide.passes, wide.rows, wide.resident) == (8, 33, 3, False)
+    assert len(wide.columns_of(7)) == 65537 - 7 * 33 * 256
+    with pytest.raises(ValueError, match="at least one row"):
+        dcn.clip_plan(0, 5, 4, False)
+
+
+def _clip_inputs(N, D, dtype, seed):
+    rng = np.random.default_rng(seed)
+    grads = jnp.asarray(rng.normal(size=(N, D)) * 3.0, dtype)
+    noise = jnp.asarray(rng.laplace(size=(D,)), jnp.float32)
+    tg = torch.tensor(np.asarray(grads.astype(jnp.float32)))
+    return grads, noise, tg.to(torch.bfloat16) if dtype == jnp.bfloat16 else tg, \
+        torch.tensor(np.asarray(noise))
+
+
+def _clip_kernel_order(grads, noise, clip, noise_scale, plan):
+    """The kernel's arithmetic written out in its order, in float32 on the
+    CPU: each row's squared norm as the sum over the cluster's blocks in
+    rank order of the block's partial, each block's scaled rows summed in
+    ascending order into a partial row, and the partial rows summed by
+    8 contiguous groups (a warp each) in order. Lane and warp order
+    within a block's partial norm is not reproduced (a tree of shuffles),
+    so this agrees with the kernel to rounding, not bit for bit."""
+    f32 = torch.float32
+    g = grads.to(f32)
+    N, D = g.shape
+    norms = torch.zeros(N, dtype=f32)
+    for x in range(plan.cluster):
+        cols = plan.columns_of(x)
+        norms = norms + (g[:, cols.start:cols.stop] ** 2).sum(dim=1)
+    scale = torch.clamp(float(clip) / torch.sqrt(norms.clamp(min=1e-24)).clamp(min=1e-12),
+                        max=1.0)
+    partial = torch.zeros((plan.row_blocks, D), dtype=f32)
+    for y in range(plan.row_blocks):
+        for r in plan.rows_of(y):
+            partial[y] = partial[y] + scale[r] * g[r]
+    warps = dcn.THREADS // 32
+    per = -(-plan.row_blocks // warps)
+    total = torch.zeros(D, dtype=f32)
+    for w in range(warps):
+        lo, hi = min(plan.row_blocks, w * per), min(plan.row_blocks, w * per + per)
+        group = torch.zeros(D, dtype=f32)
+        for y in range(lo, hi):
+            group = group + partial[y]
+        total = total + group
+    return total / float(N) + float(noise_scale) * noise.to(f32)
+
+
+@pytest.mark.parametrize("N,D,itemsize,vec", [(256, 4096, 4, True), (33, 200, 4, True),
+                                              (77, 301, 4, False), (200, 1000, 2, True),
+                                              (9, 8193, 4, False), (3, 2000, 4, True),
+                                              (5, 20000, 4, True)])
+def test_clip_kernel_order_matches_pallas(N, D, itemsize, vec):
+    dtype = jnp.float32 if itemsize == 4 else jnp.bfloat16
+    grads, noise, tg, tn = _clip_inputs(N, D, dtype, N + D)
+    plan = dcn.clip_plan(N, D, itemsize, vec)
+    got = _clip_kernel_order(tg, tn, 1.5, 0.37, plan)
+    want = np.asarray(jops.dp_clip_noise(grads, noise, 1.5, 0.37, interpret=True))
+    tol = 1e-5 if itemsize == 4 else 3e-2
+    assert np.abs(got.numpy() - want).max() <= tol * max(1.0, np.abs(want).max())
+    np.testing.assert_allclose(got.numpy(), dcn.dp_clip_noise_plain(tg, tn, 1.5, 0.37).numpy(),
+                               rtol=1e-5, atol=1e-6)

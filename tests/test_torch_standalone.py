@@ -5,6 +5,7 @@ the CUDA kernels do not take."""
 
 import ast
 import os
+import re
 import pkgutil
 import subprocess
 import sys
@@ -29,7 +30,9 @@ def _modules():
 def test_every_module_imports_without_jax_or_reference():
     mods = _modules()
     assert {"repro_torch.sim.engine", "repro_torch.kernels.ops", "repro_torch.convert",
-            "repro_torch.models.hybrid", "repro_torch.kernels.ssm_chunk"} <= set(mods)
+            "repro_torch.models.hybrid", "repro_torch.kernels.ssm_chunk",
+            "repro_torch.core.admm_baseline", "repro_torch.data.movielens",
+            "repro_torch.bench.cd_vs_admm", "repro_torch.bench.movielens"} <= set(mods)
     code = textwrap.dedent(
         f"""
         import importlib, sys
@@ -164,3 +167,25 @@ def test_mix_wrappers_take_theta_at_any_offset_and_refuse_strides():
         sparse_mix_cuda(idx, w, torch.rand(4, 6).t())
     with pytest.raises(ValueError, match="contiguous"):
         sparse_mix_cuda(idx, torch.rand(2, 3).t(), shifted)
+
+
+def test_deviations_name_existing_tests_and_current_figures():
+    """Every recording test ``DEVIATIONS.md`` names exists (a ``::name``
+    after a file names a test of that file), the alignment deviation of
+    ``fused_row_update`` has its row, and the ``ssm_chunk`` shared-memory
+    figure is the layout's own."""
+    from repro_torch.kernels.ssm_chunk import smem_bytes
+
+    text = (SRC / "DEVIATIONS.md").read_text()
+    tests = SRC.parents[1] / "tests"
+    named, current = [], None
+    for hit in re.finditer(r"`(tests/[\w/]+\.py)?::(test_\w+)", text):
+        current = hit.group(1) or current
+        named.append((current, hit.group(2)))
+    assert len(named) > 30
+    for path, name in named:
+        assert path is not None and f"def {name}(" in (tests.parent / path).read_text(), (path, name)
+    assert "`fused_row_update`'s bits depend on alignment" in text
+    assert "test_fused_row_update_scalar_instance_at_a_storage_offset" in text
+    assert f"{smem_bytes(128, 128, 128):,} B at Q, N, P = 128, 128, 128" in text
+    assert "208 KB" not in text
