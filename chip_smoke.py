@@ -39,21 +39,33 @@ Phases, one line each (any failure ends the run with a non-zero code):
    at their budget), fused and unfused; the dense path (synchronous
    rounds at n = 2047 through ``graph_mix``); and the paper's synchronous
    baseline on the 500k problem (``synchronous_round``: ``MixOp.all``
-   through ``sparse_mix`` at R = n). After a warm-up the six legs
-   take turns over 7 timed windows of 200 slots (rounds) each; each rate is
-   the median window's, printed with the slowest and fastest, and the
-   fused/unfused ratio is taken window by window. Launch counts are reset
-   before and read after every window, and each leg must launch its own
-   kernel in every window. Then 16 slots of each engine leg, and 16
-   rounds of each synchronous leg, run under torch.profiler (traces in
+   through ``sparse_mix`` at R = n). The engine legs run through
+   ``AsyncEngine.advance``, which on the card replays the engine's captured
+   chunk (a CUDA graph of 16 slots and one of 1 slot); each engine leg is
+   also run eagerly, slot by slot (``_eager_slots``), on a state of its
+   own from the same start, as a leg of its own. After a warm-up (which
+   captures both graphs) the ten legs take turns over 7 timed windows of
+   200 slots (rounds) each; each rate is the median window's, printed with
+   the slowest and fastest, and the fused/unfused and captured/eager
+   ratios are taken window by window. Launch counts are reset before and
+   read after every window (a replay adds what its capture recorded), and
+   each leg must launch its own kernel in every window. The private fused
+   engine runs with metrics on: its ``dp_budget_stopped`` must equal the
+   accountant's count and its ``wakes_applied`` the state's. Then 16
+   slots of each engine leg, captured and eager, and 16 rounds of each
+   synchronous leg run under torch.profiler (traces in
    ``build/repro_torch/``): device time per slot (round) by kernel, and the
    device idle share. Last, the ``dp_clip_noise`` leg:
    200 DP aggregation rounds of (256, 4096) per-example gradients through
    ``ops.dp_clip_noise``, the path by which the kernel is reached (no engine
    path calls it, as in the JAX package);
-5. parity: at n = 512, forced-wake runs fused vs unfused on the card vs
-   the same run on the CPU, and the engine's fixed point vs the exact
-   solution; a private forced-wake run fused vs unfused on the card;
+5. parity: the captured chunk against the eager slots, bit for bit: 37
+   slots (2 chunk replays, 4 one-slot replays) of each engine leg at
+   ``rgg500k_p100`` (fresh states, copied into the engines' live buffers)
+   and at n = 512 with churn and stragglers, every state tensor compared
+   with ``torch.equal``; at n = 512, forced-wake runs fused vs unfused on
+   the card vs the same run on the CPU, and the engine's fixed point vs
+   the exact solution; a private forced-wake run fused vs unfused on the card;
    ``DPCDUpdate.apply_rows`` on the card vs the CPU with injected draws;
    ``run_private`` and ``private_warm_start`` at the Fig. 2 size (n = 100,
    p = 100, logistic, clip 1.0, eps 0.55, T = 1000) on the card vs the CPU,
@@ -77,7 +89,15 @@ Phases, one line each (any failure ends the run with a non-zero code):
    derived quantity is printed beside the reference's CPU row, with the
    seconds each bench took; the run fails unless CD beats ADMM per
    message, CD beats the local models on accuracy and on RMSE, and every
-   private RMSE is finite. These benches launch none of the kernels;
+   private RMSE is finite. Then Figs. 2-4 and the ablations at the
+   reference runners' fast size (``BENCH_summary.json``'s rows): the
+   deterministic fields (Fig. 2c's last row, Fig. 3's local split, Fig.
+   4's clean accuracy, the personalization ablation) must equal the
+   reference's CPU values within 0.005, non-private CD must beat the local
+   models in every Fig. 2c row, the warm start's private run must end
+   below the constant init's, personalized must beat global, and every
+   private accuracy must be finite and in [0, 1]. These benches launch
+   none of the kernels;
 8. a JSON line of every ported kernel (launches, error, times, bound),
    then the last line ``{"ok": true, "device": {...}}``.
 """
@@ -121,7 +141,7 @@ PROFILE_SLOTS = 16
 # Phase 4 timing: each leg warms up, then runs WINDOWS timed windows of
 # WINDOW_STEPS slots (dense: rounds), the legs taking turns; rates are the
 # median window's, with the slowest and fastest beside it.
-WARM_STEPS = 8
+WARM_STEPS = 18  # an eager slot, then a chunk of 16 and a tail slot: both graphs captured
 WINDOWS = 7
 WINDOW_STEPS = 200
 # Phase 6: zamba2-1.2b serving (see PERF.md, "Cells").
@@ -136,7 +156,20 @@ MODEL_TOL = 1e-4
 FIG1 = dict(n=100, p=100, mu=0.3, T_cd=3000, T_admm=300, seed=0)
 TABLE1 = dict(fast=True, seed=0)  # 150 users, 400 items, p = 20, 40 ticks a user
 REFERENCE_ROWS = {"fig1_cd_vs_admm": "cd_beats_admm_per_message=True",
-                  "table1_movielens": "rmse_local=1.490,rmse_cd=1.345"}
+                  "table1_movielens": "rmse_local=1.490,rmse_cd=1.345",
+                  "fig2_privacy_utility": "acc_local=0.791,acc_nonpriv=0.868",
+                  "ablations": "personalized=0.897,global=0.890"}
+# The deterministic fields of Figs. 2-4 and the ablations at the fast size,
+# from the JAX package's runners on a CPU (benchmarks/bench_privacy_utility.py,
+# benchmarks/bench_ablations.py, run(fast=True)); the card must agree within
+# BENCH_ACC_TOL (a test point or two).
+REFERENCE_FAST = {"fig2c_acc_local": 0.7906667, "fig2c_acc_nonprivate": 0.8683333,
+                  "fig3_acc_local_small_m": 0.742, "fig3_acc_local_large_m": 0.8393333,
+                  "fig4_acc_local_clean": 0.7913333, "acc_personalized": 0.8975,
+                  "acc_global": 0.89}
+BENCH_ACC_TOL = 0.005
+# Phase 5: the captured chunk against the eager slots.
+CAPTURE_PARITY_SLOTS = 37  # 2 chunks of 16 and 5 single slots (the first one eager)
 
 
 def log(msg: str) -> None:
@@ -479,17 +512,17 @@ def report_trace(label, events, wall_ms, steps, unit, ms_per_step):
     return out
 
 
-def profile_slots(label, engine, state, slots: int, out_dir: Path, ms_per_slot: float):
-    """Trace ``slots`` sampled super-ticks with torch.profiler (Chrome trace
-    in ``out_dir``) and report them (:func:`report_trace`)."""
+def profile_slots(label, advance, state, slots: int, out_dir: Path, ms_per_slot: float):
+    """Trace ``advance(state, slots)`` (the captured chunk, or the eager
+    slot loop) with torch.profiler (Chrome trace in ``out_dir``); returns
+    the state and the report (:func:`report_trace`)."""
     box = [state]
 
     def run():
-        box[0] = engine.advance(box[0], slots)
+        box[0] = advance(box[0], slots)
 
     events, wall_ms = traced(run, out_dir / f"trace_{label.replace(' ', '_')}.json")
-    report_trace(label, events, wall_ms, slots, "slot", ms_per_slot)
-    return box[0]
+    return box[0], report_trace(label, events, wall_ms, slots, "slot", ms_per_slot)
 
 
 def profile_rounds(label, obj, rounds: int, out_dir: Path, ms_per_round: float, dev) -> dict:
@@ -557,6 +590,7 @@ PATH_KERNEL = {"fused": "fused_row_update", "unfused": "sparse_mix",
                "dense": "graph_mix", "sparse_sync": "sparse_mix",
                "dp_clip_noise": "dp_clip_noise", "zamba2_prefill": "ssm_chunk"}
 ENGINE_LEGS = ("fused", "unfused", "dp_fused", "dp_unfused")
+PATH_KERNEL.update({f"{key}_eager": PATH_KERNEL[key] for key in ENGINE_LEGS})
 SYNC_LEGS = ("dense", "sparse_sync")  # synchronous_round: graph_mix, sparse_mix at R = n
 
 
@@ -570,14 +604,16 @@ def check_windows(label: str, timed_leg: dict) -> None:
 
 def drive_main_path(engines, dense_obj, sparse_obj, dev):
     """Phase 4: the engine legs of ``engines`` (``ENGINE_LEGS``: the fused
-    and unfused slots, non-private and private), dense synchronous rounds
-    (``graph_mix``) and synchronous rounds on the sparse main-path
-    objective (the paper's synchronous baseline: ``MixOp.all`` through
-    ``sparse_mix`` at R = n), warmed up, then timed in interleaved windows.
-    Fails unless each leg launched its kernel in every window and kept
-    Theta finite, and each non-private leg lowered its objective. Returns
-    the legs' numbers, the engine states and the launch counts of the
-    timed windows."""
+    and unfused slots, non-private and private) through ``advance`` (the
+    captured chunk on the card) and each again through the eager slot loop
+    on a state of its own from the same start (``<leg>_eager``), dense
+    synchronous rounds (``graph_mix``) and synchronous rounds on the sparse
+    main-path objective (the paper's synchronous baseline: ``MixOp.all``
+    through ``sparse_mix`` at R = n), warmed up, then timed in interleaved
+    windows. Fails unless each leg launched its kernel in every window and
+    kept Theta finite, and each non-private leg lowered its objective.
+    Returns the legs' numbers, the engine states (captured, then eager) and
+    the launch counts of the timed windows."""
     import numpy as np
     import torch
 
@@ -586,18 +622,21 @@ def drive_main_path(engines, dense_obj, sparse_obj, dev):
     states = {}
     for key in ENGINE_LEGS:
         eng = engines[key]
-        state = eng.init_state(np.zeros((eng.n, eng.p), dtype=np.float32))
-        q0 = eng._objective_value(state)
-        states[key] = dict(q0=q0, state=eng.advance(state, WARM_STEPS))
+        for label, run in ((key, eng.advance), (f"{key}_eager", eng._eager_slots)):
+            state = eng.init_state(np.zeros((eng.n, eng.p), dtype=np.float32))
+            q0 = eng._objective_value(state)
+            states[label] = dict(q0=q0, run=run, eng=eng, state=run(state, WARM_STEPS))
     sync = {}  # the synchronous legs: objective, iterate, starting value
     for key, o in (("dense", dense_obj), ("sparse_sync", sparse_obj)):
         Theta = torch.zeros((o.n, o.p), device=dev, dtype=torch.float32)
         sync[key] = dict(obj=o, Theta=Theta, q0=float(o.value(Theta)))
 
-    def slots(key):
+    def slots(label):
+        leg = states[label]
+
         def step(k):
-            states[key]["state"] = engines[key].advance(states[key]["state"], k)
-        return step, lambda: int(states[key]["state"].applied)
+            leg["state"] = leg["run"](leg["state"], k)
+        return step, lambda: int(leg["state"].applied)
 
     def rounds(key):
         def step(k):
@@ -607,15 +646,15 @@ def drive_main_path(engines, dense_obj, sparse_obj, dev):
         return step, None
 
     launches: dict = {}
-    legs = {key: slots(key) for key in ENGINE_LEGS}
+    legs = {label: slots(label) for label in states}
     for key in SYNC_LEGS:
         legs[key] = rounds(key)
         legs[key][0](WARM_STEPS)
     timed = timed_windows(legs, launches)
 
     main_path = {}
-    for key in ENGINE_LEGS:
-        eng, st, t = engines[key], states[key], timed[key]
+    for label, st in states.items():
+        eng, t = st["eng"], timed[label]
         state = st["state"]
         rate = spread(t["rates"])
         out = dict(
@@ -625,18 +664,21 @@ def drive_main_path(engines, dense_obj, sparse_obj, dev):
             finite=bool(torch.isfinite(state.Theta).all()), Q0=st["q0"],
             Q=eng._objective_value(state),
         )
-        main_path[key] = out
-        log(f"[4] rgg500k_p100 {key}: fused={eng.fused} batch={eng.batch_size} {fmt(out)} "
+        main_path[label] = out
+        log(f"[4] rgg500k_p100 {label}: fused={eng.fused} batch={eng.batch_size} {fmt(out)} "
             f"launches={t['counts']}")
         if not out["finite"]:
-            raise SystemExit(f"{key} leg: Theta is not finite")
-        check_windows(key, t)
-        if not key.startswith("dp_") and not out["Q"] < out["Q0"]:
-            raise SystemExit(f"{key} leg: the objective did not decrease")
-    for a, b in (("fused", "unfused"), ("dp_fused", "dp_unfused")):
+            raise SystemExit(f"{label} leg: Theta is not finite")
+        check_windows(label, t)
+        if not label.startswith("dp_") and not out["Q"] < out["Q0"]:
+            raise SystemExit(f"{label} leg: the objective did not decrease")
+    pairs = [("fused", "unfused"), ("dp_fused", "dp_unfused")]
+    pairs += [(key, f"{key}_eager") for key in ENGINE_LEGS]
+    for a, b in pairs:
         ratios = [f / u for f, u in zip(timed[a]["rates"], timed[b]["rates"])]
-        main_path[f"{a}_over_{b}"] = spread(ratios)
-        log(f"[4] {a} / {b} slots/s, window by window: {fmt(spread(ratios))}")
+        main_path[f"{a}_over_{b}"] = dict(spread(ratios), windows=ratios)
+        log(f"[4] {a} / {b} slots/s, window by window: "
+            f"{' '.join(f'{r:.4g}' for r in ratios)} ({fmt(spread(ratios))})")
     for key in SYNC_LEGS:
         leg = sync[key]
         rate = spread(timed[key]["rates"])
@@ -671,6 +713,21 @@ def budget_check(engines, states, main_path) -> None:
             raise SystemExit(f"{key} leg: {stopped} budget-stopped agents, not in (0, n)")
         if int(counts.max()) > upd.planned_Ti:
             raise SystemExit(f"{key} leg: an agent applied more than planned_Ti updates")
+        if engines[key].metrics_spec is None:
+            continue
+        # The device counters, updated inside the captured slots.
+        counters, derived = engines[key].metrics_snapshot(state)
+        metrics = dict(dp_budget_stopped=int(counters["dp_budget_stopped"]),
+                       wakes_applied=int(counters["wakes_applied"]),
+                       wakes_realized=int(counters["wakes_realized"]),
+                       churn_departures=int(counters["churn_departures"]),
+                       staleness_hist=[int(x) for x in counters["staleness_hist"]],
+                       dp_eps_spent_max=derived["dp_eps_spent_max"])
+        main_path[key]["metrics"] = metrics
+        log(f"[4] rgg500k_p100 {key} metrics: {fmt(metrics)} (state: applied="
+            f"{int(state.applied)}, budget_stopped={stopped})")
+        if metrics["dp_budget_stopped"] != stopped or metrics["wakes_applied"] != int(state.applied):
+            raise SystemExit(f"{key} leg: the metrics disagree with the state: {metrics}")
 
 
 def dp_clip_noise_leg(dev, launches: dict) -> dict:
@@ -708,6 +765,75 @@ def dp_clip_noise_leg(dev, launches: dict) -> dict:
     if not out["finite"] or excess > 1.0 + 1e-5:
         raise SystemExit("dp_clip_noise leg: output not finite or clipped mean above the clip")
     return out
+
+
+def _state_leaves(state) -> dict:
+    leaves = {k: getattr(state, k) for k in ("Theta", "hist", "ptr", "active", "applied",
+                                             "dropped", "messages")}
+    if hasattr(state.ustate, "shape"):
+        leaves["ustate"] = state.ustate
+    leaves.update({f"metrics.{k}": v for k, v in (state.metrics or {}).items()})
+    leaves["generator"] = state.generator.get_state()
+    return leaves
+
+
+def capture_parity(label, engines) -> dict:
+    """Phase 5: ``CAPTURE_PARITY_SLOTS`` slots of each engine leg through the
+    captured chunk (``advance``) and through the eager slots, each from a
+    fresh state of the same seed: every state tensor (Theta, the counters,
+    the churn flags, the DP counts, the metrics, the generator's position)
+    must be equal bit for bit. Returns the number of differing tensors by
+    leg (all 0) and the slots applied."""
+    import numpy as np
+    import torch
+
+    out = {}
+    for key, eng in engines.items():
+        zeros = np.zeros((eng.n, eng.p), dtype=np.float32)
+        captured = _state_leaves(eng.advance(eng.init_state(zeros), CAPTURE_PARITY_SLOTS))
+        eager = _state_leaves(eng._eager_slots(eng.init_state(zeros), CAPTURE_PARITY_SLOTS))
+        differ = [k for k in captured if not torch.equal(captured[k], eager[k])]
+        out[key] = dict(differ=len(differ), tensors=len(captured),
+                        applied=int(captured["applied"]),
+                        graphs=sorted(getattr(eng._graphs, "graphs", {})))
+        if differ:
+            raise SystemExit(f"capture parity {label} {key}: captured != eager in {differ}")
+    log(f"[5] captured == eager bit for bit, {CAPTURE_PARITY_SLOTS} slots at {label}: "
+        + " ".join(f"{k}({v['tensors']} tensors, {v['applied']} applied)" for k, v in out.items()))
+    return out
+
+
+def small_engines(dev, n=512) -> dict:
+    """The four engine legs at n = 512 (k-NN k = 8, p = 4, m = 3, quadratic,
+    64 expected wakes a slot) with churn and stragglers; the private ones
+    with clip 1 and 3 planned updates an agent, metrics on for dp_fused."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.core import AgentData, DPConfig, knn_graph, make_objective
+    from repro_torch.sim import (AsyncEngine, CDUpdate, ChurnConfig, DPCDUpdate, Scenario,
+                                 StragglerConfig)
+
+    rng = np.random.default_rng(1)
+    p, m = 4, 3
+    graph = knn_graph(rng.normal(size=(n, 8)), k=8)
+    X = rng.normal(size=(n, m, p)) / np.sqrt(p)
+    y = np.einsum("nmp,np->nm", X, rng.normal(size=(n, p)) / np.sqrt(p))
+    obj = make_objective(graph, AgentData(X=X, y=y, mask=np.ones((n, m))), "quadratic",
+                         mu=0.5, mix_mode="sparse")
+    dp_obj = dataclasses.replace(obj, clip=DP["clip"])
+    scenario = Scenario(churn=ChurnConfig(leave_prob=0.05, rejoin_prob=0.3),
+                        straggler=StragglerConfig(drop_prob=0.2))
+
+    def engine(update, fused, metrics=None):
+        return AsyncEngine(update, slot_wakes=64.0, scenario=scenario, seed=2, fused=fused,
+                           metrics=metrics, device=dev)
+
+    cfg = DPConfig(eps_bar=DP["eps_bar"], delta_bar=DP["delta_bar"])
+    return {"fused": engine(CDUpdate(obj), "auto"), "unfused": engine(CDUpdate(obj), False),
+            "dp_fused": engine(DPCDUpdate.plan(dp_obj, cfg, 3), "auto", metrics=True),
+            "dp_unfused": engine(DPCDUpdate.plan(dp_obj, cfg, 3), False)}
 
 
 def parity(dev) -> dict:
@@ -1067,11 +1193,12 @@ def zamba2_gates(cfg, dev, gen) -> dict:
 
 
 def paper_benches(dev) -> dict:
-    """Phase 7: Fig. 1 and Table 1 through the port's runners on the card,
-    each beside the reference's CPU row. Launch counts are reset before and
-    read after: the benches run none of the kernels. Fails unless CD beats
-    ADMM per message, CD beats the local models (accuracy, RMSE), and every
-    private RMSE is finite."""
+    """Phase 7: Fig. 1, Table 1, Figs. 2-4 and the ablations through the
+    port's runners on the card, each beside the reference's CPU row. Launch
+    counts are reset before and read after: the benches run none of the
+    kernels. Fails unless CD beats ADMM per message, CD beats the local
+    models (accuracy, RMSE), every private RMSE is finite, and the gates of
+    :func:`privacy_benches` hold."""
     from repro_torch.bench import cd_vs_admm, movielens
     from repro_torch.kernels import ops
 
@@ -1088,7 +1215,6 @@ def paper_benches(dev) -> dict:
     log(f"[7] table1_movielens on the card: {fmt(table1)}; "
         f"reference CPU row: {REFERENCE_ROWS['table1_movielens']} "
         f"(the private rows use the port's own random stream: printed, not compared)")
-    counts = ops.launch_counts()
     private = [table1[k] for k in table1 if k.startswith("rmse_eps_")]
     fails = [msg for ok, msg in (
         (fig1["cd_beats_admm_per_message"], "CD does not beat ADMM per message"),
@@ -1096,11 +1222,67 @@ def paper_benches(dev) -> dict:
         (table1["rmse_cd"] < table1["rmse_local"], "CD RMSE not below the local models'"),
         (len(private) == 3 and all(math.isfinite(r) for r in private),
          "a private RMSE is not finite"),
-        (not any(counts.values()), f"the benches launched kernels: {counts}"),
     ) if not ok]
+    out = {"fig1_cd_vs_admm": fig1, "table1_movielens": table1}
+    more, more_fails = privacy_benches(dev)
+    out.update(more)
+    fails += more_fails
+    counts = ops.launch_counts()
+    if any(counts.values()):
+        fails.append(f"the benches launched kernels: {counts}")
     if fails:
         raise SystemExit(f"paper benches: {'; '.join(fails)}")
-    return {"fig1_cd_vs_admm": fig1, "table1_movielens": table1}
+    return out
+
+
+def privacy_benches(dev):
+    """Figs. 2-4 and the ablations at the reference runners' fast size on the
+    card. Returns their rows and the failed gates: the deterministic fields
+    equal ``REFERENCE_FAST`` within ``BENCH_ACC_TOL``; non-private CD beats
+    the local models in every Fig. 2c row; the warm start's private run ends
+    below the constant init's (Fig. 2b); personalized beats global; every
+    private accuracy is finite and in [0, 1]."""
+    from repro_torch.bench import ablations, privacy_utility
+
+    fig = privacy_utility.run(fast=True, verbose=False, device=dev)
+    ab = ablations.run(fast=True, verbose=False, device=dev)
+    last, f3, f4, f2 = fig["fig2c"][-1], fig["fig3"], fig["fig4"], fig["fig2ab"]
+    pers = ab["personalization"]
+    det = {"fig2c_acc_local": last["acc_local"], "fig2c_acc_nonprivate": last["acc_nonprivate"],
+           "fig3_acc_local_small_m": f3["acc_local_small_m"],
+           "fig3_acc_local_large_m": f3["acc_local_large_m"],
+           "fig4_acc_local_clean": f4["acc_local_clean"],
+           "acc_personalized": pers["acc_personalized"], "acc_global": pers["acc_global"]}
+    private = [v for row in fig["fig2c"] for k, v in row.items() if k.startswith("acc_eps_")]
+    private += [f3["acc_priv_small_m"], f3["acc_priv_large_m"], f2["acc_const"], f2["acc_warm"]]
+    private += [r["acc_local_dp"] for r in f4["rows"]]
+    private += [v for k, v in {**ab["noise_allocation"], **ab["mechanism"]}.items()
+                if k != "prop2_better"]
+    fig2 = dict(derived=fig["derived"], elapsed_s=fig["elapsed_s"],
+                const_init_obj=f2["const_init_obj"], warm_start_obj=f2["warm_start_obj"],
+                const_final_obj=f2["const_objective"][-1],
+                warm_final_obj=f2["warm_objective"][-1], acc_const=f2["acc_const"],
+                acc_warm=f2["acc_warm"])
+    log(f"[7] fig2_privacy_utility on the card: {fmt(fig2)}; fig2c {fig['fig2c']}; "
+        f"fig3 {f3}; fig4 {f4}; reference CPU row: {REFERENCE_ROWS['fig2_privacy_utility']}")
+    fig2.update(fig2c=fig["fig2c"], fig3=f3, fig4=f4)
+    abl = dict(derived=ab["derived"], elapsed_s=ab["elapsed_s"], **ab["noise_allocation"],
+               **ab["mechanism"], **pers)
+    log(f"[7] ablations on the card: {fmt(abl)}; reference CPU row: {REFERENCE_ROWS['ablations']}")
+    errs = {k: abs(v - REFERENCE_FAST[k]) for k, v in det.items()}
+    log(f"[7] deterministic fields against the reference's CPU values (tol {BENCH_ACC_TOL}): "
+        + " ".join(f"{k}={det[k]:.6g}(ref {REFERENCE_FAST[k]:.6g})" for k in det))
+    fails = [msg for ok, msg in (
+        (max(errs.values()) <= BENCH_ACC_TOL, f"deterministic fields off the reference: {errs}"),
+        (all(r["acc_nonprivate"] > r["acc_local"] for r in fig["fig2c"]),
+         "non-private CD not above the local models in a Fig. 2c row"),
+        (f2["warm_objective"][-1] < f2["const_objective"][-1],
+         "the warm start's private run does not end below the constant init's"),
+        (pers["acc_personalized"] > pers["acc_global"], "personalized does not beat global"),
+        (all(math.isfinite(a) and 0.0 <= a <= 1.0 for a in private),
+         "a private accuracy is not finite or not in [0, 1]"),
+    ) if not ok]
+    return {"fig2_privacy_utility": fig2, "ablations": abl}, fails
 
 
 def main() -> int:
@@ -1156,12 +1338,13 @@ def main() -> int:
     planned_Ti = max(int(leg_slots * c["slot_wakes"] // c["n"]), 1)
     dp_cfg = DPConfig(eps_bar=DP["eps_bar"], delta_bar=DP["delta_bar"])
 
-    def engine(update, fused):
+    def engine(update, fused, metrics=None):
         return AsyncEngine(update, slot_wakes=c["slot_wakes"], scenario=scenario,
-                           seed=c["seed"], fused=fused, device=dev)
+                           seed=c["seed"], fused=fused, metrics=metrics, device=dev)
 
     engines = {"fused": engine(CDUpdate(obj), "auto"), "unfused": engine(CDUpdate(obj), False),
-               "dp_fused": engine(DPCDUpdate.plan(dp_obj, dp_cfg, planned_Ti), "auto"),
+               "dp_fused": engine(DPCDUpdate.plan(dp_obj, dp_cfg, planned_Ti), "auto",
+                                  metrics=True),
                "dp_unfused": engine(DPCDUpdate.plan(dp_obj, dp_cfg, planned_Ti), False)}
     torch.cuda.synchronize()
     log(f"[4] set-up rgg500k_p100: n={obj.n} p={obj.p} m={c['m']} "
@@ -1182,11 +1365,14 @@ def main() -> int:
     main_path, states, launches = drive_main_path(engines, dense_obj, obj, dev)
 
     # [4p] where a slot's device time goes, traced after every timed leg
-    # (an attached tracer slows what runs after it).
+    # (an attached tracer slows what runs after it): the captured chunk and
+    # the eager slots of each engine leg.
     for key in ENGINE_LEGS:
-        states[key] = profile_slots(f"rgg500k_p100 {key}", engines[key], states[key],
-                                    PROFILE_SLOTS, _build.build_dir() / "traces",
-                                    main_path[key]["ms_per_slot"])
+        eng = engines[key]
+        for label, run in ((key, eng.advance), (f"{key}_eager", eng._eager_slots)):
+            states[label], main_path[label]["trace"] = profile_slots(
+                f"rgg500k_p100 {label}", run, states[label], PROFILE_SLOTS,
+                _build.build_dir() / "traces", main_path[label]["ms_per_slot"])
     for key, o in (("dense", dense_obj), ("sparse_sync", obj)):
         main_path[key]["trace"] = profile_rounds(
             f"{key} n={o.n}", o, PROFILE_SLOTS, _build.build_dir() / "traces",
@@ -1197,7 +1383,13 @@ def main() -> int:
     if missing:
         raise SystemExit(f"no path of phase 4 launches {missing}")
 
-    # [5] parity on the card
+    # [5] parity on the card: the captured chunk against the eager slots (at
+    # rgg500k_p100 the fresh states are copied into the engines' live
+    # buffers, so this comes after every use of phase 4's states), then the
+    # routes against the CPU
+    capture = {"rgg500k_p100": capture_parity("rgg500k_p100", engines),
+               "n512": capture_parity("n=512 churn+stragglers", small_engines(dev))}
+    main_path["capture_parity"] = capture
     parity(dev)
 
     # [6] zamba2-1.2b serving: the prefill's counts are reset before each

@@ -18,11 +18,14 @@ Ported so far: graphs, the Eq. 2 objective, the neighbour-sum operator,
 sequential coordinate descent, the private algorithm (Eq. 6) with its
 accounting, model propagation and the private warm start, the
 static-topology single-device batched engine driving the Eq. 4, Eq. 6
-and Eq. 16 updates (unfused and fused), and, from the LLM scaffold, the
-model configs and zamba2 serving (``repro_torch.models``: prefill and
-decode of the Mamba2 + shared-attention hybrid). Sharding, telemetry,
-dynamic topology, checkpoints, the engine's serving layer, training and
-the other model families are queued in ``ROADMAP.md``.
+and Eq. 16 updates (unfused and fused; on the card its chunks of slots
+are captured CUDA graphs) with its device metrics and run reports
+(``repro_torch.obs``), the paper's benches (``repro_torch.bench``), and,
+from the LLM scaffold, the model configs and zamba2 serving
+(``repro_torch.models``: prefill and decode of the Mamba2 +
+shared-attention hybrid). Sharding, phase tracing, dynamic topology,
+checkpoints, the engine's serving layer, training and the other model
+families are queued in ``ROADMAP.md``.
 """
 
 from repro_torch.device import resolve_device

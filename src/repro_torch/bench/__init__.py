@@ -2,10 +2,13 @@
 
 Each runs as ``python -m repro_torch.bench.<name> [--device D] [--fast]
 [--out PATH]`` and reports the same fields as its counterpart in the JAX
-package's ``benchmarks/``: ``cd_vs_admm`` (Fig. 1) and ``movielens``
-(Table 1). A run merges its row, under the bench's name, into the JSON
-file ``--out`` (default ``results/BENCH_torch_summary.json`` at the
-repository root), so the runners share one summary.
+package's ``benchmarks/``: ``cd_vs_admm`` (Fig. 1), ``movielens``
+(Table 1), ``privacy_utility`` (Figs. 2a/b, 2c, 3 and 4) and
+``ablations`` (noise allocation, mechanism, personalization), each row
+with the reference's ``derived`` string. A run merges its row, under the
+bench's name, into the JSON file ``--out`` (default
+``results/BENCH_torch_summary.json`` at the repository root), so the
+runners share one summary.
 """
 
 from __future__ import annotations

@@ -12,7 +12,11 @@ so an edited source rebuilds and an unchanged one is reused.
 once, so a launch pays one dictionary lookup for it. Every C entry point
 returns ``cudaGetLastError()`` after its launches; :func:`finish_launch` raises on a nonzero status and otherwise adds one
 to that kernel's launch count (:data:`LAUNCHES`), the record a run reads
-to show that its path went through the kernels.
+to show that its path went through the kernels. A launch made while a
+CUDA graph is being captured reaches the card only when the graph is
+replayed: the graph's owner takes such launches back out of the counts
+and adds them once per replay (:func:`add_launches`;
+``repro_torch.sim.capture``).
 """
 
 from __future__ import annotations
@@ -48,6 +52,14 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> dict[str, int]:
     return dict(LAUNCHES)
+
+
+def add_launches(counts: dict[str, int]) -> None:
+    """Add ``counts`` to the launch counts: a replayed graph's launches,
+    which make no Python call (or, negative, a capture's, which make no
+    launch)."""
+    for name, k in counts.items():
+        LAUNCHES[name] += k
 
 
 def build_dir() -> Path:

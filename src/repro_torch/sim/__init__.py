@@ -3,8 +3,10 @@
 Poisson-thinned super-ticks with churn / delay / straggler scenarios,
 driving the Eq. 4, private Eq. 6 and model-propagation Eq. 16 updates
 through the ``LocalUpdate`` protocol on one device: the static-topology,
-single-device ``AsyncEngine``. The reference's sharded engine, arrivals
-and dynamic topology are queued in ``ROADMAP.md``.
+single-device ``AsyncEngine``, whose chunks of slots replay as captured
+CUDA graphs on the card (:mod:`repro_torch.sim.capture`). The
+reference's sharded engine, arrivals and dynamic topology are queued in
+``ROADMAP.md``.
 """
 
 from repro_torch.sim.clocks import (

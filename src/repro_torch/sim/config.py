@@ -5,7 +5,9 @@ scenario and device knobs the :class:`repro_torch.sim.AsyncEngine` takes
 (``config=...``); keyword arguments to the engine or to
 :func:`make_engine` override its fields. The port adds ``device``,
 which defaults to ``"cuda"``: building a config for CUDA on a machine
-without a CUDA device raises and names the field.
+without a CUDA device raises and names the field. ``steps_per_chunk``
+sizes the engine's chunks as in the reference: there a jitted
+``lax.scan``, here a captured CUDA graph replayed on the card.
 
 The reference's fields for the parts not ported yet are kept so that a
 config naming them fails loudly instead of being ignored: setting any of
@@ -24,7 +26,6 @@ from repro_torch.sim.scenarios import Scenario
 
 # Field -> (value that means "off", the ROADMAP item that ports it).
 _LATER_FIELDS = {
-    "metrics": (None, "A10 (observability)"),
     "partition_mode": ("degree", "A9 (sharded engine)"),
     "relabel": (None, "A9 (sharded engine)"),
     "coords": (None, "A9 (sharded engine)"),
@@ -46,11 +47,19 @@ class EngineConfig:
     * ``scenario``: churn / delay / straggler bundle (None = none);
     * ``seed``: seed of the engine's ``torch.Generator`` on ``device``;
     * ``dtype``: model dtype (torch.float32 by default);
+    * ``steps_per_chunk``: super-ticks per chunk — on a CUDA device
+      ``AsyncEngine.advance`` replays a CUDA graph of this many slots
+      (and a graph of one slot for a remainder); on the CPU the slots run
+      one by one, the chunking only setting when ``run`` may stop;
     * ``fused``: woken-row hot path — ``"auto"`` runs the fused CUDA kernel
       for a float32 engine on a CUDA device with a quadratic-loss update
       and no delay scenario, ``True`` asks for the fused path wherever it
       is supported (its plain version on the CPU), ``False`` keeps the
       unfused gather / mix / update / scatter;
+    * ``metrics``: device telemetry — a
+      :class:`repro_torch.obs.MetricsSpec` selecting counter groups,
+      ``True`` for the default spec, ``None``/``False`` (default) for no
+      collection. Metrics-on runs are bit-exact in Theta with metrics-off;
     * ``device``: where the engine runs, ``"cuda"`` unless the caller
       asks for ``"cpu"``.
     """
@@ -61,9 +70,10 @@ class EngineConfig:
     scenario: Scenario | None = None
     seed: int = 0
     dtype: Any = torch.float32
+    steps_per_chunk: int = 16
     fused: Any = "auto"  # False | True | "auto"
     device: Any = "cuda"
-    metrics: Any = None
+    metrics: Any = None  # MetricsSpec | True | False | None
     partition_mode: str = "degree"
     relabel: Any = None
     coords: Any = None
@@ -78,6 +88,8 @@ class EngineConfig:
             raise ValueError(f"fused must be False, True, or 'auto', got {self.fused!r}")
         if self.dtype not in (torch.float32, torch.float64):
             raise ValueError(f"dtype must be torch.float32 or torch.float64, got {self.dtype!r}")
+        if int(self.steps_per_chunk) < 1:
+            raise ValueError(f"steps_per_chunk must be >= 1, got {self.steps_per_chunk!r}")
         for name, (off, item) in _LATER_FIELDS.items():
             value = getattr(self, name)
             if (value is not None) if off is None else (value != off):
@@ -86,6 +98,12 @@ class EngineConfig:
                     "which is not ported yet"
                 )
         resolve_device(self.device, "EngineConfig.device")
+
+    def metrics_spec(self):
+        """The coerced telemetry spec (None = collection off, the default)."""
+        from repro_torch.obs.metrics import MetricsSpec
+
+        return MetricsSpec.coerce(self.metrics)
 
     def replace(self, **overrides) -> "EngineConfig":
         """A copy with the given fields replaced (dataclasses.replace)."""

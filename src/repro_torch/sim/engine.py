@@ -21,18 +21,25 @@ lists them and the port's own).
 
 The slot keeps static shapes and never reads a device value on the host
 (no ``.item()``, ``nonzero()`` or Python branch on a tensor), so a whole
-slot is a fixed sequence of launches. ``Theta`` and the delay history are
-updated in place: a state passed to :meth:`AsyncEngine.step` or
-:meth:`AsyncEngine.advance` is consumed by it (clone ``state.Theta`` to
-keep a copy). Random draws come from one ``torch.Generator`` on the
-engine's device, seeded from ``EngineConfig.seed``; they are not the
-reference's ``jax.random`` draws, so runs agree with the reference
-through forced wake sets and in distribution, not draw for draw.
+slot is a fixed sequence of launches, and it updates every state tensor
+in place (``Theta``, the delay history, the counters, the churn flags,
+the update's state and the metrics): a state passed to
+:meth:`AsyncEngine.step` or :meth:`AsyncEngine.advance` is consumed by it
+(clone what you want to keep). That is what lets :meth:`AsyncEngine.advance`
+replay a chunk of slots as a captured CUDA graph on the card
+(:mod:`repro_torch.sim.capture`), the counterpart of the reference's
+jitted ``lax.scan`` chunk; on the CPU the slots run one by one. Random
+draws come from one ``torch.Generator`` on the engine's device, seeded
+from ``EngineConfig.seed``; they are not the reference's ``jax.random``
+draws, so runs agree with the reference through forced wake sets and in
+distribution, not draw for draw. With ``EngineConfig(metrics=...)`` the
+slot also advances the device counters of :mod:`repro_torch.obs`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -41,7 +48,10 @@ import torch
 from repro_torch.core.graph import as_csr, neighbor_counts
 from repro_torch.device import resolve_device
 from repro_torch.kernels.fused_row_update import MAX_M, MAX_P
+from repro_torch.obs.metrics import MetricsAccumulator
+from repro_torch.obs.report import RunReport
 from repro_torch.sim import clocks
+from repro_torch.sim.capture import ChunkGraphs
 from repro_torch.sim.config import EngineConfig, resolve_config
 from repro_torch.sim.scenarios import Scenario
 from repro_torch.sim.updates import LocalUpdate
@@ -81,9 +91,10 @@ def _resolve_fused(update, fused, device: torch.device, dtype, has_delay: bool, 
 
 
 class SimState(NamedTuple):
-    """Engine state carried from slot to slot (tensors on the engine's device)."""
+    """Engine state carried from slot to slot (tensors on the engine's
+    device, each updated in place by the slot)."""
 
-    Theta: torch.Tensor  # (n, p) current models, updated in place
+    Theta: torch.Tensor  # (n, p) current models
     hist: torch.Tensor  # (depth, n, p) start-of-slot snapshot ring (delay only)
     ptr: torch.Tensor  # () int64 slot counter
     active: torch.Tensor  # (n,) bool churn state
@@ -92,6 +103,8 @@ class SimState(NamedTuple):
     applied: torch.Tensor  # () int64: updates actually written
     dropped: torch.Tensor  # () int64: wakes lost to slot capacity
     messages: torch.Tensor  # () float32: cumulative p-vectors transmitted
+    metrics: object = None  # dict of device counters (None: EngineConfig.metrics
+    # is off; see repro_torch.obs.metrics)
 
 
 @dataclasses.dataclass
@@ -107,6 +120,7 @@ class SimResult:
     active: np.ndarray  # final (n,) churn state
     update_state: object  # final LocalUpdate state
     state: SimState  # full engine state, resumable via ``run(state=...)``
+    report: object = None  # repro_torch.obs.RunReport when run(metrics_every=) drained
 
 
 def _check_recordable(update, record_every: int) -> None:
@@ -119,33 +133,69 @@ def _check_recordable(update, record_every: int) -> None:
         )
 
 
-def _drive_slots(state, slots: int, slot, events=()):
-    """Run ``slots`` super-ticks through ``slot(state)``, one at a time
-    (the reference's compiled ``lax.scan`` chunks have no counterpart
-    here). ``events`` is a list of ``(every, callback)`` pairs; each
-    callback fires with the state whenever the completed slot count hits a
-    multiple of its period, and once more at the end when ``slots`` is not
-    a multiple."""
+def _drive_slots(state, slots: int, stride: int, advance, events=()):
+    """Run ``slots`` super-ticks through ``advance(state, steps)`` in
+    ``stride``-sized chunks, the tail one slot at a time, so that only two
+    chunk lengths ever run (on the card: two captured graphs). ``events``
+    is a list of ``(every, callback)`` pairs; each callback fires with the
+    state whenever the completed slot count hits a multiple of its period,
+    and once more at the end when ``slots`` is not a multiple (a run always
+    closes with a final record or drain). ``stride`` must divide every
+    period, or fire points fall between chunks (callers pass the gcd).
+    The reference's driver, unchanged."""
     events = [(int(every), cb) for every, cb in events if cb is not None and every > 0]
-    for done in range(1, int(slots) + 1):
-        state = slot(state)
+    done = 0
+    while done < slots:
+        steps = min(stride, slots - done)
+        if steps == stride:
+            state = advance(state, stride)
+        else:
+            for _ in range(steps):
+                state = advance(state, 1)
+        done += steps
         for every, cb in events:
             if done % every == 0 or done == slots:
                 cb(state)
     return state
 
 
-def _run_driver(engine, Theta0, slots: int, *, record_every: int = 0, state=None):
-    """The run loop behind ``AsyncEngine.run``: optional objective
-    recording every ``record_every`` slots. Returns ``(state, objective)``."""
+def _event_stride(events, default: int) -> int:
+    """The chunk stride serving ``(every, cb)`` events: gcd of the periods
+    (so every fire point lands on a chunk boundary), or ``default``."""
+    periods = [int(every) for every, cb in events if cb is not None and every > 0]
+    return math.gcd(*periods) if periods else default
+
+
+def _run_driver(engine, Theta0, slots: int, *, record_every: int = 0, state=None,
+                metrics_every: int = 0, report=None):
+    """The run loop behind ``AsyncEngine.run``: objective recording every
+    ``record_every`` slots and metric drains into a
+    :class:`repro_torch.obs.RunReport` every ``metrics_every``, as
+    ``(every, callback)`` events of :func:`_drive_slots`, chunked at
+    :func:`_event_stride`. Returns ``(state, objective, report)``."""
     _check_recordable(engine.update, record_every)
+    if metrics_every > 0 and engine._macc is None:
+        raise ValueError(
+            "metrics_every requires metrics collection on; construct the "
+            "engine with EngineConfig(metrics=True) (or a MetricsSpec)"
+        )
     state = engine.init_state(Theta0) if state is None else state
     objective = [engine._objective_value(state)] if record_every > 0 else None
+    if metrics_every > 0 and report is None:
+        report = RunReport(meta=engine.report_meta())
     events = []
     if objective is not None:
         events.append((record_every, lambda s: objective.append(engine._objective_value(s))))
-    state = _drive_slots(state, slots, lambda s: engine._slot(s, None), events)
-    return state, objective
+    if metrics_every > 0:
+
+        def _drain(s):
+            counters, derived = engine.metrics_snapshot(s)
+            report.add_snapshot(engine._ptr_of(s), counters, derived)
+
+        events.append((metrics_every, _drain))
+    stride = _event_stride(events, engine.steps_per_chunk)
+    state = _drive_slots(state, slots, stride, engine.advance, events)
+    return state, objective, report
 
 
 class AsyncEngine:
@@ -153,8 +203,8 @@ class AsyncEngine:
 
     Configured by :class:`repro_torch.sim.EngineConfig` (``config=...``);
     keyword arguments (``slot_wakes``, ``rates``, ``batch_size``,
-    ``scenario``, ``seed``, ``dtype``, ``fused``, ``device``) override its
-    fields.
+    ``scenario``, ``seed``, ``dtype``, ``steps_per_chunk``, ``fused``,
+    ``metrics``, ``device``) override its fields.
     """
 
     def __init__(self, update: LocalUpdate, *, config: EngineConfig | None = None, **kw):
@@ -166,6 +216,7 @@ class AsyncEngine:
         self.n, self.p = update.n, update.p
         self.dtype = cfg.dtype
         self._seed = int(cfg.seed)
+        self.steps_per_chunk = int(cfg.steps_per_chunk)
         self.rates = clocks.normalize_rates(cfg.rates, self.n)
         self.tau = clocks.slot_duration(self.rates, cfg.slot_wakes)
         self.wake_probs = clocks.wake_probs(self.rates, self.tau)
@@ -216,6 +267,21 @@ class AsyncEngine:
         else:
             self._fidx = self._fw = None
 
+        self.metrics_spec = cfg.metrics_spec()
+        self._macc = (
+            None
+            if self.metrics_spec is None
+            else MetricsAccumulator(
+                self.metrics_spec,
+                self.n,
+                churn=self._leave is not None,
+                straggler=self._drop is not None,
+                dp_limit=getattr(update, "planned_Ti", None),
+            )
+        )
+        # The captured chunks (sim/capture.py): on a CUDA device only.
+        self._graphs = ChunkGraphs(self) if dev.type == "cuda" else None
+
     @staticmethod
     def _padded_tables(update):
         mix = update.mix
@@ -251,6 +317,7 @@ class AsyncEngine:
             applied=torch.zeros((), dtype=torch.long, device=dev),
             dropped=torch.zeros((), dtype=torch.long, device=dev),
             messages=torch.zeros((), dtype=torch.float32, device=dev),
+            metrics=None if self._macc is None else self._macc.init(dev),
         )
 
     # -- one super-tick ----------------------------------------------------
@@ -277,22 +344,23 @@ class AsyncEngine:
         return woken, slot_rows, valid, total - nvalid
 
     def _slot(self, state: SimState, wake_mask) -> SimState:
-        """One super-tick; ``wake_mask`` forces the wake set (None samples it)."""
+        """One super-tick, in place; ``wake_mask`` forces the wake set (None
+        samples it)."""
         n, dev = self.n, self.device
         gen = state.generator
-        active = state.active
+        active_prev = active = state.active
         if wake_mask is None:
             if self._leave is not None:
                 leave = torch.rand(n, generator=gen, device=dev) < self._leave
                 rejoin = torch.rand(n, generator=gen, device=dev) < self._rejoin
-                active = torch.where(active, ~leave, rejoin)
-            wake = (torch.rand(n, generator=gen, device=dev) < self._wake_p) & active
+                active = torch.where(active_prev, ~leave, rejoin)
+            wake_pre = wake = (torch.rand(n, generator=gen, device=dev) < self._wake_p) & active
             if self._drop is not None:
-                wake = wake & (torch.rand(n, generator=gen, device=dev) >= self._drop)
+                wake = wake_pre & (torch.rand(n, generator=gen, device=dev) >= self._drop)
         else:
             # Forced wake sets (tests/diagnostics): no churn transition, no
             # straggler losses — but departed agents still cannot wake.
-            wake = wake_mask & active
+            wake_pre = wake = wake_mask & active
         woken, slot_rows, valid, dropped = self._compact(wake)
 
         Theta = state.Theta
@@ -319,18 +387,29 @@ class AsyncEngine:
             keep = torch.where(applied[:, None], new_rows.to(Theta.dtype), Theta[slot_rows])
             Theta.index_copy_(0, slot_rows, keep)
 
+        if self._macc is not None:
+            self._macc.tick(
+                state.metrics,
+                ptr=state.ptr,
+                wake_pre=wake_pre,
+                wake=wake,
+                applied=applied,
+                slot_rows=slot_rows,
+                capacity_dropped=dropped,
+                active_prev=active_prev,
+                active_new=active,
+                dp_counts=ustate if self._macc.dp_limit is not None else None,
+            )
+        # The counters and the churn flags, in place (a captured graph
+        # replays these very tensors).
         deg = self._deg_counts[slot_rows]
-        return SimState(
-            Theta=Theta,
-            hist=hist,
-            ptr=state.ptr + 1,
-            active=active,
-            generator=gen,
-            ustate=ustate,
-            applied=state.applied + applied.sum(),
-            dropped=state.dropped + dropped,
-            messages=state.messages + torch.where(applied, deg, 0.0).sum(),
-        )
+        state.messages.add_(torch.where(applied, deg, 0.0).sum())
+        state.applied.add_(applied.sum())
+        state.dropped.add_(dropped)
+        state.ptr.add_(1)
+        if active is not active_prev:
+            state.active.copy_(active)
+        return state._replace(Theta=Theta, ustate=ustate)
 
     # -- drivers -----------------------------------------------------------
     def step(self, state: SimState, wake_mask) -> SimState:
@@ -340,7 +419,17 @@ class AsyncEngine:
         return self._slot(state, wake_mask.to(device=self.device, dtype=torch.bool))
 
     def advance(self, state: SimState, slots: int) -> SimState:
-        """Run ``slots`` sampled super-ticks."""
+        """Run ``slots`` sampled super-ticks: on a CUDA device as replays of
+        the captured chunk graphs (``slots // steps_per_chunk`` of the chunk,
+        the rest of the one-slot graph; :mod:`repro_torch.sim.capture`), on
+        the CPU one eager slot at a time. Both give the same bits."""
+        if self._graphs is None:
+            return self._eager_slots(state, slots)
+        return self._graphs.advance(state, int(slots))
+
+    def _eager_slots(self, state: SimState, slots: int) -> SimState:
+        """``slots`` sampled super-ticks, one eager slot at a time (the CPU
+        path; on the card, the yardstick of the captured chunk)."""
         for _ in range(int(slots)):
             state = self._slot(state, None)
         return state
@@ -349,16 +438,69 @@ class AsyncEngine:
         """The update's objective at ``state`` (recording hook)."""
         return self.update.objective(state.Theta)
 
+    def _ptr_of(self, state: SimState) -> int:
+        """Host value of the slot counter (drain bookkeeping)."""
+        return int(state.ptr)
+
+    # -- telemetry -----------------------------------------------------------
+    def metrics_snapshot(self, state: SimState) -> tuple:
+        """Drain the device counters: ``(counters, derived)`` host dicts.
+
+        ``counters`` are the accumulated leaves (numpy); ``derived`` adds
+        host-computed values — the DP accountant's composed eps spend —
+        that need update-rule context the device counters don't carry.
+        """
+        if self._macc is None:
+            raise ValueError(
+                "metrics collection is off; construct the engine with "
+                "EngineConfig(metrics=True) (or a MetricsSpec)"
+            )
+        return self._macc.snapshot(state.metrics), self._derived_metrics(state.ustate)
+
+    def _derived_metrics(self, ustate) -> dict:
+        derived: dict = {}
+        if self.metrics_spec.privacy and hasattr(self.update, "eps_spent"):
+            eps = np.asarray(self.update.eps_spent(ustate))
+            derived["dp_eps_spent_mean"] = float(eps.mean())
+            derived["dp_eps_spent_max"] = float(eps.max())
+        return derived
+
+    def report_meta(self) -> dict:
+        """Run metadata stamped into a :class:`repro_torch.obs.RunReport`."""
+        return {
+            "engine": type(self).__name__,
+            "update": type(self.update).__name__,
+            "n": self.n,
+            "p": self.p,
+            "slot_wakes": float(self.config.slot_wakes),
+            "batch_size": int(self.batch_size),
+            "fused": bool(self.fused),
+            "dtype": str(self.dtype).replace("torch.", ""),
+        }
+
     def run(
-        self, Theta0, slots: int, record_every: int = 0, state: SimState | None = None
+        self,
+        Theta0,
+        slots: int,
+        record_every: int = 0,
+        state: SimState | None = None,
+        metrics_every: int = 0,
+        report=None,
     ) -> SimResult:
         """Drive ``slots`` super-ticks from ``Theta0`` (or a resumed ``state``).
 
         ``record_every`` > 0 records the update's objective every that many
-        slots (and at the start and the end).
+        slots (and at the start and the end). ``metrics_every`` > 0 drains
+        the device metrics every that many slots (requires collection on —
+        ``EngineConfig(metrics=...)``) into a
+        :class:`repro_torch.obs.RunReport` returned as ``SimResult.report``;
+        pass ``report=`` to keep appending to an existing one across resumed
+        runs. The slots run in chunks of ``steps_per_chunk`` (of the gcd of
+        the periods when any is set), as in the reference.
         """
-        state, objective = _run_driver(
-            self, Theta0, slots, record_every=record_every, state=state
+        state, objective, report = _run_driver(
+            self, Theta0, slots, record_every=record_every, state=state,
+            metrics_every=metrics_every, report=report,
         )
         return SimResult(
             Theta=state.Theta.to("cpu", copy=True).numpy(),
@@ -370,4 +512,5 @@ class AsyncEngine:
             active=state.active.to("cpu", copy=True).numpy(),
             update_state=state.ustate,
             state=state,
+            report=report,
         )

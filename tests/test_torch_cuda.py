@@ -618,3 +618,151 @@ def test_ssm_chunk_every_head_group_gives_the_same_bits(dev, G, Q, N, P, heads):
         if first is None:
             first = (y, s)
         assert torch.equal(y, first[0]) and torch.equal(s, first[1])
+
+
+# ---------------------------------------------------------------------------
+# The captured chunk (repro_torch.sim.capture): replayed CUDA graphs against
+# the eager slots, bit for bit
+# ---------------------------------------------------------------------------
+
+CAPTURE_CASES = ["fused", "unfused", "dp_fused", "dp_unfused", "delay", "churn_straggler",
+                 "propagation", "fused_metrics", "dp_unfused_metrics"]
+
+
+def _capture_engine(dev, case, n=512, steps_per_chunk=16):
+    """A card engine for one case of the captured-chunk gate: n = 512,
+    k-NN graph, quadratic loss, 64 expected wakes a slot; the private
+    cases plan 3 updates an agent, so budgets run out within 37 slots."""
+    from repro_torch.sim import ChurnConfig, DelayConfig, PropagationUpdate, Scenario
+    from repro_torch.sim import StragglerConfig
+
+    rng = np.random.default_rng(11)
+    p, m = 8, 4
+    graph = knn_graph(rng.normal(size=(n, 6)), k=6)
+    X = rng.normal(size=(n, m, p)) / np.sqrt(p)
+    y = np.einsum("nmp,np->nm", X, rng.normal(size=(n, p)))
+    clip = 1.0 if case.startswith("dp") else None
+    obj = make_objective(graph, AgentData(X=X, y=y, mask=np.ones((n, m))), "quadratic",
+                         mu=0.5, clip=clip, mix_mode="sparse")
+    kw = dict(slot_wakes=64.0, seed=5, device=dev, steps_per_chunk=steps_per_chunk,
+              fused="auto" if "fused" in case and "unfused" not in case else False,
+              metrics=case.endswith("metrics"))
+    if case == "delay":
+        kw["scenario"] = Scenario(delay=DelayConfig(max_delay=3, edge_delays=2))
+    elif case in ("churn_straggler", "fused_metrics", "dp_unfused_metrics"):
+        kw["scenario"] = Scenario(churn=ChurnConfig(leave_prob=0.05, rejoin_prob=0.3),
+                                  straggler=StragglerConfig(drop_prob=0.2))
+    if case.startswith("dp"):
+        upd = DPCDUpdate.plan(obj, DPConfig(eps_bar=0.5), planned_Ti=3)
+    elif case == "propagation":
+        upd = PropagationUpdate(graph, rng.normal(size=(n, p)), 0.4, obj.confidences)
+    else:
+        upd = CDUpdate(obj)
+    eng = AsyncEngine(upd, **kw)
+    assert eng.fused == (kw["fused"] == "auto")
+    return eng, rng.normal(size=(n, p))
+
+
+def _assert_states_equal(a, b):
+    for name in ("Theta", "hist", "ptr", "active", "applied", "dropped", "messages"):
+        assert torch.equal(getattr(a, name), getattr(b, name)), name
+    if isinstance(a.ustate, torch.Tensor):
+        assert torch.equal(a.ustate, b.ustate)
+    assert (a.metrics is None) == (b.metrics is None)
+    for k in (a.metrics or {}):
+        assert torch.equal(a.metrics[k], b.metrics[k]), k
+    assert torch.equal(a.generator.get_state(), b.generator.get_state())
+
+
+@pytest.mark.parametrize("case", CAPTURE_CASES)
+def test_captured_chunk_equals_eager_bit_for_bit(dev, case):
+    """37 slots at steps_per_chunk = 16 (one eager warm-up slot, two chunk
+    replays, four replays of the one-slot graph) from the same state and
+    seed as 37 eager slots: every state tensor, the metrics and the
+    generator's position are equal bit for bit."""
+    eng, Theta0 = _capture_engine(dev, case)
+    captured = eng.advance(eng.init_state(Theta0), 37)
+    eager = eng._eager_slots(eng.init_state(Theta0), 37)
+    torch.cuda.synchronize()
+    assert sorted(eng._graphs.graphs) == [1, 16]
+    assert int(captured.ptr) == 37 and int(captured.applied) > 0
+    _assert_states_equal(captured, eager)
+    assert not torch.equal(captured.Theta, torch.as_tensor(Theta0, dtype=torch.float32,
+                                                           device=dev))
+
+
+@pytest.mark.parametrize("case", ["fused", "dp_unfused_metrics"])
+def test_captured_resume_and_foreign_states_equal_eager(dev, case):
+    """A run resumed from ``SimResult.state``, a second ``init_state`` (its
+    tensors and generator copied into the live buffers) and another
+    engine's state all give the eager result; nothing is captured anew."""
+    eng, Theta0 = _capture_engine(dev, case)
+    want = eng._eager_slots(eng.init_state(Theta0), 37)
+    first = eng.run(Theta0, 20)
+    resumed = eng.run(None, 17, state=first.state)
+    _assert_states_equal(resumed.state, want)
+    graphs = dict(eng._graphs.graphs)
+    fresh = eng.advance(eng.init_state(Theta0), 37)  # a foreign state, copied in
+    _assert_states_equal(fresh, want)
+    assert fresh.Theta is first.state.Theta  # the live buffers
+    other, _ = _capture_engine(dev, case)
+    half = other.advance(other.init_state(Theta0), 20)
+    again = eng.advance(half, 17)  # another engine's state, copied in
+    _assert_states_equal(again, want)
+    assert eng._graphs.graphs == graphs
+
+
+@pytest.mark.parametrize("case", ["fused", "unfused", "dp_fused", "delay"])
+def test_captured_launch_counts_equal_eager(dev, case):
+    """The counts after k captured slots equal those after k eager slots:
+    the capture's recorded launches are taken out and each replay adds its
+    own."""
+    eng, Theta0 = _capture_engine(dev, case)
+    counts = []
+    for run in (eng.advance, eng._eager_slots):
+        state = eng.init_state(Theta0)
+        ops.reset_launch_counts()
+        run(state, 37)
+        torch.cuda.synchronize()
+        counts.append(ops.launch_counts())
+    assert counts[0] == counts[1]
+    kernel = "fused_row_update" if eng.fused else "sparse_mix"
+    assert counts[0][kernel] == (37 if case != "delay" else 0)
+
+
+def test_metrics_on_card_agree_with_the_state_and_theta_is_unchanged(dev):
+    """Metrics on and off give the same Theta captured; the counters agree
+    with the engine's own (applied wakes, budget-stopped agents)."""
+    on, Theta0 = _capture_engine(dev, "dp_unfused_metrics")
+    off = AsyncEngine(on.update, config=on.config.replace(metrics=None))
+    a = on.advance(on.init_state(Theta0), 37)
+    b = off.advance(off.init_state(Theta0), 37)
+    assert torch.equal(a.Theta, b.Theta) and b.metrics is None
+    counters, derived = on.metrics_snapshot(a)
+    assert int(counters["wakes_applied"]) == int(a.applied)
+    assert int(counters["dp_budget_stopped"]) == on.update.budget_stopped(a.ustate)
+    assert int(counters["staleness_hist"].sum()) == int(a.applied)
+    assert derived["dp_eps_spent_max"] > 0
+
+
+def test_a_capture_failure_raises_and_nothing_runs_eagerly(dev):
+    """A slot that reads a device value on the host cannot be captured: the
+    engine raises (it never carries on eagerly), and the launch counts and
+    the current stream are as before the capture."""
+    obj, _ = _dp_problem(seed=3)
+
+    class HostRead(CDUpdate):
+        def apply(self, Theta, rows, valid, neigh, generator, state):
+            if bool(valid.any()):  # a host read: no graph can hold it
+                return super().apply(Theta, rows, valid, neigh, generator, state)
+            return neigh, valid, state
+
+    eng = AsyncEngine(HostRead(obj), slot_wakes=32.0, fused=False, device=dev)
+    state = eng.init_state(np.zeros((obj.n, obj.p)))
+    stream = torch.cuda.current_stream(dev)
+    ops.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="CUDA graph"):
+        eng.advance(state, 5)
+    assert torch.cuda.current_stream(dev) == stream
+    assert ops.launch_counts()["sparse_mix"] == 1  # the eager warm-up slot only
+    assert int(state.ptr) == 1 and not eng._graphs.graphs

@@ -346,7 +346,7 @@ def test_config_overrides_and_later_slices(small):
         AsyncEngine(CDUpdate(port), device="cpu", slotwakes=3.0)
     with pytest.raises(ValueError, match="fused"):
         EngineConfig(fused="yes", device="cpu")
-    for field, value, item in [("metrics", True, "A10"), ("graph_update", object(), "A11"),
+    for field, value, item in [("graph_update", object(), "A11"),
                                ("exchange", "p2p", "A9"), ("partition", object(), "A9"),
                                ("devices", [0], "A9")]:
         with pytest.raises(NotImplementedError, match=item):
@@ -357,12 +357,14 @@ def test_config_overrides_and_later_slices(small):
         Scenario(arrival=object())
     port_fields = {f.name for f in dataclasses.fields(EngineConfig)}
     ref_fields = {f.name for f in dataclasses.fields(jsim.EngineConfig)}
-    # steps_per_chunk sized the reference's compiled scan chunks; the port
-    # loops slot by slot and has no such setting.
+    # Every reference field is the port's (steps_per_chunk sizes the
+    # captured chunk, metrics the device counters); the port adds device.
     assert port_fields - ref_fields == {"device"}
-    assert ref_fields - port_fields == {"steps_per_chunk"}
-    with pytest.raises(TypeError, match="unknown engine option"):
-        AsyncEngine(CDUpdate(port), device="cpu", steps_per_chunk=16)
+    assert ref_fields - port_fields == set()
+    eng = AsyncEngine(CDUpdate(port), device="cpu", steps_per_chunk=16, metrics=True)
+    assert eng.steps_per_chunk == 16 and eng.metrics_spec is not None
+    with pytest.raises(ValueError, match="steps_per_chunk"):
+        EngineConfig(device="cpu", steps_per_chunk=0)
 
 
 def test_fused_gate():

@@ -32,7 +32,10 @@ def test_every_module_imports_without_jax_or_reference():
     assert {"repro_torch.sim.engine", "repro_torch.kernels.ops", "repro_torch.convert",
             "repro_torch.models.hybrid", "repro_torch.kernels.ssm_chunk",
             "repro_torch.core.admm_baseline", "repro_torch.data.movielens",
-            "repro_torch.bench.cd_vs_admm", "repro_torch.bench.movielens"} <= set(mods)
+            "repro_torch.bench.cd_vs_admm", "repro_torch.bench.movielens",
+            "repro_torch.bench.privacy_utility", "repro_torch.bench.ablations",
+            "repro_torch.obs", "repro_torch.obs.metrics", "repro_torch.obs.report",
+            "repro_torch.sim.capture"} <= set(mods)
     code = textwrap.dedent(
         f"""
         import importlib, sys
@@ -58,6 +61,16 @@ def test_kernel_modules_hold_no_except():
         tree = ast.parse(path.read_text())
         tries = [n.lineno for n in ast.walk(tree) if isinstance(n, ast.Try)]
         assert not tries, f"{path.name}: try blocks at lines {tries}"
+
+
+def test_capture_failures_raise_and_never_fall_back():
+    """Every ``except`` in the captured-chunk module ends by raising: a
+    capture or replay that fails never carries on eagerly."""
+    tree = ast.parse((SRC / "sim" / "capture.py").read_text())
+    handlers = [n for n in ast.walk(tree) if isinstance(n, ast.ExceptHandler)]
+    assert handlers
+    for h in handlers:
+        assert isinstance(h.body[-1], ast.Raise), f"capture.py:{h.lineno} does not re-raise"
 
 
 def test_every_kernel_has_a_source_and_a_counter():
