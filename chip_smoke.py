@@ -27,7 +27,9 @@ Phases, one line each (any failure ends the run with a non-zero code):
    launch (``launch_floor_ms``);
    ``ssm_chunk`` at the zamba2-1.2b prefill's shape (G = 4 x 16 chunks x
    64 heads, Q = 128, N = P = 64, float32, C and B shared by the heads)
-   and at a small ragged shape in bfloat16;
+   and at a small ragged shape in bfloat16; ``fused_row_update`` again at
+   the sharded engine's shape (S * B_s woken rows over the stacked
+   S * (R + Hmax)-row slab of the ``rgg500k_p100`` partition);
 4. the main path at a deployment size, config ``rgg500k_p100``: the
    batched engine on 500k agents (random geometric graph, average degree
    16, p = 100, m = 8, quadratic loss, mu = 0.5, 4096 expected wakes per
@@ -39,12 +41,23 @@ Phases, one line each (any failure ends the run with a non-zero code):
    at their budget), fused and unfused; the dense path (synchronous
    rounds at n = 2047 through ``graph_mix``); and the paper's synchronous
    baseline on the 500k problem (``synchronous_round``: ``MixOp.all``
-   through ``sparse_mix`` at R = n). The engine legs run through
+   through ``sparse_mix`` at R = n); and the sharded engine on the same
+   problem (``ShardedAsyncEngine``, S = 8 shards stacked on the card,
+   ``relabel="rcm"``, ``partition_mode="degree"``, one partition shared by
+   its legs): ``sharded_fused`` (exchange ``"auto"``, metrics on),
+   ``sharded_unfused`` (the reference's einsum gather over the slab: no
+   kernel of ours) and ``sharded_fused_bf16_ef`` (a p2p bf16 wire with
+   error feedback), each printed with B_s, R, Hmax, the halo fraction,
+   the method ``"auto"`` chose, the rows and bytes shipped a slot and the
+   partition's build seconds, and its slots/s against the single-device
+   leg's window by window; ``sharded_fused``'s ``exchange`` counters must
+   equal the plan's volume times the slots, and its ``wakes_applied``
+   the state's count. The engine legs run through
    ``AsyncEngine.advance``, which on the card replays the engine's captured
    chunk (a CUDA graph of 16 slots and one of 1 slot); each engine leg is
    also run eagerly, slot by slot (``_eager_slots``), on a state of its
    own from the same start, as a leg of its own. After a warm-up (which
-   captures both graphs) the ten legs take turns over 7 timed windows of
+   captures both graphs) the sixteen legs take turns over 7 timed windows of
    200 slots (rounds) each; each rate is the median window's, printed with
    the slowest and fastest, and the fused/unfused and captured/eager
    ratios are taken window by window. Launch counts are reset before and
@@ -62,8 +75,12 @@ Phases, one line each (any failure ends the run with a non-zero code):
 5. parity: the captured chunk against the eager slots, bit for bit: 37
    slots (2 chunk replays, 4 one-slot replays) of each engine leg at
    ``rgg500k_p100`` (fresh states, copied into the engines' live buffers)
-   and at n = 512 with churn and stragglers, every state tensor compared
-   with ``torch.equal``; at n = 512, forced-wake runs fused vs unfused on
+   and at n = 512 with churn and stragglers (and an S = 4 sharded engine
+   at n = 512), every state tensor compared
+   with ``torch.equal``; the sharded engine at S = 4 on the card against
+   the single-device port under forced wakes at n = 96 (fused and unfused
+   within 1e-6, a compressed wire between 0 and 5e-2), and its n = 512
+   fixed point at S = 2, 4 and 8 within 1e-5; at n = 512, forced-wake runs fused vs unfused on
    the card vs the same run on the CPU, and the engine's fixed point vs
    the exact solution; a private forced-wake run fused vs unfused on the card;
    ``DPCDUpdate.apply_rows`` on the card vs the CPU with injected draws;
@@ -170,6 +187,11 @@ REFERENCE_FAST = {"fig2c_acc_local": 0.7906667, "fig2c_acc_nonprivate": 0.868333
 BENCH_ACC_TOL = 0.005
 # Phase 5: the captured chunk against the eager slots.
 CAPTURE_PARITY_SLOTS = 37  # 2 chunks of 16 and 5 single slots (the first one eager)
+# The sharded legs (see PERF.md, "Cells"): benchmarks/bench_sharded_engine.py's
+# shard count and defaults, its S shards stacked on the one card.
+SHARDED = dict(num_shards=8, relabel="rcm", partition_mode="degree")
+SHARDED_PARITY_TOL = 1e-6  # the reference's sharded-against-single-device bound
+SHARDED_WIRE_TOL = 5e-2  # a compressed wire against the single-device engine
 
 
 def log(msg: str) -> None:
@@ -418,6 +440,55 @@ def kernel_checks(obj, engine, dense_obj, results) -> None:
     results["dp_clip_noise"] = results["dp_clip_noise_f32"]  # the bench shape
 
 
+def sharded_kernel_check(obj, engine, results) -> None:
+    """Phase 3, ``fused_row_update`` at the sharded engine's shape: one
+    slot's S * B_s woken rows over the stacked S * (R + Hmax)-row slab
+    (limit S * R), its inputs packed by the engine's own code, against the
+    plain version; stored as ``fused_row_update_sharded``."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.fused_row_update import row_plan
+    from repro_torch.sim.updates import _eq4_fused_args, fused_rows
+
+    dev = engine.device
+    S, R, p = engine.num_shards, engine.rows_per_shard, obj.p
+    gen = torch.Generator(device=dev).manual_seed(4)
+    slab = torch.randn((engine.smix.slab_rows, p), generator=gen, device=dev)
+    wake = torch.rand((S, R), generator=gen, device=dev) < engine._wake_p
+    _, slot_rows, valid, _ = engine._compact(wake)
+    rows = (slot_rows + engine._shard_base).reshape(-1)
+    valid = valid.reshape(-1)
+    consts = {k: v[rows] for k, v in engine._consts.items()}
+    krows, consts = fused_rows(obj, engine._owned[rows], valid, dev, rows, S * R, consts)
+    cols, ww = engine._fidx[rows], engine._fw[rows]
+    args = _eq4_fused_args(obj, krows, cols, ww, consts, None)
+    limit = S * R
+    got = ops.fused_row_update(*args, slab.clone(), limit)
+    want = ref.fused_row_update_ref(*args, slab.clone(), limit)
+    B, K = cols.shape
+    m = args[4].shape[1]
+    nvalid = int(valid.sum())
+    real = (ww != 0) & valid[:, None]
+    rows_read = int(torch.unique(torch.cat([cols[real].long(), rows[valid]])).numel())
+    nbytes = (nvalid * (4 + 2 * K * 4 + 4 * 4 + m * p * 4 + 2 * m * 4)
+              + rows_read * p * 4 + nvalid * p * 4)
+    flops = 2.0 * int(real.sum()) * p + nvalid * (4.0 * m * p + 8.0 * p)
+    slab_k, slab_p = slab.clone(), slab.clone()
+    plan = row_plan(B, p, (slab, args[4], args[7]))
+    single = results["fused_row_update"]
+    timing = dict(
+        shards=S, B=B, K=K, valid=nvalid, slab_rows=slab.shape[0], limit=limit,
+        passes=plan.passes, float4=plan.vec,
+        ms=time_ms(lambda: ops.fused_row_update(*args, slab_k, limit)),
+        plain_ms=time_ms(lambda: ref.fused_row_update_ref(*args, slab_p, limit)),
+        library_ms=None, **bound(nbytes, flops),
+    )
+    check_kernel("fused_row_update", got, want, results, **timing)
+    results["fused_row_update_sharded"] = results["fused_row_update"]
+    results["fused_row_update"] = single  # the kernel table keeps the main path's shape
+
+
 def ssm_chunk_checks(dev, results) -> None:
     """Phase 3, ``ssm_chunk``: at the zamba2-1.2b prefill's shape (batch 4 x
     16 chunks x 64 heads, Q = 128, N = P = 64, float32, C and B given once
@@ -585,18 +656,29 @@ def spread(values) -> dict:
 
 # The kernel each path of phase 4 must launch in every window (dp_clip_noise
 # in its own leg: no engine path calls it).
+# The sharded unfused leg gathers with the reference's einsum: it launches none
+# of the kernels (None), and the check holds it to that.
 PATH_KERNEL = {"fused": "fused_row_update", "unfused": "sparse_mix",
                "dp_fused": "fused_row_update", "dp_unfused": "sparse_mix",
+               "sharded_fused": "fused_row_update", "sharded_unfused": None,
+               "sharded_fused_bf16_ef": "fused_row_update",
                "dense": "graph_mix", "sparse_sync": "sparse_mix",
                "dp_clip_noise": "dp_clip_noise", "zamba2_prefill": "ssm_chunk"}
-ENGINE_LEGS = ("fused", "unfused", "dp_fused", "dp_unfused")
+SHARDED_LEGS = ("sharded_fused", "sharded_unfused", "sharded_fused_bf16_ef")
+ENGINE_LEGS = ("fused", "unfused", "dp_fused", "dp_unfused") + SHARDED_LEGS
 PATH_KERNEL.update({f"{key}_eager": PATH_KERNEL[key] for key in ENGINE_LEGS})
 SYNC_LEGS = ("dense", "sparse_sync")  # synchronous_round: graph_mix, sparse_mix at R = n
 
 
 def check_windows(label: str, timed_leg: dict) -> None:
-    """Fail unless the leg launched its path's kernel in every window."""
+    """Fail unless the leg launched its path's kernel in every window (a leg
+    whose path has none: unless it launched no kernel in any window)."""
     want = PATH_KERNEL[label]
+    if want is None:
+        per = [sum(w.values()) for w in timed_leg["windows"]]
+        if not per or max(per) > 0:
+            raise SystemExit(f"{label} leg: launched kernels its path has none of ({per})")
+        return
     per = [w.get(want, 0) for w in timed_leg["windows"]]
     if not per or min(per) <= 0:
         raise SystemExit(f"{label} leg: {want} not launched in every window ({per})")
@@ -636,7 +718,7 @@ def drive_main_path(engines, dense_obj, sparse_obj, dev):
 
         def step(k):
             leg["state"] = leg["run"](leg["state"], k)
-        return step, lambda: int(leg["state"].applied)
+        return step, lambda: int(leg["state"].applied.sum())
 
     def rounds(key):
         def step(k):
@@ -660,10 +742,12 @@ def drive_main_path(engines, dense_obj, sparse_obj, dev):
         out = dict(
             slots_per_s=rate["median"], slots_per_s_min=rate["min"], slots_per_s_max=rate["max"],
             wakes_per_s=statistics.median(t["wakes"]), ms_per_slot=1e3 / rate["median"],
-            windows=WINDOWS, window_slots=WINDOW_STEPS, dropped=int(state.dropped),
+            windows=WINDOWS, window_slots=WINDOW_STEPS, dropped=int(state.dropped.sum()),
             finite=bool(torch.isfinite(state.Theta).all()), Q0=st["q0"],
             Q=eng._objective_value(state),
         )
+        if hasattr(eng, "num_shards"):
+            out.update(sharded_layout(eng))
         main_path[label] = out
         log(f"[4] rgg500k_p100 {label}: fused={eng.fused} batch={eng.batch_size} {fmt(out)} "
             f"launches={t['counts']}")
@@ -674,6 +758,11 @@ def drive_main_path(engines, dense_obj, sparse_obj, dev):
             raise SystemExit(f"{label} leg: the objective did not decrease")
     pairs = [("fused", "unfused"), ("dp_fused", "dp_unfused")]
     pairs += [(key, f"{key}_eager") for key in ENGINE_LEGS]
+    # The cost of sharding on one card: each sharded leg against the
+    # single-device leg of its route, captured and eager.
+    for key, single in (("sharded_fused", "fused"), ("sharded_unfused", "unfused"),
+                        ("sharded_fused_bf16_ef", "fused")):
+        pairs += [(key, single), (f"{key}_eager", f"{single}_eager")]
     for a, b in pairs:
         ratios = [f / u for f, u in zip(timed[a]["rates"], timed[b]["rates"])]
         main_path[f"{a}_over_{b}"] = dict(spread(ratios), windows=ratios)
@@ -693,6 +782,43 @@ def drive_main_path(engines, dense_obj, sparse_obj, dev):
         if not q1 < leg["q0"] or not finite:
             raise SystemExit(f"{key} leg: Q not decreasing, or Theta not finite")
     return main_path, {k: v["state"] for k, v in states.items()}, launches
+
+
+def sharded_layout(eng) -> dict:
+    """A sharded engine's layout and wire: S, B_s, R, Hmax, the halo
+    fraction, the method ``"auto"`` (or the spec) chose, the rows and bytes
+    shipped a slot over all shards, and the partition's build seconds."""
+    vol = eng._exchange_volume()
+    return dict(shards=eng.num_shards, batch_per_shard=eng.batch_size,
+                R=eng.rows_per_shard, Hmax=eng.smix.halo_width,
+                halo_fraction=eng.part.halo_fraction(), method=eng.exchange_method,
+                wire=eng.smix.dtype, error_feedback=bool(eng._use_ef),
+                rows_per_slot=int(vol.rows_shipped.sum()),
+                bytes_per_slot=int(vol.bytes_shipped.astype("int64").sum()),
+                partition_s=getattr(eng, "partition_seconds", None))
+
+
+def sharded_metrics_check(engines, states, main_path) -> None:
+    """``sharded_fused`` (metrics on) at its end: its ``exchange`` counters
+    must equal the plan's per-slot volume times the slots the state ran,
+    and its ``wakes_applied`` the state's applied count."""
+    eng, state = engines["sharded_fused"], states["sharded_fused"]
+    counters, _ = eng.metrics_snapshot(state)
+    vol = eng._exchange_volume()
+    slots = eng._ptr_of(state)
+    got = dict(exchange_rows=int(counters["exchange_rows"].sum()),
+               exchange_bytes=int(counters["exchange_bytes"].sum()),
+               border_rows_published=int(counters["border_rows_published"].sum()),
+               wakes_applied=int(counters["wakes_applied"].sum()))
+    want = dict(exchange_rows=int(vol.rows_shipped.sum()) * slots,
+                exchange_bytes=int(vol.bytes_shipped.astype("int64").sum()) * slots,
+                border_rows_published=int(vol.border_rows.sum()) * slots,
+                wakes_applied=int(state.applied.sum()))
+    main_path["sharded_fused"]["metrics"] = dict(got, slots=slots)
+    log(f"[4] rgg500k_p100 sharded_fused metrics after {slots} slots: {fmt(got)} "
+        f"(plan x slots and state: {fmt(want)})")
+    if got != want:
+        raise SystemExit(f"sharded_fused: the exchange counters disagree: {got} != {want}")
 
 
 def budget_check(engines, states, main_path) -> None:
@@ -768,12 +894,18 @@ def dp_clip_noise_leg(dev, launches: dict) -> dict:
 
 
 def _state_leaves(state) -> dict:
-    leaves = {k: getattr(state, k) for k in ("Theta", "hist", "ptr", "active", "applied",
-                                             "dropped", "messages")}
-    if hasattr(state.ustate, "shape"):
-        leaves["ustate"] = state.ustate
-    leaves.update({f"metrics.{k}": v for k, v in (state.metrics or {}).items()})
-    leaves["generator"] = state.generator.get_state()
+    """Every tensor of an engine state (a ``SimState`` or a
+    ``ShardedSimState``: ``slab`` and ``ef`` included), the metrics by
+    name, and the generator's state."""
+    leaves = {}
+    for name in state._fields:
+        value = getattr(state, name)
+        if name == "generator":
+            leaves[name] = value.get_state()
+        elif hasattr(value, "shape"):
+            leaves[name] = value
+        elif isinstance(value, dict):
+            leaves.update({f"{name}.{k}": v for k, v in value.items()})
     return leaves
 
 
@@ -794,7 +926,7 @@ def capture_parity(label, engines) -> dict:
         eager = _state_leaves(eng._eager_slots(eng.init_state(zeros), CAPTURE_PARITY_SLOTS))
         differ = [k for k in captured if not torch.equal(captured[k], eager[k])]
         out[key] = dict(differ=len(differ), tensors=len(captured),
-                        applied=int(captured["applied"]),
+                        applied=int(captured["applied"].sum()),
                         graphs=sorted(getattr(eng._graphs, "graphs", {})))
         if differ:
             raise SystemExit(f"capture parity {label} {key}: captured != eager in {differ}")
@@ -834,6 +966,107 @@ def small_engines(dev, n=512) -> dict:
     return {"fused": engine(CDUpdate(obj), "auto"), "unfused": engine(CDUpdate(obj), False),
             "dp_fused": engine(DPCDUpdate.plan(dp_obj, cfg, 3), "auto", metrics=True),
             "dp_unfused": engine(DPCDUpdate.plan(dp_obj, cfg, 3), False)}
+
+
+def small_sharded_engines(dev, n=512) -> dict:
+    """The sharded legs at n = 512 and S = 4 (the problem of
+    :func:`small_engines`, RCM relabel, churn and stragglers): fused with
+    metrics, unfused, and fused over a p2p bf16 wire with error feedback."""
+    import numpy as np
+
+    from repro_torch.core import AgentData, knn_graph, make_objective
+    from repro_torch.sim import (CDUpdate, ChurnConfig, ExchangeSpec, Scenario,
+                                 ShardedAsyncEngine, StragglerConfig)
+
+    rng = np.random.default_rng(1)
+    p, m = 4, 3
+    graph = knn_graph(rng.normal(size=(n, 8)), k=8)
+    X = rng.normal(size=(n, m, p)) / np.sqrt(p)
+    y = np.einsum("nmp,np->nm", X, rng.normal(size=(n, p)) / np.sqrt(p))
+    obj = make_objective(graph, AgentData(X=X, y=y, mask=np.ones((n, m))), "quadratic",
+                         mu=0.5, mix_mode="sparse")
+    scenario = Scenario(churn=ChurnConfig(leave_prob=0.05, rejoin_prob=0.3),
+                        straggler=StragglerConfig(drop_prob=0.2))
+
+    def engine(fused, exchange="auto", metrics=None):
+        return ShardedAsyncEngine(CDUpdate(obj), num_shards=4, relabel="rcm", slot_wakes=64.0,
+                                  scenario=scenario, seed=2, fused=fused, metrics=metrics,
+                                  exchange=ExchangeSpec.from_string(exchange), device=dev)
+
+    return {"sharded_fused": engine("auto", metrics=True), "sharded_unfused": engine(False),
+            "sharded_fused_bf16_ef": engine("auto", "p2p:bf16:ef")}
+
+
+def sharded_parity(dev) -> dict:
+    """Phase 5, the sharded engine on the card: (a) forced wakes at n = 96
+    and S = 4 (RCM) against the single-device port on the card (unfused),
+    fused and unfused, over the f32 wires (within ``SHARDED_PARITY_TOL``)
+    and a compressed one (error in (0, ``SHARDED_WIRE_TOL``)); (b) the
+    n = 512 fixed point at S = 2, 4 and 8 (float32, ``fused="auto"``: the
+    kernel) within 1e-5 of ``solve_exact``."""
+    import numpy as np
+
+    from repro_torch.core import AgentData, knn_graph, make_objective
+    from repro_torch.sim import AsyncEngine, CDUpdate, ExchangeSpec, ShardedAsyncEngine
+
+    def quad(n, seed):
+        rng = np.random.default_rng(seed)
+        graph = knn_graph(rng.normal(size=(n, 8)), k=8)
+        targets = rng.normal(size=(n, 4)) / 2.0
+        X = rng.normal(size=(n, 3, 4)) / 2.0
+        y = np.einsum("nmp,np->nm", X, targets)
+        return make_objective(graph, AgentData(X=X, y=y, mask=np.ones((n, 3))), "quadratic",
+                              mu=0.5, mix_mode="sparse")
+
+    obj = quad(96, 0)
+    masks = list(np.random.default_rng(7).random((4, 96)) < 0.15)
+
+    def forced(eng):
+        state = eng.init_state(np.zeros((96, 4)))
+        for mask in masks:
+            state = eng.step(state, mask)
+        return eng.global_theta(state) if hasattr(eng, "num_shards") else \
+            state.Theta.cpu().numpy()
+
+    single = forced(AsyncEngine(CDUpdate(obj), slot_wakes=8.0, fused=False, device=dev))
+    errs, bad = {}, {}
+    for wire in ("all_gather", "p2p", "p2p:bf16", "p2p:bf16:ef"):
+        outs = {}
+        for fused in ("auto", False):
+            eng = ShardedAsyncEngine(CDUpdate(obj), num_shards=4, relabel="rcm",
+                                     exchange=ExchangeSpec.from_string(wire), slot_wakes=8.0,
+                                     fused=fused, device=dev)
+            if eng.fused != (fused == "auto"):
+                raise SystemExit("sharded parity: fused='auto' did not pick the kernel")
+            outs[fused] = forced(eng)
+        errs[f"{wire}_fused_vs_unfused"] = float(np.abs(outs["auto"] - outs[False]).max())
+        for route in ("auto", False):
+            key = f"{wire}_{'fused' if route else 'unfused'}_vs_single"
+            errs[key] = float(np.abs(outs[route] - single).max())
+            compressed = ":" in wire
+            ok = (0.0 < errs[key] < SHARDED_WIRE_TOL) if compressed else (
+                errs[key] <= SHARDED_PARITY_TOL)
+            if not ok:
+                bad[key] = errs[key]
+        if errs[f"{wire}_fused_vs_unfused"] > SHARDED_PARITY_TOL:
+            bad[f"{wire}_fused_vs_unfused"] = errs[f"{wire}_fused_vs_unfused"]
+    big = quad(512, 0)
+    star = big.solve_exact()
+    for S, kw in ((2, {}), (4, dict(relabel="rcm", exchange=ExchangeSpec(method="p2p"))),
+                  (8, dict(relabel="rcm", exchange=ExchangeSpec()))):
+        eng = ShardedAsyncEngine(CDUpdate(big), num_shards=S, slot_wakes=128.0, seed=3,
+                                 device=dev, **kw)
+        res = eng.run(np.zeros((512, 4)), slots=700)
+        key = f"fixed_point_S{S}_{eng.exchange_method}_fused{int(eng.fused)}"
+        errs[key] = float(np.abs(res.Theta - star).max())
+        if not errs[key] <= PARITY_TOL:
+            bad[key] = errs[key]
+    log("[5] sharded parity on the card: " + " ".join(f"{k}={v:.3e}" for k, v in errs.items())
+        + f" (f32 wires <= {SHARDED_PARITY_TOL:.0e}, compressed in (0, {SHARDED_WIRE_TOL:.0e}),"
+        f" fixed points <= {PARITY_TOL:.0e})")
+    if bad:
+        raise SystemExit(f"sharded parity failed: {bad}")
+    return errs
 
 
 def parity(dev) -> dict:
@@ -1294,7 +1527,8 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core import DPConfig
     from repro_torch.kernels import _build
-    from repro_torch.sim import AsyncEngine, CDUpdate, ChurnConfig, DPCDUpdate, Scenario
+    from repro_torch.sim import (AsyncEngine, CDUpdate, ChurnConfig, DPCDUpdate, ExchangeSpec,
+                                 Scenario, ShardedAsyncEngine, partition_graph)
 
     warnings.filterwarnings("ignore", message="Sparse CSR tensor support is in beta")
     warnings.filterwarnings("ignore", message="Sparse invariant checks are implicitly disabled")
@@ -1346,19 +1580,45 @@ def main() -> int:
                "dp_fused": engine(DPCDUpdate.plan(dp_obj, dp_cfg, planned_Ti), "auto",
                                   metrics=True),
                "dp_unfused": engine(DPCDUpdate.plan(dp_obj, dp_cfg, planned_Ti), False)}
+    # The sharded legs share one partition (built once, timed).
+    t_part = time.perf_counter()
+    part = partition_graph(obj.graph, SHARDED["num_shards"], mode=SHARDED["partition_mode"],
+                           relabel=SHARDED["relabel"])
+    part_s = time.perf_counter() - t_part
+
+    def sharded(fused, exchange, metrics=None):
+        eng = ShardedAsyncEngine(CDUpdate(obj), num_shards=SHARDED["num_shards"],
+                                 partition=part, exchange=exchange,
+                                 slot_wakes=c["slot_wakes"], scenario=scenario, seed=c["seed"],
+                                 fused=fused, metrics=metrics, device=dev)
+        eng.partition_seconds = part_s
+        return eng
+
+    engines.update(
+        sharded_fused=sharded("auto", ExchangeSpec(), metrics=True),
+        sharded_unfused=sharded(False, ExchangeSpec()),
+        sharded_fused_bf16_ef=sharded("auto", ExchangeSpec(method="p2p", dtype="bf16",
+                                                           error_feedback=True)))
     torch.cuda.synchronize()
     log(f"[4] set-up rgg500k_p100: n={obj.n} p={obj.p} m={c['m']} "
         f"max_degree={obj.graph.max_degree()} mean_degree={obj.graph.nnz / obj.n:.3f} "
         f"batch={engines['fused'].batch_size} dense n={dense_obj.n} kind={dense_obj.mix.kind} "
         f"private: clip={DP['clip']} eps_bar={DP['eps_bar']} delta_bar={DP['delta_bar']:.6g} "
         f"planned_Ti={planned_Ti} in {time.perf_counter() - t0:.1f} s")
+    sh = engines["sharded_fused"]
+    log(f"[4] set-up sharded rgg500k_p100: S={sh.num_shards} relabel={SHARDED['relabel']} "
+        f"mode={SHARDED['partition_mode']} partition_s={part_s:.3f} "
+        f"{fmt(sharded_layout(sh))} bf16_ef: {fmt(sharded_layout(engines['sharded_fused_bf16_ef']))}")
     if not (engines["fused"].fused and engines["dp_fused"].fused
-            and not engines["dp_unfused"].fused) or dense_obj.mix.kind != "dense":
+            and not engines["dp_unfused"].fused and sh.fused
+            and engines["sharded_fused_bf16_ef"].fused
+            and not engines["sharded_unfused"].fused) or dense_obj.mix.kind != "dense":
         raise SystemExit("set-up: fused='auto' did not pick the kernel, or no dense path")
 
     # [3] kernel checks (these launches are not the main path's)
     results: dict = {}
     kernel_checks(obj, engines["fused"], dense_obj, results)
+    sharded_kernel_check(obj, engines["sharded_fused"], results)
     ssm_chunk_checks(dev, results)
 
     # [4] the main path: each path's counts are reset before it and read after
@@ -1378,6 +1638,7 @@ def main() -> int:
             f"{key} n={o.n}", o, PROFILE_SLOTS, _build.build_dir() / "traces",
             main_path[key]["ms_per_round"], dev)
     budget_check(engines, states, main_path)
+    sharded_metrics_check(engines, states, main_path)
     main_path["dp_clip_noise"] = dp_clip_noise_leg(dev, launches)
     missing = [k for k in _build.KERNELS if k not in PATH_KERNEL.values()]
     if missing:
@@ -1388,9 +1649,12 @@ def main() -> int:
     # buffers, so this comes after every use of phase 4's states), then the
     # routes against the CPU
     capture = {"rgg500k_p100": capture_parity("rgg500k_p100", engines),
-               "n512": capture_parity("n=512 churn+stragglers", small_engines(dev))}
+               "n512": capture_parity("n=512 churn+stragglers", small_engines(dev)),
+               "n512_S4": capture_parity("n=512 S=4 churn+stragglers",
+                                         small_sharded_engines(dev))}
     main_path["capture_parity"] = capture
     parity(dev)
+    main_path["sharded_parity"] = sharded_parity(dev)
 
     # [6] zamba2-1.2b serving: the prefill's counts are reset before each
     # prefill and read after it
@@ -1422,6 +1686,7 @@ def main() -> int:
         for name in _build.KERNELS
     ]
     log(json.dumps({"main_path": main_path, "sparse_mix_Rn": results["sparse_mix_Rn"],
+                    "fused_row_update_sharded": results["fused_row_update_sharded"],
                     "dp_clip_noise_bf16": results["dp_clip_noise_bf16"],
                     "ssm_chunk_bf16": results["ssm_chunk_bf16"]}))
     log(json.dumps({"zamba2_serve": serve}))

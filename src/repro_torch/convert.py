@@ -15,6 +15,12 @@ build the port's, or give the port's back as numpy:
   ``SimState``, with a private update's (n,) applied-update counts
   (``ustate``). The random key is not carried: the two packages' random
   streams differ, so the port's state takes a fresh generator seed;
+* :func:`sharded_sim_state_from_numpy` — a ``ShardedSimState`` from the
+  reference's stacked (S, R, ...) leaves (``Theta``, ``active``, the
+  private counts, the (S,) counters, the error-feedback ``ef`` and the
+  device ``metrics``), its halo rows zero (the next slot's exchange fills
+  them); the per-shard keys are not carried, the generator starts from
+  ``seed``;
 * :func:`load_reference_params` — a model parameter tree (nested dicts of
   arrays) into an ``nn.Module`` whose ``state_dict`` names follow it;
 * :func:`hybrid_params_from_reference` — the zamba2 hybrid's
@@ -31,7 +37,7 @@ from repro_torch.core.graph import AgentGraph, CSRGraph
 from repro_torch.core.objective import AgentData, Objective, make_objective
 from repro_torch.device import resolve_device
 from repro_torch.models.hybrid import HybridLM
-from repro_torch.sim.engine import SimState
+from repro_torch.sim.engine import ShardedSimState, SimState
 from repro_torch.sim.updates import DPCDUpdate
 
 
@@ -152,6 +158,70 @@ def sim_state_from_numpy(
         applied=t(applied, torch.long),
         dropped=t(dropped, torch.long),
         messages=t(messages, torch.float32),
+    )
+
+
+# The float metrics leaves; every other counter lands as int64 (the
+# reference's int32 counters and float32 byte counts alike).
+_FLOAT_METRICS = ("quant_err_sq", "ef_residual_sq")
+
+
+def sharded_sim_state_from_numpy(
+    Theta,
+    active,
+    applied,
+    dropped,
+    messages,
+    ptr,
+    *,
+    halo_width: int,
+    device="cuda",
+    dtype=torch.float32,
+    seed: int = 0,
+    ustate=(),
+    ef=None,
+    metrics=None,
+) -> ShardedSimState:
+    """A sharded engine state from the reference's stacked numpy leaves.
+
+    ``Theta`` (S, R, p), ``active`` (S, R), the (S,) counters, ``ustate``
+    ``()`` or the (S, R) private counts (int32 on ``device``), ``ef`` the
+    (S, Bmax, p) accumulator or None, ``metrics`` the (S, ...) counters or
+    None. ``halo_width`` is the engine's Hmax (``engine.smix.halo_width``):
+    the state's slab holds S * (R + Hmax) rows, the halo rows zero.
+    """
+    dev = resolve_device(device)
+
+    def t(a, dt):
+        return torch.as_tensor(np.array(a, copy=True)).to(device=dev, dtype=dt)
+
+    Theta = np.asarray(Theta)
+    S, R, p = Theta.shape
+    slab = torch.zeros((S * (R + int(halo_width)), p), dtype=dtype, device=dev)
+    slab[: S * R] = t(Theta.reshape(S * R, p), dtype)
+    if not (isinstance(ustate, tuple) and not ustate):
+        counts = np.asarray(ustate)
+        if counts.shape != (S, R) or not np.issubdtype(counts.dtype, np.integer):
+            raise TypeError(f"ustate must be () or ({S}, {R}) integer counts, got "
+                            f"{counts.dtype} of shape {counts.shape}")
+        ustate = t(counts, torch.int32)
+    if metrics is not None:
+        metrics = {k: t(v, torch.float32 if k in _FLOAT_METRICS else torch.int64)
+                   for k, v in metrics.items()}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(seed))
+    return ShardedSimState(
+        Theta=slab[: S * R].view(S, R, p),
+        active=t(active, torch.bool),
+        generator=gen,
+        ustate=ustate,
+        applied=t(applied, torch.long),
+        dropped=t(dropped, torch.long),
+        messages=t(messages, torch.float32),
+        ptr=t(ptr, torch.long),
+        slab=slab,
+        ef=None if ef is None else t(ef, dtype),
+        metrics=metrics,
     )
 
 

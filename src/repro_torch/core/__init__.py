@@ -20,7 +20,7 @@ from repro_torch.core.graph import (
     ring_graph,
     sparse_crossover,
 )
-from repro_torch.core.mixing import MixOp, mix_op
+from repro_torch.core.mixing import ExchangeSpec, MixOp, ShardedMixOp, mix_op, sharded_mix_op
 from repro_torch.core.objective import (
     LOGISTIC,
     LOSSES,

@@ -1,26 +1,32 @@
 """``repro_torch.obs`` — the engine's device telemetry and run reports.
 
-Port of the parts of ``repro.obs`` the single-device engine needs:
+Port of the parts of ``repro.obs`` the engines need:
 
 * :mod:`repro_torch.obs.metrics` — :class:`MetricsSpec` selects counter
   groups; the engine carries the resulting metrics leaves through its
   captured super-ticks (``EngineConfig(metrics=...)``), updated in place
   on the device, so collection adds no host reads and leaves Theta
-  bit-exact;
+  bit-exact; :class:`ExchangeVolume` is the sharded engine's per-slot
+  halo volume its ``exchange`` counters add;
 * :mod:`repro_torch.obs.report` — :class:`RunReport` (periodic metric
   drains and phase rows, JSONL round trip in the reference's format) and
   the ``python -m repro_torch.obs.report`` CLI.
 
 The reference's ``obs.trace`` (spans, Chrome trace export,
-``profile_supertick``) is ROADMAP item A10b; its exchange counters come
-with the sharded engine (A9), its topology and serving counters with A11
-and A13.
+``profile_supertick``) is ROADMAP item A10b; its topology and serving
+counters come with A11 and A13.
 """
 
-from repro_torch.obs.metrics import MetricsAccumulator, MetricsSpec, summarize_counters
+from repro_torch.obs.metrics import (
+    ExchangeVolume,
+    MetricsAccumulator,
+    MetricsSpec,
+    summarize_counters,
+)
 from repro_torch.obs.report import RunReport, merge_bench_summary
 
 __all__ = [
+    "ExchangeVolume",
     "MetricsAccumulator",
     "MetricsSpec",
     "RunReport",

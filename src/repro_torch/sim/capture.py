@@ -1,8 +1,10 @@
 """The engine's compiled chunk: super-ticks captured as CUDA graphs.
 
 The port's counterpart of the reference's jitted ``lax.scan`` chunk
-(``repro.sim.engine.AsyncEngine._chunk``). On a CUDA device
-:meth:`AsyncEngine.advance` replays one graph of ``steps_per_chunk``
+(``repro.sim.engine.AsyncEngine._chunk`` and
+``ShardedAsyncEngine._chunk``). On a CUDA device ``advance`` of either
+engine (:class:`AsyncEngine`, :class:`ShardedAsyncEngine`, whose one slot
+serves all its stacked shards) replays one graph of ``steps_per_chunk``
 slots ``slots // steps_per_chunk`` times and one graph of a single slot
 for the remainder: two graphs an engine, as the reference compiles two
 scan lengths. A replay is one launch from the host for a chunk's several
@@ -46,8 +48,16 @@ import torch
 
 from repro_torch.kernels import _build
 
-# The SimState fields that are plain tensors, copied in from a foreign state.
-_TENSOR_FIELDS = ("Theta", "hist", "ptr", "active", "applied", "dropped", "messages")
+def _copy_leaf(src, dst) -> None:
+    """Copy a state leaf (a tensor, a dict of tensors, or an empty ``()`` /
+    None) into the live one, tensor by tensor, where they differ."""
+    if isinstance(dst, torch.Tensor):
+        if src is not dst:
+            dst.copy_(src)
+    elif isinstance(dst, dict):
+        for k, leaf in dst.items():
+            if src[k] is not leaf:
+                leaf.copy_(src[k])
 
 
 def _same_tensors(a, b) -> bool:
@@ -72,24 +82,17 @@ class ChunkGraphs:
 
     def bind(self, state):
         """``state`` in the live buffers: adopted as them the first time,
-        copied into them (tensors, then the generator's seed and offset)
-        where its tensors are other ones. Returns the live state."""
+        copied into them (every tensor field the state has — a
+        ``SimState``'s or a ``ShardedSimState``'s, ``ef`` included — then
+        the generator's seed and offset) where its tensors are other ones.
+        Returns the live state."""
         if self.live is None:
             self.live = state
             return state
         live = self.live
-        for name in _TENSOR_FIELDS:
-            src, dst = getattr(state, name), getattr(live, name)
-            if src is not dst:
-                dst.copy_(src)
-        for src, dst in ((state.ustate, live.ustate), (state.metrics, live.metrics)):
-            if isinstance(dst, torch.Tensor):
-                if src is not dst:
-                    dst.copy_(src)
-            elif isinstance(dst, dict):
-                for k, leaf in dst.items():
-                    if src[k] is not leaf:
-                        leaf.copy_(src[k])
+        for name in state._fields:
+            if name != "generator":
+                _copy_leaf(getattr(state, name), getattr(live, name))
         if state.generator is not live.generator:
             live.generator.set_state(state.generator.get_state())
         return live
@@ -139,8 +142,7 @@ class ChunkGraphs:
             launches = {k: v - before[k] for k, v in _build.launch_counts().items()}
             _build.add_launches({k: -v for k, v in launches.items()})
             torch.cuda.set_stream(current)  # a failed capture_end skips the stream's exit
-        fields = _TENSOR_FIELDS + ("ustate", "metrics", "generator")
-        moved = [f for f in fields if not _same_tensors(getattr(out, f), getattr(live, f))]
+        moved = [f for f in live._fields if not _same_tensors(getattr(out, f), getattr(live, f))]
         if moved:
             raise RuntimeError(f"the captured slot replaced the state's {moved}: a graph "
                                "needs the slot to update the state in place")

@@ -1,15 +1,19 @@
 """Typed engine configuration (port of ``repro.sim.config``).
 
 :class:`EngineConfig` is the one frozen bundle of clock, batching,
-scenario and device knobs the :class:`repro_torch.sim.AsyncEngine` takes
-(``config=...``); keyword arguments to the engine or to
-:func:`make_engine` override its fields. The port adds ``device``,
-which defaults to ``"cuda"``: building a config for CUDA on a machine
-without a CUDA device raises and names the field. ``steps_per_chunk``
-sizes the engine's chunks as in the reference: there a jitted
-``lax.scan``, here a captured CUDA graph replayed on the card.
+scenario, placement and device knobs the engines take (``config=...``);
+keyword arguments to an engine or to :func:`make_engine` override its
+fields. The port adds ``device``, which defaults to ``"cuda"``: building
+a config for CUDA on a machine without a CUDA device raises and names the
+field. ``steps_per_chunk`` sizes the engine's chunks as in the reference:
+there a jitted ``lax.scan``, here a captured CUDA graph replayed on the
+card.
 
-The reference's fields for the parts not ported yet are kept so that a
+The sharded engine's fields (``partition_mode``, ``relabel``,
+``coords``, ``exchange``, ``partition``, ``devices``) are live; its S
+shards are stacked on ``device``, so ``devices`` may name that one
+device only (several distinct devices are ROADMAP item A9b). The
+reference's fields for the parts not ported yet are kept so that a
 config naming them fails loudly instead of being ignored: setting any of
 them raises ``NotImplementedError`` with its ROADMAP item.
 """
@@ -21,20 +25,25 @@ from typing import Any
 
 import torch
 
+from repro_torch.core.mixing import ExchangeSpec
 from repro_torch.device import resolve_device
 from repro_torch.sim.scenarios import Scenario
 
 # Field -> (value that means "off", the ROADMAP item that ports it).
 _LATER_FIELDS = {
-    "partition_mode": ("degree", "A9 (sharded engine)"),
-    "relabel": (None, "A9 (sharded engine)"),
-    "coords": (None, "A9 (sharded engine)"),
-    "exchange": (None, "A9 (sharded engine)"),
-    "partition": (None, "A9 (sharded engine)"),
-    "devices": (None, "A9 (sharded engine)"),
     "graph_update": (None, "A11 (dynamic topology)"),
     "drift_threshold": (0.25, "A11 (dynamic topology)"),
 }
+
+
+def _device_key(device) -> tuple:
+    """A device named by ``device`` as (type, index), a CUDA device without
+    an index taken as the current one (or 0 without CUDA)."""
+    dev = torch.device(device)
+    index = dev.index
+    if dev.type == "cuda" and index is None:
+        index = torch.cuda.current_device() if torch.cuda.is_available() else 0
+    return dev.type, index
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,6 +71,20 @@ class EngineConfig:
       collection. Metrics-on runs are bit-exact in Theta with metrics-off;
     * ``device``: where the engine runs, ``"cuda"`` unless the caller
       asks for ``"cpu"``.
+
+    The sharded engine's placement and exchange (ignored by the
+    single-device engine):
+
+    * ``partition_mode``: ``"degree"`` | ``"contiguous"`` block cutting;
+    * ``relabel``: ``"rcm"`` | ``"sfc"`` | ``"hilbert"`` | an explicit
+      permutation | None;
+    * ``coords``: (n, 2) agent positions for the space-filling curves;
+    * ``exchange``: :class:`repro_torch.core.mixing.ExchangeSpec` (None =
+      defaults; bare strings coerce with a deprecation warning);
+    * ``partition``: a prebuilt ``GraphPartition`` to reuse;
+    * ``devices``: None, or a list naming ``device`` alone: the S shards
+      are stacked on one device. More than one distinct device raises
+      ``NotImplementedError`` naming ROADMAP item A9b.
     """
 
     slot_wakes: float = 64.0
@@ -98,6 +121,24 @@ class EngineConfig:
                     "which is not ported yet"
                 )
         resolve_device(self.device, "EngineConfig.device")
+        if self.devices is not None:
+            named = {_device_key(d) for d in self.devices}
+            if len(named) > 1:
+                raise NotImplementedError(
+                    f"EngineConfig.devices names {len(named)} devices; a sharded engine "
+                    "across several devices is ROADMAP item A9b (the torch.distributed "
+                    "exchange backend), not ported yet: the port stacks all shards on "
+                    "EngineConfig.device"
+                )
+            if named and named != {_device_key(self.device)}:
+                raise ValueError(
+                    f"EngineConfig.devices={list(self.devices)!r} must name "
+                    f"EngineConfig.device={str(self.device)!r}: the shards are stacked on it"
+                )
+
+    def exchange_spec(self) -> ExchangeSpec:
+        """The coerced exchange spec (warns on deprecated bare strings)."""
+        return ExchangeSpec.coerce(self.exchange)
 
     def metrics_spec(self):
         """The coerced telemetry spec (None = collection off, the default)."""
@@ -122,13 +163,13 @@ def resolve_config(config: EngineConfig | None, overrides: dict) -> EngineConfig
 
 
 def make_engine(update, config: EngineConfig | None = None, *, shards=None, **overrides):
-    """Build the engine: the single-device :class:`AsyncEngine`. ``shards``
-    (the sharded engine) is ROADMAP item A9, not ported yet."""
-    from repro_torch.sim.engine import AsyncEngine
+    """Build the right engine for ``shards``: None/0 -> the single-device
+    :class:`AsyncEngine`, otherwise :class:`ShardedAsyncEngine` with that
+    many shards (stacked on ``device``). ``overrides`` replace fields of
+    ``config``."""
+    from repro_torch.sim.engine import AsyncEngine, ShardedAsyncEngine
 
-    if shards:
-        raise NotImplementedError(
-            "make_engine(shards=...) needs the sharded engine, ROADMAP item A9, "
-            "which is not ported yet"
-        )
-    return AsyncEngine(update, config=resolve_config(config, overrides))
+    cfg = resolve_config(config, overrides)
+    if not shards:
+        return AsyncEngine(update, config=cfg)
+    return ShardedAsyncEngine(update, num_shards=int(shards), config=cfg)

@@ -1,7 +1,8 @@
 """Batched asynchronous simulation engine: Poisson super-ticks on a device.
 
-Port of ``repro.sim.engine``'s single-device, static-topology
-:class:`AsyncEngine`. The n i.i.d. Poisson clocks are time-slotted by
+Port of ``repro.sim.engine``'s static-topology engines: the single-device
+:class:`AsyncEngine` and the sharded :class:`ShardedAsyncEngine`, whose S
+agent blocks are stacked on one device (see its docstring). The n i.i.d. Poisson clocks are time-slotted by
 binomial thinning (:mod:`repro_torch.sim.clocks`): each **super-tick**
 wakes a random subset of agents, computes their updates (Eq. 4, the
 private Eq. 6 or Eq. 16, by the ``LocalUpdate``) from the start-of-slot
@@ -46,13 +47,15 @@ import numpy as np
 import torch
 
 from repro_torch.core.graph import as_csr, neighbor_counts
+from repro_torch.core.mixing import sharded_mix_op
 from repro_torch.device import resolve_device
 from repro_torch.kernels.fused_row_update import MAX_M, MAX_P
-from repro_torch.obs.metrics import MetricsAccumulator
+from repro_torch.obs.metrics import ExchangeVolume, MetricsAccumulator, topology_log_init
 from repro_torch.obs.report import RunReport
 from repro_torch.sim import clocks
 from repro_torch.sim.capture import ChunkGraphs
 from repro_torch.sim.config import EngineConfig, resolve_config
+from repro_torch.sim.partition import partition_graph
 from repro_torch.sim.scenarios import Scenario
 from repro_torch.sim.updates import LocalUpdate
 
@@ -511,6 +514,523 @@ class AsyncEngine:
             slots=int(state.ptr),
             active=state.active.to("cpu", copy=True).numpy(),
             update_state=state.ustate,
+            state=state,
+            report=report,
+        )
+
+
+# ---------------------------------------------------------------------------
+# The sharded engine: S agent blocks stacked on one device
+# ---------------------------------------------------------------------------
+
+
+class ShardedSimState(NamedTuple):
+    """Sharded engine state: the S shards' leaves stacked (S, ...) on the
+    engine's device, each updated in place by the slot."""
+
+    Theta: torch.Tensor  # (S, R, p) agent blocks: a view of slab's first S * R rows
+    active: torch.Tensor  # (S, R) bool churn state (padding rows: False)
+    generator: torch.Generator  # the engine's random stream (all shards)
+    ustate: object  # LocalUpdate state: () or (S, R) tiles of its (n,) leaf
+    applied: torch.Tensor  # (S,) int64
+    dropped: torch.Tensor  # (S,) int64
+    messages: torch.Tensor  # (S,) float32
+    ptr: torch.Tensor  # (S,) int64 slot counter (identical across shards)
+    slab: torch.Tensor  # (S * (R + Hmax), p): the owned rows (Theta), then the halo rows
+    ef: torch.Tensor | None = None  # (S, Bmax, p) error-feedback accumulator of the
+    # compressed halo exchange (None unless the ExchangeSpec threads one)
+    metrics: object = None  # dict of (S, ...) device counters (None: metrics off)
+
+
+class ShardedAsyncEngine:
+    """The sharded :class:`AsyncEngine`: S agent blocks stacked on one device.
+
+    Port of the reference's ``ShardedAsyncEngine``, whose super-tick runs
+    as one SPMD program over a ``shards`` mesh axis. Here the S shards'
+    state and tiles are stacked (S, ...) tensors on ``EngineConfig.device``
+    and one slot serves all of them: every shard samples its own wake set
+    (static batch B_s each, compacted over S at once), publishes its
+    border rows of the start-of-slot snapshot, the halo exchange
+    (:class:`repro_torch.core.mixing.ShardedMixOp`: ``all_gather`` is the
+    stacked pool, ``ppermute`` a roll along S) fills every shard's halo
+    rows, and the woken rows are updated through the same Eq. 4 / Eq. 6 /
+    Eq. 16 row formulas as the single-device engine and written back
+    shard-locally.
+
+    The shards' rows live in one slab: all owned rows (S * R), then all
+    halo rows (S * Hmax); ``ShardedSimState.Theta`` is a view of the
+    owned part. A fused slot is one ``fused_row_update`` launch over the
+    whole slab (``limit`` S * R, sentinel S * R, the tiles remapped to
+    slab rows), which writes the owned rows in place. An unfused slot
+    gathers its neighbour sums with the reference's einsum over the slab
+    (``ShardedMixOp.gather_rows``; the single-device engine's unfused
+    gather is ``sparse_mix``).
+
+    Locality and communication, as in the reference: ``relabel`` permutes
+    agent positions before the block cut (ids seen by callers stay
+    original), ``exchange`` (an :class:`ExchangeSpec`) picks the method
+    and the wire's dtype and error feedback. Per-agent data and constants
+    are tiled into the shard blocks (``update.agent_constants()``).
+    Random draws come from one ``torch.Generator`` for all shards (the
+    reference folds a key per shard), so sampled runs agree with the
+    reference in distribution; forced wake sets (:meth:`step`) reproduce
+    the single-device engine. Chunks of slots replay as captured CUDA
+    graphs on the card, as for :class:`AsyncEngine`. Refused, each naming
+    its ROADMAP item: per-edge delays (as in the reference), dynamic
+    topology (A11), checkpoints (A12) and phase programs (A10b).
+    """
+
+    def __init__(self, update: LocalUpdate, *, num_shards: int, config: EngineConfig | None = None,
+                 **kw):
+        cfg = resolve_config(config, kw)
+        self.config = cfg
+        self.update = update
+        self.device = resolve_device(cfg.device, "EngineConfig.device")
+        self.n, self.p = update.n, update.p
+        self.dtype = cfg.dtype
+        self._seed = int(cfg.seed)
+        self.steps_per_chunk = int(cfg.steps_per_chunk)
+        self.scenario = cfg.scenario or Scenario()
+        if self.scenario.delay is not None:
+            raise NotImplementedError(
+                "per-edge delays are single-device only (the snapshot-ring "
+                "gather has no halo-exchange form yet); use AsyncEngine"
+            )
+        # Static topology only: EngineConfig refuses graph_update and
+        # Scenario refuses arrivals (ROADMAP A11), and with them the
+        # reference's refusal of fused=True on a dynamic graph.
+        self.topology_log = topology_log_init()
+        csr = as_csr(update.graph)
+        self._csr = csr
+        partition = cfg.partition
+        if partition is not None:
+            if partition.n != self.n or partition.num_shards != num_shards:
+                raise ValueError(
+                    f"prebuilt partition is (n={partition.n}, S={partition.num_shards}), "
+                    f"engine needs (n={self.n}, S={num_shards})"
+                )
+            self.part = partition
+        else:
+            self.part = partition_graph(csr, num_shards, mode=cfg.partition_mode,
+                                        relabel=cfg.relabel, coords=cfg.coords)
+        self.exchange_spec = cfg.exchange_spec()
+        self.smix = sharded_mix_op(self.part, exchange=self.exchange_spec)
+        self.exchange_method = self.smix.method
+        self.num_shards = self.part.num_shards
+
+        self.rates = clocks.normalize_rates(cfg.rates, self.n)
+        self.tau = clocks.slot_duration(self.rates, cfg.slot_wakes)
+        self.wake_probs = clocks.wake_probs(self.rates, self.tau)
+        R = self.part.rows_per_shard
+        if cfg.batch_size is not None:
+            if not (0 < cfg.batch_size <= R):
+                raise ValueError(f"batch_size must lie in (0, R={R}]")
+            self.batch_size = int(cfg.batch_size)
+        else:
+            # B_s from each shard's *owned agents'* rates (under a relabel the
+            # bounds index positions, not ids), as in the reference.
+            per_shard = max(
+                clocks.default_batch_size(
+                    self.rates[self.part.owned[s, : int(self.part.sizes[s])]], self.tau)
+                for s in range(self.num_shards)
+            )
+            self.batch_size = int(min(per_shard, R))
+        churn = self.scenario.churn
+        self._leave_v = churn.leave_vector(self.n) if churn else None
+        self._rejoin_v = churn.rejoin_vector(self.n) if churn else None
+        strag = self.scenario.straggler
+        self._drop_v = strag.drop_vector(self.n) if strag else None
+
+        self.metrics_spec = cfg.metrics_spec()
+        consts_fn = getattr(update, "agent_constants", None)
+        self._consts_base = None if consts_fn is None else consts_fn()
+        obj = getattr(update, "obj", None)
+        self.fused = _resolve_fused(update, cfg.fused, self.device, self.dtype, False, self.p,
+                                    obj.data.X.shape[1] if obj is not None else 0)
+        self._use_ef = self.smix.error_feedback
+        self._rebuild_static()
+        self._graphs = ChunkGraphs(self) if self.device.type == "cuda" else None
+
+    def _exchange_volume(self) -> ExchangeVolume:
+        """Per-shard static wire volume of the configured halo exchange."""
+        part, S = self.part, self.num_shards
+        per_row = self.exchange_spec.payload_bytes_per_row(self.p)
+        if self.smix.method == "p2p":
+            widths = [int(d.shape[1]) for d in self.smix.p2p_dst]
+            rows = int(sum(widths))
+            if widths:
+                p2p_rows = np.tile(np.asarray(widths, np.int32)[None], (S, 1))
+                p2p_bytes = (p2p_rows * per_row).astype(np.float32)
+            else:
+                p2p_rows = p2p_bytes = None
+        else:
+            rows = int(self.smix.border.shape[1]) * (S - 1)
+            p2p_rows = p2p_bytes = None
+        rows_shipped = np.full(S, rows, np.int32)
+        return ExchangeVolume(
+            border_rows=np.asarray(part.border_sizes, np.int64).astype(np.int32),
+            rows_shipped=rows_shipped,
+            bytes_shipped=(rows_shipped * per_row).astype(np.float32),
+            p2p_rows=p2p_rows,
+            p2p_bytes=p2p_bytes,
+        )
+
+    def _rebuild_static(self) -> None:
+        """The shard-resident device tiles, flat over the S * R owned rows:
+        the wake, churn and straggler probabilities, the owned ids, the
+        message degrees, the update's constants (float leaves in the engine
+        dtype, padding rows 0), the fused kernel's slab tables and the
+        exchange-volume tiles of the metrics."""
+        part, dev, S = self.part, self.device, self.num_shards
+        R, B = part.rows_per_shard, self.batch_size
+        self.rows_per_shard = R
+        owned = part.owned.reshape(-1).astype(np.int64)
+        real = owned < self.n
+        self._owned = torch.as_tensor(owned, device=dev)
+        # Agent i's row of the (S * R, p) owned rows.
+        self._agent_rows = torch.as_tensor(
+            part.shard_of.astype(np.int64) * R + part.local_of, device=dev)
+        real_t = torch.as_tensor(real, device=dev)
+        take = torch.as_tensor(np.where(real, owned, 0), device=dev)
+
+        def tile(a, dtype=torch.float32):
+            """(n, ...) host array -> (S * R, ...) on the device, padding rows 0
+            (``dtype`` None keeps an integer array's own)."""
+            t = torch.as_tensor(np.asarray(a)).to(device=dev, dtype=dtype)[take]
+            keep = real_t.view((-1,) + (1,) * (t.dim() - 1))
+            return torch.where(keep, t, torch.zeros((), dtype=t.dtype, device=dev))
+
+        def maybe(v):
+            return None if v is None else tile(v).view(S, R)
+
+        self._wake_p = tile(self.wake_probs).view(S, R)
+        self._leave, self._rejoin, self._drop = (maybe(v) for v in
+                                                  (self._leave_v, self._rejoin_v, self._drop_v))
+        self._deg = tile(neighbor_counts(self._csr))
+        self._consts = None
+        if self._consts_base is not None:
+            self._consts = {}
+            for k, a in self._consts_base.items():
+                a = np.asarray(a)
+                self._consts[k] = tile(a, self.dtype if np.issubdtype(a.dtype, np.floating)
+                                       else None)
+        if self.fused:
+            self._fidx = self.smix.table("flat_idx", dev, torch.int32)
+            self._fw = self.smix.table("flat_w", dev, torch.float32)
+        else:
+            self._fidx = self._fw = None
+        self._shard_base = (torch.arange(S, device=dev) * R)[:, None]
+        self._arange_sb = torch.arange(B, device=dev).repeat(S, 1)
+
+        if self.metrics_spec is None:
+            self._macc = None
+            self._mstatic = None
+        else:
+            vol = self._exchange_volume()
+            self._macc = MetricsAccumulator(
+                self.metrics_spec,
+                R,
+                churn=self._leave is not None,
+                straggler=self._drop is not None,
+                dp_limit=getattr(self.update, "planned_Ti", None),
+                exchange_offsets=vol.num_offsets if self.smix.method == "p2p" else 0,
+                quantized=self.smix.dtype != "f32",
+                shards=S,
+            )
+            self._mstatic = None if self._macc.exchange_offsets is None else vol.tiles(dev)
+
+    # -- state ------------------------------------------------------------
+    def _state(self, Theta_rows, active, ustate) -> ShardedSimState:
+        """A state around the (S * R, p) owned rows, the (S, R) churn flags
+        and the update state, everything else zero."""
+        dev, S, R = self.device, self.num_shards, self.rows_per_shard
+        slab = torch.zeros((self.smix.slab_rows, self.p), dtype=self.dtype, device=dev)
+        slab[: S * R] = Theta_rows
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(self._seed)
+
+        def zeros(dt):
+            return torch.zeros(S, dtype=dt, device=dev)
+
+        return ShardedSimState(
+            Theta=slab[: S * R].view(S, R, self.p),
+            active=active,
+            generator=gen,
+            ustate=ustate,
+            applied=zeros(torch.long),
+            dropped=zeros(torch.long),
+            messages=zeros(torch.float32),
+            ptr=zeros(torch.long),
+            slab=slab,
+            ef=self.smix.init_error_feedback(self.p, self.dtype, dev),
+            metrics=None if self._macc is None else self._macc.init(dev),
+        )
+
+    def _shard_leaf(self, x) -> torch.Tensor:
+        """An (n, ...) update-state leaf as its (S, R, ...) tiles."""
+        x = x.to("cpu").numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+        if x.ndim == 0 or x.shape[0] != self.n:
+            raise ValueError(
+                "sharded engine needs per-agent update-state leaves with "
+                f"leading dim n={self.n}, got shape {x.shape}"
+            )
+        return torch.as_tensor(self.part.pad_rows(x)).to(self.device)
+
+    def init_state(self, Theta0, seed: int | None = None) -> ShardedSimState:
+        """Fresh sharded state from an (n, p) initial model matrix (original
+        agent order; the partition maps it to the shard blocks)."""
+        if isinstance(Theta0, torch.Tensor):
+            Theta0 = Theta0.to("cpu").numpy()
+        Theta = np.asarray(Theta0)
+        if Theta.shape != (self.n, self.p):
+            raise ValueError(f"Theta0 must be {(self.n, self.p)}, got {Theta.shape}")
+        S, R = self.num_shards, self.rows_per_shard
+        rows = torch.as_tensor(self.part.pad_rows(Theta)).to(self.device, self.dtype)
+        active = torch.as_tensor(self.part.pad_rows(np.ones(self.n, bool), fill=False))
+        ustate = self.update.init_state()
+        if not (isinstance(ustate, tuple) and not ustate):
+            ustate = self._shard_leaf(ustate)
+        state = self._state(rows.view(S * R, self.p), active.to(self.device), ustate)
+        if seed is not None:
+            state.generator.manual_seed(int(seed))
+        return state
+
+    def _blank_state(self) -> ShardedSimState:
+        """An ``init_state``-shaped zero template built in the (S, R, ...)
+        tile space, never assembling an (n, p) host Theta."""
+        S, R, dev = self.num_shards, self.rows_per_shard, self.device
+        ustate = self.update.init_state()
+        if not (isinstance(ustate, tuple) and not ustate):
+            ustate = torch.zeros((S, R) + tuple(ustate.shape[1:]), dtype=ustate.dtype, device=dev)
+        return self._state(torch.zeros((S * R, self.p), dtype=self.dtype, device=dev),
+                           torch.zeros((S, R), dtype=torch.bool, device=dev), ustate)
+
+    def state_dict(self, state: ShardedSimState, step: int | None = None):
+        """The per-shard checkpoint closure: ROADMAP item A12, not ported yet."""
+        raise NotImplementedError(
+            "ShardedAsyncEngine.state_dict (per-shard checkpoints) is ROADMAP item A12, "
+            "which is not ported yet"
+        )
+
+    # -- one stacked super-tick ---------------------------------------------
+    def _compact(self, wake):
+        """Each shard's woken batch at static shape (S, B): ``AsyncEngine._compact``
+        over the (S, R) wake mask at once (a cumsum along R and a batched
+        searchsorted). Returns ``(woken, slot_rows, valid, dropped)``, local
+        rows (sentinel R in ``woken``; ``slot_rows`` B distinct in-range rows
+        a shard) and the (S,) capacity overflow."""
+        B, R = self.batch_size, self.rows_per_shard
+        csum = torch.cumsum(wake, dim=1)
+        total = csum[:, -1]
+        nvalid = torch.clamp(total, max=B)
+        woken = torch.searchsorted(csum, self._arange_sb + 1)  # R where fewer woke
+        valid = woken < R
+        outside = torch.cumsum(~(wake & (csum <= B)), dim=1)
+        spare = torch.searchsorted(outside, self._arange_sb - nvalid[:, None] + 1)
+        slot_rows = torch.where(valid, woken, spare)
+        return woken, slot_rows, valid, total - nvalid
+
+    def _slot(self, state: ShardedSimState, wake_mask) -> ShardedSimState:
+        """One super-tick of all S shards, in place; ``wake_mask`` (S, R)
+        forces the wake set (None samples it)."""
+        S, R, dev = self.num_shards, self.rows_per_shard, self.device
+        gen = state.generator
+        active_prev = active = state.active
+        if wake_mask is None:
+            if self._leave is not None:
+                leave = torch.rand((S, R), generator=gen, device=dev) < self._leave
+                rejoin = torch.rand((S, R), generator=gen, device=dev) < self._rejoin
+                active = torch.where(active_prev, ~leave, rejoin)
+            wake_pre = wake = (torch.rand((S, R), generator=gen, device=dev) < self._wake_p) & active
+            if self._drop is not None:
+                wake = wake_pre & (torch.rand((S, R), generator=gen, device=dev) >= self._drop)
+        else:
+            # Forced wake sets: no churn transition, no straggler losses —
+            # but departed agents still cannot wake.
+            wake_pre = wake = wake_mask & active
+        _, slot_rows, valid, dropped = self._compact(wake)
+        rows = (slot_rows + self._shard_base).reshape(-1)  # (S * B,) flat owned rows
+        valid = valid.reshape(-1)
+        grows = torch.where(valid, self._owned[rows], self.n)  # global ids, sentinel n
+
+        slab = state.slab
+        stats = self.smix.exchange_halo(
+            slab, state.ef if self._use_ef else None,
+            collect_stats=self._macc is not None and self._macc.quantized)
+        ustate = state.ustate
+        flat_u = ustate.view(S * R) if isinstance(ustate, torch.Tensor) else ustate
+        consts = None if self._consts is None else {k: v[rows] for k, v in self._consts.items()}
+        if self.fused:
+            # One kernel call over the stacked slab: gather + mix + Eq. 4 +
+            # scatter of the owned rows (limit S * R), in place.
+            _, applied, _ = self.update.apply_fused(
+                slab, grows, valid, gen, flat_u, self._fidx[rows], self._fw[rows],
+                srows=rows, ssize=S * R, consts=consts)
+        else:
+            neigh = self.smix.gather_rows(slab, rows)
+            owned = slab[: S * R]
+            theta_rows = owned[rows]
+            new_rows, applied, _ = self.update.apply_rows(
+                theta_rows, grows, valid, neigh, gen, flat_u, srows=rows, ssize=S * R,
+                consts=consts)
+            # Every new row is computed before any is written; rows not
+            # applied write back their own value (B distinct rows a shard).
+            owned.index_copy_(0, rows, torch.where(applied[:, None],
+                                                   new_rows.to(slab.dtype), theta_rows))
+
+        if self._macc is not None:
+            self._macc.tick(
+                state.metrics,
+                ptr=state.ptr,
+                wake_pre=wake_pre,
+                wake=wake,
+                applied=applied,
+                slot_rows=rows,
+                capacity_dropped=dropped,
+                active_prev=active_prev,
+                active_new=active,
+                dp_counts=ustate if self._macc.dp_limit is not None else None,
+                exchange=self._mstatic,
+                quant_stats=stats,
+            )
+        deg = torch.where(applied, self._deg[rows], 0.0)
+        state.messages.add_(deg.view(S, -1).sum(dim=1))
+        state.applied.add_(applied.view(S, -1).sum(dim=1))
+        state.dropped.add_(dropped)
+        state.ptr.add_(1)
+        if active is not active_prev:
+            state.active.copy_(active)
+        return state
+
+    # -- drivers -----------------------------------------------------------
+    def step(self, state: ShardedSimState, wake_mask) -> ShardedSimState:
+        """One super-tick with an explicit global (n,) wake set."""
+        if isinstance(wake_mask, torch.Tensor):
+            wake_mask = wake_mask.to("cpu").numpy()
+        mask = self.part.pad_rows(np.asarray(wake_mask, dtype=bool), fill=False)
+        return self._slot(state, torch.as_tensor(mask).to(self.device))
+
+    def advance(self, state: ShardedSimState, slots: int) -> ShardedSimState:
+        """Run ``slots`` sampled super-ticks: on a CUDA device as replays of
+        the captured chunk graphs, on the CPU one eager slot at a time."""
+        if self._graphs is None:
+            return self._eager_slots(state, slots)
+        return self._graphs.advance(state, int(slots))
+
+    def _eager_slots(self, state: ShardedSimState, slots: int) -> ShardedSimState:
+        """``slots`` sampled super-ticks, one eager slot at a time."""
+        for _ in range(int(slots)):
+            state = self._slot(state, None)
+        return state
+
+    def _agent_theta(self, state: ShardedSimState) -> torch.Tensor:
+        """The (n, p) models in agent order, gathered on the device."""
+        return state.Theta.reshape(-1, self.p)[self._agent_rows]
+
+    def global_theta(self, state: ShardedSimState) -> np.ndarray:
+        """Reassemble the (n, p) model matrix from the shard blocks."""
+        return self._agent_theta(state).to("cpu").numpy()
+
+    def _objective_value(self, state: ShardedSimState) -> float:
+        """The update's objective at ``state`` (recording hook)."""
+        return self.update.objective(self._agent_theta(state))
+
+    def _ptr_of(self, state: ShardedSimState) -> int:
+        """Host value of the slot counter (identical across shards)."""
+        return int(state.ptr[0])
+
+    # -- topology and observability -------------------------------------------
+    def set_topology(self, state, new_csr):
+        """Dynamic topology: ROADMAP item A11, not ported yet."""
+        raise NotImplementedError(
+            "ShardedAsyncEngine.set_topology (dynamic topology) is ROADMAP item A11, "
+            "which is not ported yet")
+
+    def _refresh_topology(self, state, round_index: int):
+        """Dynamic topology: ROADMAP item A11, not ported yet."""
+        raise NotImplementedError(
+            "ShardedAsyncEngine._refresh_topology (edge refresh) is ROADMAP item A11, "
+            "which is not ported yet")
+
+    def admit(self, state, ids):
+        """Arrivals: ROADMAP item A11, not ported yet."""
+        raise NotImplementedError(
+            "ShardedAsyncEngine.admit (arrivals) is ROADMAP item A11, which is not ported yet")
+
+    def topology_counters(self) -> dict:
+        """Host-side dynamic-topology counters (all zeros: static topology)."""
+        return dict(self.topology_log)
+
+    def phase_program(self, upto: str | None = None):
+        """The slot cut after a named phase: ROADMAP item A10b, not ported yet."""
+        raise NotImplementedError(
+            "ShardedAsyncEngine.phase_program (phase programs and traces) is ROADMAP "
+            "item A10b, which is not ported yet")
+
+    def metrics_snapshot(self, state: ShardedSimState) -> tuple:
+        """Drain the device counters: ``(counters, derived)`` host dicts.
+
+        Counter leaves keep their leading (S,) shard axis; ``derived`` adds
+        the DP accountant's composed eps spend over the owned agents.
+        """
+        if self._macc is None:
+            raise ValueError(
+                "metrics collection is off; construct the engine with "
+                "EngineConfig(metrics=True) (or a MetricsSpec)"
+            )
+        counters = self._macc.snapshot(state.metrics)
+        derived: dict = {}
+        if self.metrics_spec.privacy and hasattr(self.update, "eps_spent"):
+            counts = self.part.unpad_rows(state.ustate.to("cpu", copy=True).numpy())
+            eps = np.asarray(self.update.eps_spent(counts))
+            derived["dp_eps_spent_mean"] = float(eps.mean())
+            derived["dp_eps_spent_max"] = float(eps.max())
+        return counters, derived
+
+    def report_meta(self) -> dict:
+        """Run metadata stamped into a :class:`repro_torch.obs.RunReport`."""
+        return {
+            "engine": type(self).__name__,
+            "update": type(self.update).__name__,
+            "n": self.n,
+            "p": self.p,
+            "num_shards": int(self.num_shards),
+            "slot_wakes": float(self.config.slot_wakes),
+            "batch_size": int(self.batch_size),
+            "fused": bool(self.fused),
+            "dtype": str(self.dtype).replace("torch.", ""),
+            "exchange_method": self.exchange_method,
+            "exchange_dtype": self.smix.dtype,
+            "error_feedback": bool(self._use_ef),
+        }
+
+    def run(
+        self,
+        Theta0,
+        slots: int,
+        record_every: int = 0,
+        state: ShardedSimState | None = None,
+        metrics_every: int = 0,
+        report=None,
+    ) -> SimResult:
+        """Drive ``slots`` super-ticks; same contract as :meth:`AsyncEngine.run`."""
+        state, objective, report = _run_driver(
+            self, Theta0, slots, record_every=record_every, state=state,
+            metrics_every=metrics_every, report=report,
+        )
+        part = self.part
+        ustate = state.ustate
+        if isinstance(ustate, torch.Tensor):
+            ustate = part.unpad_rows(ustate.to("cpu", copy=True).numpy())
+        return SimResult(
+            Theta=self.global_theta(state),
+            objective=np.asarray(objective) if objective is not None else None,
+            messages=float(state.messages.sum()),
+            wakes_applied=int(state.applied.sum()),
+            wakes_dropped=int(state.dropped.sum()),
+            slots=self._ptr_of(state),
+            active=part.unpad_rows(state.active.to("cpu", copy=True).numpy()),
+            update_state=ustate,
             state=state,
             report=report,
         )

@@ -21,7 +21,15 @@ to its sequential twin (``eq4_theta_rows`` in ``coordinate_descent``,
 ``apply_fused`` (CD and DP, quadratic loss) is the one-launch path: the
 ``fused_row_update`` CUDA kernel gathers, mixes, updates and scatters the
 woken rows into Theta in place; a budget-exhausted DP row is a kernel
-sentinel. The private rules draw their noise from the engine's
+sentinel.
+
+For the sharded engine each update also exposes ``agent_constants`` —
+the per-agent host arrays (datasets, theory constants, noise scales) its
+row step reads. The engine tiles them along its agent blocks and hands
+the row-gathered slice back as ``consts`` to ``apply_rows`` /
+``apply_fused``, with the shard-local scatter rows ``srows`` and their
+sentinel ``ssize``; ``consts=None`` keeps the single-device path as it
+was. The private rules draw their noise from the engine's
 ``torch.Generator``, or take it as ``draws`` so a test can inject the
 reference's ``jax.random`` draws.
 """
@@ -36,7 +44,11 @@ import numpy as np
 import torch
 
 from repro_torch.core import privacy
-from repro_torch.core.coordinate_descent import eq4_theta_rows
+from repro_torch.core.coordinate_descent import (
+    eq4_agent_constants,
+    eq4_theta_rows,
+    eq4_theta_rows_from,
+)
 from repro_torch.core.dp_cd import DPConfig, standard_draws, uniform_noise_plan
 from repro_torch.core.mixing import MixOp, mix_op
 from repro_torch.core.model_propagation import propagation_objective, propagation_rows_from
@@ -68,15 +80,20 @@ def _eq4_fused_args(obj, krows, cols, w, consts, noise):
     return krows, cols, w, coef, X, y, mask, noise
 
 
-def fused_rows(obj, rows, valid, device):
+def fused_rows(obj, rows, valid, device, srows=None, ssize=None, consts=None):
     """The fused kernel's row inputs for a woken batch: ``krows`` (B,)
-    int32, ``rows`` with the sentinel n where ``valid`` is false (padding,
-    or a budget-exhausted private row), and the float32 Eq. 4 constants
-    gathered at ``rows``."""
-    safe = torch.clamp(rows, max=obj.n - 1)
-    t = obj.tensors(device, torch.float32)
-    consts = {k: v[safe] for k, v in t.items()}
-    krows = torch.where(valid, rows, obj.n).to(torch.int32)
+    int32, the slab rows ``srows`` (default ``rows``) with the sentinel
+    ``ssize`` (default n) where ``valid`` is false (padding, or a
+    budget-exhausted private row), and the Eq. 4 constants: ``consts``
+    when given (the sharded engine's row-gathered tiles), else the
+    float32 tensors gathered at ``rows``."""
+    if srows is None:
+        srows, ssize = rows, obj.n
+    if consts is None:
+        safe = torch.clamp(rows, max=obj.n - 1)
+        t = obj.tensors(device, torch.float32)
+        consts = {k: v[safe] for k, v in t.items()}
+    krows = torch.where(valid, srows, ssize).to(torch.int32)
     return krows, consts
 
 
@@ -128,12 +145,21 @@ class LocalUpdate(Protocol):
         that the engine moves to its device."""
         ...
 
+    def agent_constants(self):
+        """Per-agent host arrays (leading dim n) the row step reads; the
+        sharded engine tiles them into its agent blocks."""
+        ...
+
     def apply(self, Theta, rows, valid, neigh, generator, state):
         """One batched update against the global (n, p) snapshot."""
         ...
 
-    def apply_rows(self, theta_rows, rows, valid, neigh, generator, state):
-        """One batched update from pre-gathered rows."""
+    def apply_rows(self, theta_rows, rows, valid, neigh, generator, state, srows=None,
+                   ssize=None, consts=None):
+        """One batched update from pre-gathered rows. ``srows``/``ssize``:
+        the rows of the update state to read and write and their sentinel
+        (default ``rows``/n); ``consts``: the row-gathered
+        :meth:`agent_constants` as tensors (default: gathered at ``rows``)."""
         ...
 
 
@@ -167,31 +193,46 @@ class CDUpdate:
         """Stateless: the empty tuple."""
         return ()
 
+    def agent_constants(self):
+        """The Eq. 4 constants and padded datasets (``eq4_agent_constants``)."""
+        return eq4_agent_constants(self.obj)
+
     def apply(self, Theta, rows, valid, neigh, generator, state):
         """Gather the woken rows from the global snapshot and update them."""
         safe = torch.clamp(rows, max=self.n - 1)
         return self.apply_rows(Theta[safe], rows, valid, neigh, generator, state)
 
-    def apply_rows(self, theta_rows, rows, valid, neigh, generator, state):
-        """Batched Eq. 4 step for the gathered rows."""
-        return eq4_theta_rows(self.obj, theta_rows, rows, neigh), valid, state
+    def apply_rows(self, theta_rows, rows, valid, neigh, generator, state, srows=None,
+                   ssize=None, consts=None):
+        """Batched Eq. 4 step for the gathered rows; ``consts`` selects the
+        sharded engine's row-gathered constants."""
+        if consts is None:
+            return eq4_theta_rows(self.obj, theta_rows, rows, neigh), valid, state
+        return eq4_theta_rows_from(self.obj, theta_rows, neigh, consts), valid, state
 
     @property
     def fused_supported(self) -> bool:
         """The fused kernel implements the quadratic point grad only."""
         return self.obj.loss.name == "quadratic"
 
-    def apply_fused(self, Theta_slab, rows, valid, generator, state, cols, w):
-        """Fused-kernel Eq. 4 step over the (n, p) float32 slab, in place.
+    def apply_fused(self, Theta_slab, rows, valid, generator, state, cols, w, srows=None,
+                    ssize=None, consts=None):
+        """Fused-kernel Eq. 4 step over a float32 slab, in place.
 
         ``rows``: (B,) woken agent ids (sentinel n); ``cols``/``w``: (B, K)
-        int32 / float32 row-gathered neighbour tables. Returns the updated
-        slab (the same tensor), the applied mask and the state.
+        int32 / float32 row-gathered neighbour tables over the slab;
+        ``srows``/``ssize``: the slab rows to write and their sentinel,
+        the kernel's ``limit`` (default ``rows``/n: the single-device
+        slab is Theta); ``consts``: the sharded engine's row-gathered
+        constants. Returns the updated slab (the same tensor), the applied
+        mask and the state.
         """
         if not self.fused_supported:
             raise _fused_unsupported(self.obj)
-        krows, consts = fused_rows(self.obj, rows, valid, Theta_slab.device)
-        new_slab = _eq4_fused_slab(self.obj, Theta_slab, krows, cols, w, consts, None, self.n)
+        limit = self.n if srows is None else ssize
+        krows, consts = fused_rows(self.obj, rows, valid, Theta_slab.device, srows, ssize,
+                                   consts)
+        new_slab = _eq4_fused_slab(self.obj, Theta_slab, krows, cols, w, consts, None, limit)
         return new_slab, valid, state
 
     def objective(self, Theta) -> float:
@@ -269,6 +310,10 @@ class DPCDUpdate:
         host; the engine moves it to its device)."""
         return torch.zeros(self.n, dtype=torch.int32)
 
+    def agent_constants(self):
+        """The Eq. 4 constants and datasets, and the (n,) noise scales."""
+        return {**eq4_agent_constants(self.obj), "scales": self.scales}
+
     def _scales(self, device, dtype):
         """The (n,) noise scales on ``device`` in ``dtype``, made once and kept."""
         cache = self.__dict__.setdefault("_scale_cache", {})
@@ -277,10 +322,19 @@ class DPCDUpdate:
             cache[key] = torch.as_tensor(self.scales).to(device=key[0], dtype=dtype)
         return cache[key]
 
-    def _budget(self, rows, valid, state):
-        """Clamped rows and the (B,) mask of woken rows with budget left."""
-        safe = torch.clamp(rows, max=self.n - 1)
+    def _budget(self, rows, valid, state, srows=None, ssize=None):
+        """The clamped state rows (``srows`` below ``ssize``, default
+        ``rows`` below n) and the (B,) mask of woken rows with budget left."""
+        if srows is None:
+            srows, ssize = rows, self.n
+        safe = torch.clamp(srows, max=ssize - 1)
         return safe, valid & (state[safe] < self.planned_Ti)
+
+    def _row_scales(self, rows, device, dtype, consts):
+        """(B,) noise scales: ``consts["scales"]``, or gathered at ``rows``."""
+        if consts is not None:
+            return consts["scales"].to(dtype)
+        return self._scales(device, dtype)[torch.clamp(rows, max=self.n - 1)]
 
     def _draws(self, shape, generator, device, dtype, draws):
         if draws is None:
@@ -294,14 +348,20 @@ class DPCDUpdate:
         safe = torch.clamp(rows, max=self.n - 1)
         return self.apply_rows(Theta[safe], rows, valid, neigh, generator, state, draws)
 
-    def apply_rows(self, theta_rows, rows, valid, neigh, generator, state, draws=None):
+    def apply_rows(self, theta_rows, rows, valid, neigh, generator, state, draws=None,
+                   srows=None, ssize=None, consts=None):
         """Batched Eq. 6 step with budget stopping. The (B, p) standard
-        draws come from ``generator`` in the rows' dtype, or are ``draws``."""
+        draws come from ``generator`` in the rows' dtype, or are ``draws``.
+        ``srows``/``ssize``/``consts``: the sharded engine's state rows,
+        their sentinel and row-gathered constants (noise scales included)."""
         dt = theta_rows.dtype
-        safe, applied = self._budget(rows, valid, state)
+        safe, applied = self._budget(rows, valid, state, srows, ssize)
         z = self._draws(neigh.shape, generator, neigh.device, dt, draws)
-        noise = z * self._scales(neigh.device, dt)[safe][:, None]
-        new_rows = eq4_theta_rows(self.obj, theta_rows, rows, neigh, grad_noise=noise)
+        noise = z * self._row_scales(rows, neigh.device, dt, consts)[:, None]
+        if consts is None:
+            new_rows = eq4_theta_rows(self.obj, theta_rows, rows, neigh, grad_noise=noise)
+        else:
+            new_rows = eq4_theta_rows_from(self.obj, theta_rows, neigh, consts, grad_noise=noise)
         state.index_add_(0, safe, applied.to(state.dtype))
         return new_rows, applied, state
 
@@ -310,25 +370,29 @@ class DPCDUpdate:
         """The fused kernel implements the quadratic point grad only."""
         return self.obj.loss.name == "quadratic"
 
-    def apply_fused(self, Theta_slab, rows, valid, generator, state, cols, w, draws=None):
-        """Fused-kernel Eq. 6 step over the (n, p) float32 slab, in place.
+    def apply_fused(self, Theta_slab, rows, valid, generator, state, cols, w, draws=None,
+                    srows=None, ssize=None, consts=None):
+        """Fused-kernel Eq. 6 step over a float32 slab, in place.
 
         The budget stopping and noise of :meth:`apply_rows` with the row
         math in one kernel call: budget-exhausted agents become kernel
-        sentinels (``krows = n``), so their row stays as it was. The draws
-        are always float32, and take the same calls from ``generator`` as
-        :meth:`apply_rows` in a float32 engine, so the two routes see the
-        same noise.
+        sentinels (``krows = ssize``, n by default), so their row stays as
+        it was. The draws are always float32, and take the same calls from
+        ``generator`` as :meth:`apply_rows` in a float32 engine, so the two
+        routes see the same noise. ``srows``/``ssize``/``consts`` as in
+        :meth:`CDUpdate.apply_fused` (the counts are read and written at
+        ``srows``).
         """
         if not self.fused_supported:
             raise _fused_unsupported(self.obj)
         dev = Theta_slab.device
-        safe, applied = self._budget(rows, valid, state)
+        safe, applied = self._budget(rows, valid, state, srows, ssize)
         f32 = torch.float32
         z = self._draws((rows.shape[0], Theta_slab.shape[1]), generator, dev, f32, draws)
-        noise = z * self._scales(dev, f32)[safe][:, None]
-        krows, consts = fused_rows(self.obj, rows, applied, dev)
-        new_slab = _eq4_fused_slab(self.obj, Theta_slab, krows, cols, w, consts, noise, self.n)
+        noise = z * self._row_scales(rows, dev, f32, consts)[:, None]
+        limit = self.n if srows is None else ssize
+        krows, consts = fused_rows(self.obj, rows, applied, dev, srows, ssize, consts)
+        new_slab = _eq4_fused_slab(self.obj, Theta_slab, krows, cols, w, consts, noise, limit)
         state.index_add_(0, safe, applied.to(state.dtype))
         return new_slab, applied, state
 
@@ -381,6 +445,10 @@ class PropagationUpdate:
         """Stateless: the empty tuple."""
         return ()
 
+    def agent_constants(self):
+        """Degrees, confidences and the (n, p) local models Eq. 16 reads."""
+        return {"deg": self.graph.degrees, "conf": self.confidences, "loc": self.theta_loc}
+
     def tensors(self, device, dtype) -> dict:
         """Degrees, confidences and local models on ``device`` in ``dtype``,
         made once and kept."""
@@ -398,13 +466,18 @@ class PropagationUpdate:
         """Update the woken rows (Eq. 16 reads no row of Theta)."""
         return self.apply_rows(None, rows, valid, neigh, generator, state)
 
-    def apply_rows(self, theta_rows, rows, valid, neigh, generator, state):
+    def apply_rows(self, theta_rows, rows, valid, neigh, generator, state, srows=None,
+                   ssize=None, consts=None):
         """Batched Eq. 16 exact block minimizer; ``theta_rows`` is unused —
-        the update reads only the neighbour sum and the local models."""
-        t = self.tensors(neigh.device, neigh.dtype)
-        safe = torch.clamp(rows, max=self.n - 1)
-        new_rows = propagation_rows_from(self.mu, t["deg"][safe], t["conf"][safe],
-                                         t["loc"][safe], neigh)
+        the update reads only the neighbour sum and the local models
+        (``consts``: the sharded engine's row-gathered ones)."""
+        if consts is None:
+            t = self.tensors(neigh.device, neigh.dtype)
+            safe = torch.clamp(rows, max=self.n - 1)
+            consts = {k: t[k][safe] for k in ("deg", "conf", "loc")}
+        dt = neigh.dtype
+        new_rows = propagation_rows_from(self.mu, consts["deg"].to(dt), consts["conf"].to(dt),
+                                         consts["loc"].to(dt), neigh)
         return new_rows, valid, state
 
     def objective(self, Theta) -> float:

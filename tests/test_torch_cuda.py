@@ -1,7 +1,8 @@
 """The CUDA kernels on the card: each against its plain version over a
 shape grid, launch counting, refusal of what a kernel does not take, the
-engine's fused and unfused routes (non-private and private) against the
-CPU route, and the zamba2 path (a Mamba2 block through ``ssm_chunk``, a
+engine's fused and unfused routes (non-private and private, single-device
+and sharded) against the CPU route, the captured chunks against the eager
+slots, and the zamba2 path (a Mamba2 block through ``ssm_chunk``, a
 2-layer full-width hybrid's prefill against its decode loop).
 
 Marked ``cuda``: every test skips where there is no CUDA device. Run on a
@@ -766,3 +767,122 @@ def test_a_capture_failure_raises_and_nothing_runs_eagerly(dev):
     assert torch.cuda.current_stream(dev) == stream
     assert ops.launch_counts()["sparse_mix"] == 1  # the eager warm-up slot only
     assert int(state.ptr) == 1 and not eng._graphs.graphs
+
+
+# ---------------------------------------------------------------------------
+# The sharded engine on the card: S shards stacked on one device
+# ---------------------------------------------------------------------------
+
+SHARDED_CASES = ["fused", "unfused", "fused_bf16_ef_metrics", "dp_fused", "unfused_int8_churn"]
+
+
+def _sharded_engine(dev, case, n=384):
+    """A card ShardedAsyncEngine for one case: S = 4, RCM relabel, k-NN
+    graph, quadratic loss, 64 expected wakes a slot."""
+    from repro_torch.sim import (ChurnConfig, ExchangeSpec, Scenario, ShardedAsyncEngine,
+                                 StragglerConfig)
+
+    rng = np.random.default_rng(13)
+    p, m = 8, 4
+    graph = knn_graph(rng.normal(size=(n, 6)), k=6)
+    X = rng.normal(size=(n, m, p)) / np.sqrt(p)
+    y = np.einsum("nmp,np->nm", X, rng.normal(size=(n, p)))
+    obj = make_objective(graph, AgentData(X=X, y=y, mask=np.ones((n, m))), "quadratic",
+                         mu=0.5, clip=1.0 if case.startswith("dp") else None, mix_mode="sparse")
+    wire = {"fused_bf16_ef_metrics": "p2p:bf16:ef", "unfused_int8_churn": "all_gather:int8"}
+    kw = dict(num_shards=4, relabel="rcm", slot_wakes=64.0, seed=5, device=dev,
+              fused="auto" if "unfused" not in case else False,
+              exchange=ExchangeSpec.from_string(wire.get(case, "auto")),
+              metrics=case.endswith("metrics"))
+    if case.endswith("churn"):
+        kw["scenario"] = Scenario(churn=ChurnConfig(leave_prob=0.05, rejoin_prob=0.3),
+                                  straggler=StragglerConfig(drop_prob=0.2))
+    upd = (DPCDUpdate.plan(obj, DPConfig(eps_bar=0.5), planned_Ti=3) if case.startswith("dp")
+           else CDUpdate(obj))
+    eng = ShardedAsyncEngine(upd, **kw)
+    assert eng.fused == (kw["fused"] == "auto")
+    return eng, rng.normal(size=(n, p))
+
+
+def _assert_sharded_states_equal(a, b):
+    for name in ("Theta", "slab", "ptr", "active", "applied", "dropped", "messages"):
+        assert torch.equal(getattr(a, name), getattr(b, name)), name
+    for name in ("ef", "ustate"):
+        if isinstance(getattr(a, name), torch.Tensor):
+            assert torch.equal(getattr(a, name), getattr(b, name)), name
+    for k in (a.metrics or {}):
+        assert torch.equal(a.metrics[k], b.metrics[k]), k
+    assert torch.equal(a.generator.get_state(), b.generator.get_state())
+
+
+@pytest.mark.parametrize("case", [c for c in SHARDED_CASES if not c.startswith("dp")])
+def test_sharded_forced_slots_on_the_card_match_the_cpu(dev, case):
+    """Forced wakes at S = 4 on the card against the same engine on the CPU
+    (the plain versions there), and the fused kernel launched once a slot.
+    (The private case draws its noise from each device's generator, so it
+    is held captured against eager only.)"""
+    from repro_torch.sim import ShardedAsyncEngine
+
+    eng, Theta0 = _sharded_engine(dev, case)
+    cpu = ShardedAsyncEngine(eng.update, num_shards=4,
+                             config=eng.config.replace(device="cpu", fused=eng.fused))
+    masks = list(np.random.default_rng(3).random((10, eng.n)) < 0.2)
+    ops.reset_launch_counts()
+    a = eng.init_state(Theta0)
+    for mask in masks:
+        a = eng.step(a, mask)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["fused_row_update"] == (len(masks) if eng.fused else 0)
+    b = cpu.init_state(Theta0)
+    for mask in masks:
+        b = cpu.step(b, mask)
+    _close(torch.as_tensor(eng.global_theta(a)), torch.as_tensor(cpu.global_theta(b)))
+    assert int(a.applied.sum()) == int(b.applied.sum())
+
+
+@pytest.mark.parametrize("case", SHARDED_CASES)
+def test_sharded_captured_chunk_equals_eager_bit_for_bit(dev, case):
+    """37 sampled slots of the stacked S = 4 slot through the captured
+    graphs and eagerly: every state tensor (the slab, ``ef``, the metrics),
+    the generator's position and the launch counts are equal."""
+    eng, Theta0 = _sharded_engine(dev, case)
+    counts = []
+    states = []
+    for run in (eng.advance, eng._eager_slots):
+        ops.reset_launch_counts()
+        states.append(run(eng.init_state(Theta0), 37))
+        torch.cuda.synchronize()
+        counts.append(ops.launch_counts())
+    assert sorted(eng._graphs.graphs) == [1, 16]
+    assert int(states[0].ptr[0]) == 37 and int(states[0].applied.sum()) > 0
+    _assert_sharded_states_equal(*states)
+    assert counts[0] == counts[1]
+    assert counts[0]["fused_row_update"] == (37 if eng.fused else 0)
+
+
+@pytest.mark.parametrize("p", [8, 5])
+def test_sharded_fused_slot_against_single_device_fused_on_the_card(dev, p):
+    """The sharded fused slot (S = 4, one launch over the stacked slab)
+    against the single-device fused slot on the card, forced wakes: the
+    float4 instance at p = 8, the scalar one at p = 5 on both."""
+    from repro_torch.kernels.fused_row_update import row_plan
+    from repro_torch.sim import ShardedAsyncEngine
+
+    rng = np.random.default_rng(17)
+    n, m = 300, 3
+    graph = knn_graph(rng.normal(size=(n, 6)), k=6)
+    X = rng.normal(size=(n, m, p)) / np.sqrt(p)
+    y = np.einsum("nmp,np->nm", X, rng.normal(size=(n, p)))
+    obj = make_objective(graph, AgentData(X=X, y=y, mask=np.ones((n, m))), "quadratic",
+                         mu=0.5, mix_mode="sparse")
+    masks = list(rng.random((6, n)) < 0.2)
+    Theta0 = rng.normal(size=(n, p))
+    single = AsyncEngine(CDUpdate(obj), slot_wakes=64.0, device=dev)
+    sharded = ShardedAsyncEngine(CDUpdate(obj), num_shards=4, relabel="rcm", slot_wakes=64.0,
+                                 device=dev)
+    assert single.fused and sharded.fused
+    a, b = single.init_state(Theta0), sharded.init_state(Theta0)
+    assert row_plan(1, p, (b.slab,)).vec == (p % 4 == 0)
+    for mask in masks:
+        a, b = single.step(a, mask), sharded.step(b, mask)
+    _close(torch.as_tensor(sharded.global_theta(b)), a.Theta.cpu(), tol=2e-5)

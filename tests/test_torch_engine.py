@@ -30,7 +30,9 @@ from repro_torch.sim import (
     ChurnConfig,
     DelayConfig,
     EngineConfig,
+    ExchangeSpec,
     Scenario,
+    ShardedAsyncEngine,
     StragglerConfig,
     make_engine,
 )
@@ -346,13 +348,19 @@ def test_config_overrides_and_later_slices(small):
         AsyncEngine(CDUpdate(port), device="cpu", slotwakes=3.0)
     with pytest.raises(ValueError, match="fused"):
         EngineConfig(fused="yes", device="cpu")
-    for field, value, item in [("graph_update", object(), "A11"),
-                               ("exchange", "p2p", "A9"), ("partition", object(), "A9"),
-                               ("devices", [0], "A9")]:
-        with pytest.raises(NotImplementedError, match=item):
-            EngineConfig(device="cpu", **{field: value})
-    with pytest.raises(NotImplementedError, match="A9"):
-        make_engine(CDUpdate(port), device="cpu", shards=2)
+    with pytest.raises(NotImplementedError, match="A11"):
+        EngineConfig(device="cpu", graph_update=object())
+    # The sharded engine's fields (A9) are live: the exchange and a
+    # prebuilt partition are accepted, and make_engine(shards=) builds it.
+    sharded = make_engine(CDUpdate(port), device="cpu", shards=2, slot_wakes=8.0,
+                          exchange=ExchangeSpec(method="p2p"), devices=["cpu"])
+    assert isinstance(sharded, ShardedAsyncEngine) and sharded.num_shards == 2
+    assert sharded.exchange_method == "p2p"
+    again = make_engine(CDUpdate(port), cfg.replace(partition=sharded.part), shards=2)
+    assert again.part is sharded.part
+    # Shards across several devices are A9b.
+    with pytest.raises(NotImplementedError, match="A9b"):
+        EngineConfig(device="cpu", devices=["cpu", "cuda:1"])
     with pytest.raises(NotImplementedError, match="A11"):
         Scenario(arrival=object())
     port_fields = {f.name for f in dataclasses.fields(EngineConfig)}

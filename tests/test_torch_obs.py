@@ -68,7 +68,7 @@ def test_metrics_spec_coerce_matches_reference():
 
 def test_leaves_follow_the_engine_context():
     acc = MetricsAccumulator(MetricsSpec(), 10, churn=True, straggler=True, dp_limit=3)
-    m = acc.init()
+    m = acc.init("cpu")
     want = {"wakes_realized", "wakes_capacity_dropped", "wakes_applied", "wakes_thinned",
             "churn_departures", "churn_rejoins", "dp_updates_applied", "dp_budget_stopped",
             "staleness_hist", "last_wake"}
@@ -78,7 +78,7 @@ def test_leaves_follow_the_engine_context():
     assert set(jm) == want
     assert acc.leaf_kinds()["last_wake"] == "per_agent"
     assert set(MetricsAccumulator(MetricsSpec(staleness=False, privacy=False), 10,
-                                  dp_limit=3).init()) == {
+                                  dp_limit=3).init("cpu")) == {
         "wakes_realized", "wakes_capacity_dropped", "wakes_applied"}
 
 
