@@ -72,6 +72,22 @@ Phases, one line each (any failure ends the run with a non-zero code):
    200 DP aggregation rounds of (256, 4096) per-example gradients through
    ``ops.dp_clip_noise``, the path by which the kernel is reached (no engine
    path calls it, as in the JAX package);
+4d. dynamic topology on the same problem, uncut and unfused by the rule:
+   ``GraphUpdate(every=400, k=10, candidates=4, gamma=4.0)`` (the refresh
+   of ``benchmarks/bench_dynamic_topology.py``: one interior refresh in 800
+   slots) and 1,000 arrivals at slots 100 and 500 from a seeded draw
+   (``attach_k=4``, a 2-round Eq. 16 warm start), in three legs of 800
+   slots through the segment driver ``_drive_dynamic``: ``dynamic``
+   (captured), ``dynamic_eager`` (a second engine, eager) and
+   ``sharded_dynamic`` (S = 8 stacked, RCM, degree blocks), taking turns
+   in windows of 100 slots that the events bound. Per leg: the window
+   rates (topology calls and captures timed apart, synchronized), the
+   host seconds of each refresh and admission with the ``set_topology``
+   inside it (its tier, the cut's drift, the capacity after it), the
+   captures and recaptures, the topology log, and 16 traced slots. The
+   dynamic slot gathers with the reference's einsum: no kernel of ours,
+   checked to launch none; ``dynamic`` must equal ``dynamic_eager`` bit
+   for bit, topology logs included;
 5. parity: the captured chunk against the eager slots, bit for bit: 37
    slots (2 chunk replays, 4 one-slot replays) of each engine leg at
    ``rgg500k_p100`` (fresh states, copied into the engines' live buffers)
@@ -86,7 +102,12 @@ Phases, one line each (any failure ends the run with a non-zero code):
    ``DPCDUpdate.apply_rows`` on the card vs the CPU with injected draws;
    ``run_private`` and ``private_warm_start`` at the Fig. 2 size (n = 100,
    p = 100, logistic, clip 1.0, eps 0.55, T = 1000) on the card vs the CPU,
-   with injected draws;
+   with injected draws; dynamic topology at n = 512: a dynamic engine whose
+   refresh never fires vs the static unfused one, captured == eager across
+   a refresh within capacity (no recapture), a capacity-growing swap (one),
+   an admission and, sharded at S = 4, a weight-only patch, a structural
+   patch and a forced repartition, and the card vs the CPU with explicit
+   refreshes and admissions;
 6. zamba2-1.2b serving at its full width and depth (38 layers, d_model
    2048, bfloat16, random weights from a seeded generator on the card):
    4 prompts of 2048 tokens through ``bundle.prefill`` (a warm-up, then 5
@@ -114,7 +135,9 @@ Phases, one line each (any failure ends the run with a non-zero code):
    models in every Fig. 2c row, the warm start's private run must end
    below the constant init's, personalized must beat global, and every
    private accuracy must be finite and in [0, 1]. These benches launch
-   none of the kernels;
+   none of the kernels. Last, ``repro_torch.bench.dynamic_topology`` at
+   n = 200,000 (host-side: patch against rebuild, the drift), which must
+   hold its halo parity;
 8. a JSON line of every ported kernel (launches, error, times, bound),
    then the last line ``{"ok": true, "device": {...}}``.
 """
@@ -123,6 +146,7 @@ from __future__ import annotations
 
 import bisect
 import dataclasses
+import gc
 import json
 import math
 import statistics
@@ -893,6 +917,262 @@ def dp_clip_noise_leg(dev, launches: dict) -> dict:
     return out
 
 
+# The dynamic legs (see PERF.md, "Cells"): the 500k problem with the
+# refresh parameters of benchmarks/bench_dynamic_topology.py every 400
+# slots (one interior refresh in 800: the end never refreshes) and 1,000
+# arrivals at slots 100 and 500 from a seeded draw.
+DYN_GU = dict(every=400, k=10, candidates=4, gamma=4.0, seed=0)
+DYN_ARRIVALS = dict(slots=(100, 500), per_slot=1000, attach_k=4, warm_rounds=2, seed=0)
+DYN_SLOTS = 800
+DYN_WINDOW = 100
+DYN_LEGS = ("dynamic", "dynamic_eager", "sharded_dynamic")
+# max |card - CPU| of the n = 512 forced dynamic runs, and of the dynamic
+# slot (einsum) against the static one (sparse_mix): float32 sums in
+# another order.
+DYN_TOL = 1e-5
+
+
+def dynamic_arrivals(csr):
+    """The arrival scenario of the dynamic legs: ``per_slot`` agents at each
+    of ``slots``, drawn without replacement from a numpy generator. A draw
+    ``_detach_edges`` refuses (an established agent left with no
+    neighbour until the arrivals join: the reference's rule) is logged and
+    the next seed taken."""
+    import numpy as np
+
+    from repro_torch.sim import ArrivalConfig
+    from repro_torch.sim.engine import _detach_edges
+
+    a = DYN_ARRIVALS
+    seed = a["seed"]
+    while True:
+        ids = np.random.default_rng(seed).choice(csr.n, a["per_slot"] * len(a["slots"]),
+                                                 replace=False)
+        try:
+            _detach_edges(csr, np.sort(ids))
+        except ValueError as e:
+            log(f"[4d] arrival draw seed {seed} refused by _detach_edges ({e}); next seed")
+            seed += 1
+            continue
+        chunks = np.split(ids, len(a["slots"]))
+        schedule = tuple((s, tuple(int(i) for i in c)) for s, c in zip(a["slots"], chunks))
+        return ArrivalConfig(schedule=schedule, attach_k=a["attach_k"], warm_start=True,
+                             warm_rounds=a["warm_rounds"], seed=seed), seed
+
+
+def dynamic_engines(obj, churn, dev) -> dict:
+    """The three dynamic legs on the 500k problem (churn as the other legs):
+    ``dynamic`` (captured) and ``dynamic_eager`` (the eager slots, a second
+    engine run in turns with it) single-device, unfused by the rule, and
+    ``sharded_dynamic`` (S = 8 stacked, RCM, degree blocks, captured), all
+    with the same refresh and arrivals."""
+    from repro_torch.sim import (AsyncEngine, CDUpdate, GraphUpdate, Scenario,
+                                 ShardedAsyncEngine)
+
+    arrival, seed = dynamic_arrivals(obj.graph)
+    c = MAIN
+    kw = dict(slot_wakes=c["slot_wakes"], seed=c["seed"], device=dev,
+              scenario=Scenario(churn=churn, arrival=arrival),
+              graph_update=GraphUpdate(**DYN_GU))
+    out = {}
+    for label in DYN_LEGS:
+        t0 = time.perf_counter()
+        if label == "sharded_dynamic":
+            eng = ShardedAsyncEngine(CDUpdate(obj), num_shards=SHARDED["num_shards"],
+                                     relabel=SHARDED["relabel"],
+                                     partition_mode=SHARDED["partition_mode"], **kw)
+        else:
+            eng = AsyncEngine(CDUpdate(obj), **kw)
+        eng.setup_seconds = time.perf_counter() - t0
+        out[label] = eng
+    log(f"[4d] set-up dynamic legs: arrival seed {seed}, "
+        f"{len(arrival.all_ids())} arrivals at slots {DYN_ARRIVALS['slots']}, refresh "
+        f"{DYN_GU}; " + " ".join(f"{k}_setup_s={e.setup_seconds:.3f}" for k, e in out.items()))
+    return out
+
+
+def _instrument(eng, calls: list):
+    """Wrap the engine's topology calls (and its graphs' capture) on the
+    instance, so that each call the segment driver makes appends a dict to
+    ``calls``: its name, synchronized host seconds, depth (0: a call of
+    the driver's; 1: inside one, as a refresh's or an admission's
+    ``set_topology``), and for ``set_topology`` the tier it took
+    (``retile`` on the single-device engine), the capacity after it and
+    the cut's drift it measured (a structural swap of the sharded engine)."""
+    import torch
+
+    depth = [0]
+    tiers = ("weight_patches", "structural_patches", "repartitions")
+
+    def wrap(obj, name):
+        orig = getattr(obj, name)
+
+        def timed(*a, **k):
+            if name == "_graph" and a[0] in obj.graphs:
+                return orig(*a, **k)  # a replay of a graph already captured
+            before = dict(eng.topology_log)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            depth[0] += 1
+            try:
+                out = orig(*a, **k)
+            finally:
+                depth[0] -= 1
+            torch.cuda.synchronize()
+            entry = dict(name=name, seconds=time.perf_counter() - t0, depth=depth[0])
+            if name == "set_topology":
+                moved = [t for t in tiers if eng.topology_log[t] > before[t]]
+                entry.update(tier=moved[0] if moved else "retile", capacity=_capacity(eng),
+                             drift=eng.topology_log["last_drift"] if moved[:1] != [
+                                 "weight_patches"] and moved else None)
+            calls.append(entry)
+            return out
+
+        setattr(obj, name, timed)
+
+    for name in ("_refresh_topology", "set_topology", "admit"):
+        wrap(eng, name)
+    if eng._graphs is not None:
+        wrap(eng._graphs, "_graph")
+
+
+def _events(calls: list) -> list:
+    """The driver's calls of ``calls`` (depth 0) in order, each with the
+    ``set_topology`` made inside it: ``(name, seconds, inner)``."""
+    out, inner = [], None
+    for c in calls:
+        if c["depth"] > 0:
+            inner = c
+            continue
+        if c["name"] == "set_topology":
+            inner = c
+        out.append(dict(name=c["name"], seconds=c["seconds"],
+                        **{k: None if inner is None else inner[v] for k, v in (
+                            ("set_topology_s", "seconds"), ("tier", "tier"),
+                            ("capacity", "capacity"), ("drift", "drift"))}))
+        inner = None
+    return out
+
+
+def _capacity(eng) -> dict:
+    """The slot capacity: the single-device tiles' width, or the sharded
+    tiles' width with R and Hmax."""
+    if hasattr(eng, "num_shards"):
+        return dict(K=int(eng.part.tile_width), R=eng.rows_per_shard, Hmax=eng.smix.halo_width,
+                    method=eng.exchange_method)
+    return dict(capacity=int(eng.topo.capacity))
+
+
+def dynamic_legs(engines, launches: dict):
+    """Phase 4, the dynamic legs: ``DYN_SLOTS`` slots of each leg through
+    the reference's segment driver (``_drive_dynamic``, what ``run`` calls:
+    refresh, then admissions, at their absolute slots), in windows that
+    the events bound, the legs taking turns window by window. A window's
+    slot rate leaves out its topology calls and captures (each timed on
+    its own, synchronized). Launch counts are reset before and read after
+    every window: the dynamic slot launches none of the kernels (the
+    reference's einsum gather). Fails unless ``dynamic`` equals
+    ``dynamic_eager`` bit for bit (every state tensor, the topology logs,
+    the counters), every leg admitted both batches and refreshed once, and
+    Theta stays finite. Returns the legs' numbers and their states."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.sim.engine import _drive_dynamic
+
+    every = DYN_GU["every"]
+    events = sorted({s - 1 for s in DYN_ARRIVALS["slots"]} | set(range(every, DYN_SLOTS, every)))
+    cuts = {0, DYN_SLOTS} | set(events)
+    for a, b in zip([0] + events, events + [DYN_SLOTS]):
+        cuts.update(range(a + DYN_WINDOW, b, DYN_WINDOW))
+    bounds = sorted(cuts)
+    legs = {}
+    for label in DYN_LEGS:
+        eng = engines[label]
+        run = eng._eager_slots if label.endswith("_eager") else eng.advance
+        calls: list = []
+        _instrument(eng, calls)
+        state = eng.init_state(np.zeros((eng.n, eng.p), dtype=np.float32))
+        legs[label] = dict(eng=eng, run=run, calls=calls, state=state,
+                           q0=eng._objective_value(state), before=_capacity(eng),
+                           windows=[], counts={})
+    for a, b in zip(bounds[:-1], bounds[1:]):
+        for label, leg in legs.items():
+            eng, calls = leg["eng"], leg["calls"]
+            seen = len(calls)
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            leg["state"] = _drive_dynamic(eng, leg["state"], b - a, [], leg["run"])
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = ops.launch_counts()
+            for k, v in counts.items():
+                leg["counts"][k] = leg["counts"].get(k, 0) + v
+                launches[k] = launches.get(k, 0) + v
+            aside = sum(c["seconds"] for c in calls[seen:] if c["depth"] == 0)
+            leg["windows"].append(dict(start=a, slots=b - a, slot_seconds=secs - aside))
+    out, states = {}, {}
+    for label, leg in legs.items():
+        eng, state = leg["eng"], leg["state"]
+        timed = [w for w in leg["windows"] if w["slots"] >= DYN_WINDOW - 1 and w["start"] > 0]
+        rate = spread([w["slots"] / w["slot_seconds"] for w in timed])
+        calls = leg["calls"]
+        log_ = eng.topology_counters()
+        g = getattr(eng, "_graphs", None)
+        events = _events(calls)
+        row = dict(slots_per_s=rate["median"], slots_per_s_min=rate["min"],
+                   slots_per_s_max=rate["max"], ms_per_slot=1e3 / rate["median"],
+                   windows=len(timed), window_slots=DYN_WINDOW,
+                   window_rates=[w["slots"] / w["slot_seconds"] for w in leg["windows"]],
+                   events=[e for e in events if e["name"] != "_graph"],
+                   capture_s=[e["seconds"] for e in events if e["name"] == "_graph"],
+                   recaptures=None if g is None else g.recaptures,
+                   capacity_before=leg["before"], capacity_after=_capacity(eng),
+                   topology=log_, slots=eng._ptr_of(state), applied=int(state.applied.sum()),
+                   finite=bool(torch.isfinite(state.Theta).all()), Q0=leg["q0"],
+                   Q=eng._objective_value(state), launches=leg["counts"],
+                   setup_s=eng.setup_seconds)
+        out[label] = row
+        states[label] = state
+        scalars = {k: v for k, v in row.items() if not isinstance(v, (list, dict))}
+        log(f"[4d] rgg500k_p100 {label}: {fmt(scalars)} capacity {leg['before']} -> "
+            f"{row['capacity_after']} topology={log_} launches={leg['counts']}")
+        log(f"[4d]   window slots/s (slots {bounds}): "
+            f"{' '.join(f'{r:.5g}' for r in row['window_rates'])}; captures (s): "
+            f"{' '.join(f'{c:.4f}' for c in row['capture_s'])}")
+        for e in row["events"]:
+            log(f"[4d]   {e['name']}: {e['seconds']:.4f} s, of which set_topology "
+                f"{e['set_topology_s'] if e['set_topology_s'] is None else round(e['set_topology_s'], 4)} s "
+                f"({e['tier']}, drift {e['drift']}, capacity after {e['capacity']})")
+        if not row["finite"]:
+            raise SystemExit(f"{label} leg: Theta is not finite")
+        if any(leg["counts"].values()):
+            raise SystemExit(f"{label} leg: launched kernels its path has none of "
+                             f"({leg['counts']})")
+        if log_["edge_refreshes"] != 1 or log_["arrivals"] != DYN_ARRIVALS["per_slot"] * len(
+                DYN_ARRIVALS["slots"]) or row["slots"] != DYN_SLOTS:
+            raise SystemExit(f"{label} leg: expected one refresh and every arrival over "
+                             f"{DYN_SLOTS} slots, got {log_} after {row['slots']} slots")
+        if not bool(state.active.sum() > 0):
+            raise SystemExit(f"{label} leg: no agent active")
+    a, b = legs["dynamic"], legs["dynamic_eager"]
+    la, lb = _state_leaves(a["state"]), _state_leaves(b["state"])
+    differ = [k for k in la if not torch.equal(la[k], lb[k])]
+    if differ or a["eng"].topology_counters() != b["eng"].topology_counters():
+        raise SystemExit(f"dynamic != dynamic_eager: tensors {differ}, topology "
+                         f"{a['eng'].topology_counters()} vs {b['eng'].topology_counters()}")
+    ratios = [x / y for x, y in zip(out["dynamic"]["window_rates"],
+                                    out["dynamic_eager"]["window_rates"])]
+    out["dynamic_over_dynamic_eager"] = dict(spread(ratios), windows=ratios)
+    out["dynamic_equals_eager"] = dict(tensors=len(la), differ=0)
+    log(f"[4d] dynamic == dynamic_eager bit for bit after {DYN_SLOTS} slots ({len(la)} tensors, "
+        f"equal topology logs); captured/eager slots/s by window: "
+        f"{' '.join(f'{r:.4g}' for r in ratios)}")
+    return out, states
+
+
 def _state_leaves(state) -> dict:
     """Every tensor of an engine state (a ``SimState`` or a
     ``ShardedSimState``: ``slab`` and ``ef`` included), the metrics by
@@ -1067,6 +1347,192 @@ def sharded_parity(dev) -> dict:
     if bad:
         raise SystemExit(f"sharded parity failed: {bad}")
     return errs
+
+
+def _knn512(n=512, seed=1):
+    """The n = 512 problem of the small engines: k-NN k = 8, p = 4, m = 3,
+    quadratic, mu = 0.5."""
+    import numpy as np
+
+    from repro_torch.core import AgentData, knn_graph, make_objective
+
+    rng = np.random.default_rng(seed)
+    p, m = 4, 3
+    graph = knn_graph(rng.normal(size=(n, 8)), k=8)
+    X = rng.normal(size=(n, m, p)) / np.sqrt(p)
+    y = np.einsum("nmp,np->nm", X, rng.normal(size=(n, p)) / np.sqrt(p))
+    return make_objective(graph, AgentData(X=X, y=y, mask=np.ones((n, m))), "quadratic",
+                          mu=0.5, mix_mode="sparse")
+
+
+# Arrivals of the n = 512 dynamic engines, scheduled past any run: the
+# parity drives admit itself.
+DYN_SMALL_IDS = tuple(range(500, 508))
+
+
+def _dyn_small(obj, dev, sharded=False, **kw):
+    """A dynamic engine at n = 512 with churn, stragglers, pending arrivals
+    and a refresh that the parity fires itself."""
+    from repro_torch.sim import (ArrivalConfig, AsyncEngine, CDUpdate, ChurnConfig, GraphUpdate,
+                                 Scenario, ShardedAsyncEngine, StragglerConfig)
+
+    scenario = Scenario(churn=ChurnConfig(leave_prob=0.05, rejoin_prob=0.3),
+                        straggler=StragglerConfig(drop_prob=0.2),
+                        arrival=ArrivalConfig(schedule=((10**6, DYN_SMALL_IDS),), attach_k=4,
+                                              seed=3))
+    cfg = dict(slot_wakes=64.0, seed=2, device=dev, scenario=scenario,
+               graph_update=GraphUpdate(every=10**6, k=3, candidates=4, gamma=2.0, seed=1))
+    cfg.update(kw)
+    if sharded:
+        return ShardedAsyncEngine(CDUpdate(obj), num_shards=4, relabel="rcm", **cfg)
+    return AsyncEngine(CDUpdate(obj), **cfg)
+
+
+def _hub(csr, agent=1, count=60):
+    """``csr`` with ``agent`` joined to ``count`` more agents (none pending):
+    a swap that grows the slot capacity."""
+    import numpy as np
+
+    from repro_torch.core.graph import csr_from_coo
+
+    others = np.array([j for j in range(csr.n) if j != agent and j not in DYN_SMALL_IDS][:count])
+    return csr_from_coo(csr.n, np.concatenate([csr.row_ids(), np.full(len(others), agent)]),
+                        np.concatenate([csr.indices, others]),
+                        np.concatenate([csr.data, np.ones(len(others))]), symmetrize=True)
+
+
+def _swap_parity(label, make, swaps, slots=CAPTURE_PARITY_SLOTS) -> dict:
+    """Two engines from ``make()``, one advanced through the captured chunk
+    and one through the eager slots, ``slots`` slots before and after each
+    swap of ``swaps`` (``(name, fn(engine, state) -> state)``), applied to
+    both: every state tensor and the topology logs must be equal after
+    each. Returns per swap the recaptures it caused and the capacity."""
+    import numpy as np
+    import torch
+
+    cap, eag = make(), make()
+    zeros = np.zeros((cap.n, cap.p), dtype=np.float32)
+    sc = cap.advance(cap.init_state(zeros), slots)
+    se = eag._eager_slots(eag.init_state(zeros), slots)
+    out = {}
+    for name, fn in swaps:
+        rec0, before = cap._graphs.recaptures, _capacity(cap)
+        sc, se = fn(cap, sc), fn(eag, se)
+        sc, se = cap.advance(sc, slots), eag._eager_slots(se, slots)
+        a, b = _state_leaves(sc), _state_leaves(se)
+        differ = [k for k in a if not torch.equal(a[k], b[k])]
+        if differ or cap.topology_counters() != eag.topology_counters():
+            raise SystemExit(f"dynamic capture parity {label} {name}: captured != eager in "
+                             f"{differ} or topology {cap.topology_counters()} vs "
+                             f"{eag.topology_counters()}")
+        out[name] = dict(recaptures=cap._graphs.recaptures - rec0, before=before,
+                         after=_capacity(cap), tensors=len(a),
+                         applied=int(sc.applied.sum()), topology=cap.topology_counters())
+    return out
+
+
+def dynamic_parity(dev) -> dict:
+    """Phase 5, dynamic topology at n = 512 on the card: (a) a dynamic
+    engine whose refresh never fires against the static unfused engine
+    under forced wakes (einsum against ``sparse_mix``: within
+    ``DYN_TOL``); (b) captured == eager bit for bit across each kind of
+    swap — single-device: a refresh within the slot capacity (no
+    recapture), a swap that grows it (one recapture), an admission;
+    sharded at S = 4: a weight-only patch, a structural patch, and a
+    repartition forced with ``drift_threshold=-10``; (c) forced runs with
+    explicit refreshes and admissions on the card against the same run on
+    the CPU (within ``DYN_TOL``, the same graphs)."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.sim import AsyncEngine, CDUpdate, GraphUpdate
+
+    obj = _knn512()
+    n = obj.n
+    rng = np.random.default_rng(4)
+    masks = [rng.random(n) < 0.25 for _ in range(20)]
+    Theta0 = rng.normal(size=(n, obj.p))
+    errs, out = {}, {}
+
+    def forced(eng, events=()):
+        state = eng.init_state(Theta0)
+        for k, mask in enumerate(masks):
+            state = eng.step(state, mask)
+            for at, fn in events:
+                if k == at:
+                    state = fn(eng, state)
+        theta = eng.global_theta(state) if hasattr(eng, "num_shards") else \
+            state.Theta.to("cpu").numpy()
+        return eng, theta
+
+    ops.reset_launch_counts()
+    _, static = forced(AsyncEngine(CDUpdate(obj), slot_wakes=64.0, fused=False, device=dev))
+    static_counts = ops.launch_counts()
+    ops.reset_launch_counts()
+    _, dynamic = forced(AsyncEngine(CDUpdate(obj), slot_wakes=64.0, device=dev,
+                                    graph_update=GraphUpdate(every=10**9)))
+    dyn_counts = ops.launch_counts()
+    errs["dynamic_no_refresh_vs_static"] = float(np.abs(dynamic - static).max())
+    if static_counts["sparse_mix"] != len(masks) or any(dyn_counts.values()):
+        raise SystemExit(f"dynamic parity: static {static_counts}, dynamic {dyn_counts} launches")
+
+    def refresh(e, s):
+        return e._refresh_topology(s, 1)
+
+    def admit(e, s):
+        return e.admit(s, DYN_SMALL_IDS)
+
+    def grow(e, s):
+        e.set_topology(_hub(e._csr))
+        return s
+
+    def reweight(e, s):
+        c = e._csr
+        return e.set_topology(s, type(c)(indptr=c.indptr, indices=c.indices, data=c.data * 1.5))
+
+    single = _swap_parity("n=512", lambda: _dyn_small(obj, dev),
+                          [("refresh", refresh), ("grow", grow), ("admit", admit)])
+    sharded = _swap_parity("n=512 S=4", lambda: _dyn_small(obj, dev, sharded=True,
+                                                             drift_threshold=10.0),
+                           [("weight_patch", reweight), ("structural_patch", refresh),
+                            ("admit", admit)])
+    sharded.update(_swap_parity("n=512 S=4 repartition",
+                                lambda: _dyn_small(obj, dev, sharded=True, drift_threshold=-10.0),
+                                [("repartition", refresh)]))
+    fails = []
+    if single["refresh"]["recaptures"] != 0 or single["refresh"]["before"] != \
+            single["refresh"]["after"]:
+        fails.append(f"a refresh within capacity recaptured or grew it: {single['refresh']}")
+    if single["grow"]["recaptures"] != 1 or not single["grow"]["after"]["capacity"] > \
+            single["grow"]["before"]["capacity"]:
+        fails.append(f"a capacity-growing swap did not recapture once: {single['grow']}")
+    tiers = sharded["repartition"]["topology"]
+    if (sharded["weight_patch"]["topology"]["weight_patches"] != 1
+            or sharded["structural_patch"]["topology"]["structural_patches"] != 1
+            or tiers["repartitions"] != 1):
+        fails.append(f"the sharded swaps did not take their tiers: {sharded}")
+    for label, sh in (("single", False), ("sharded", True)):
+        events = [(6, refresh), (12, admit)]
+        card_eng, card = forced(_dyn_small(obj, dev, sharded=sh), events)
+        cpu_eng, cpu = forced(_dyn_small(obj, "cpu", sharded=sh), events)
+        errs[f"{label}_card_vs_cpu"] = float(np.abs(card - cpu).max())
+        a, b = card_eng.topology_counters(), cpu_eng.topology_counters()
+        # last_drift is a ratio of the refreshed weights, exp(-d2 / gamma) of
+        # float32 models whose last bits differ between the devices.
+        drift = abs(a.pop("last_drift") - b.pop("last_drift"))
+        if not (np.array_equal(card_eng._csr.indices, cpu_eng._csr.indices) and a == b
+                and drift <= 1e-6):
+            fails.append(f"{label}: the card's graph or log differs from the CPU's")
+    fails += [f"{k}={v:.3e} above {DYN_TOL}" for k, v in errs.items() if not v <= DYN_TOL]
+    out = dict(errors=errs, single=single, sharded=sharded)
+    log("[5] dynamic parity at n=512: " + " ".join(f"{k}={v:.3e}" for k, v in errs.items())
+        + f" (tol {DYN_TOL:.0e}); captured == eager across swaps: "
+        + " ".join(f"{kind}_{k}(recaptures {v['recaptures']}, {v['before']} -> {v['after']})"
+                   for kind, swaps in (("single", single), ("sharded", sharded))
+                   for k, v in swaps.items()))
+    if fails:
+        raise SystemExit(f"dynamic parity failed: {fails}")
+    return out
 
 
 def parity(dev) -> dict:
@@ -1518,6 +1984,21 @@ def privacy_benches(dev):
     return {"fig2_privacy_utility": fig2, "ablations": abl}, fails
 
 
+def dynamic_bench() -> dict:
+    """Phase 7, ``repro_torch.bench.dynamic_topology`` at its default size
+    (n = 200,000 RGG of degree about 10, S = 8, degree blocks, RCM, one
+    refresh): host-side partition machinery, as in the reference. Fails
+    unless the halo parity held (``dyntopo_halo_parity`` == 1)."""
+    from repro_torch.bench import dynamic_topology
+
+    rows = {name: v for name, v, _ in dynamic_topology.run(verbose=False)}
+    log("[7] dynamic_topology (n=200000, S=8; host seconds): " + fmt(rows)
+        + f"; patch_speedup={rows['dyntopo_patch_speedup']:.4g}")
+    if rows["dyntopo_halo_parity"] != 1.0:
+        raise SystemExit(f"dynamic_topology bench: halo parity {rows['dyntopo_halo_parity']}")
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -1640,6 +2121,21 @@ def main() -> int:
     budget_check(engines, states, main_path)
     sharded_metrics_check(engines, states, main_path)
     main_path["dp_clip_noise"] = dp_clip_noise_leg(dev, launches)
+
+    # [4d] dynamic topology: a refresh and two admissions in 800 slots of
+    # each dynamic leg, then 16 traced slots of each
+    dyn_engines = dynamic_engines(obj, scenario.churn, dev)
+    dyn, dyn_states = dynamic_legs(dyn_engines, launches)
+    for label in DYN_LEGS:
+        eng = dyn_engines[label]
+        run = eng._eager_slots if label.endswith("_eager") else eng.advance
+        dyn_states[label], dyn[label]["trace"] = profile_slots(
+            f"rgg500k_p100 {label}", run, dyn_states[label], PROFILE_SLOTS,
+            _build.build_dir() / "traces", dyn[label]["ms_per_slot"])
+    main_path["dynamic"] = dyn
+    del dyn_engines, dyn_states
+    gc.collect()  # the instrumented engines hold reference cycles
+    torch.cuda.empty_cache()
     missing = [k for k in _build.KERNELS if k not in PATH_KERNEL.values()]
     if missing:
         raise SystemExit(f"no path of phase 4 launches {missing}")
@@ -1655,13 +2151,15 @@ def main() -> int:
     main_path["capture_parity"] = capture
     parity(dev)
     main_path["sharded_parity"] = sharded_parity(dev)
+    main_path["dynamic_parity"] = dynamic_parity(dev)
 
     # [6] zamba2-1.2b serving: the prefill's counts are reset before each
     # prefill and read after it
     serve = zamba2_serve(dev, launches)
 
-    # [7] the paper benches on the card
+    # [7] the paper benches on the card, and the dynamic-topology bench
     benches = paper_benches(dev)
+    benches["dynamic_topology"] = dynamic_bench()
 
     # [8] the kernel table and the result
     src = {"sparse_mix": "src/repro/kernels/sparse_mix.py:60",

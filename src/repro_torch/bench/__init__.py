@@ -5,7 +5,9 @@ Each runs as ``python -m repro_torch.bench.<name> [--device D] [--fast]
 package's ``benchmarks/``: ``cd_vs_admm`` (Fig. 1), ``movielens``
 (Table 1), ``privacy_utility`` (Figs. 2a/b, 2c, 3 and 4) and
 ``ablations`` (noise allocation, mechanism, personalization), each row
-with the reference's ``derived`` string. A run merges its row, under the
+with the reference's ``derived`` string; ``dynamic_topology`` (patch
+against rebuild after a Dada refresh, the reference's ``dyntopo_*``
+rows) takes no device. A run merges its row, under the
 bench's name, into the JSON file ``--out`` (default
 ``results/BENCH_torch_summary.json`` at the repository root), so the
 runners share one summary.

@@ -21,6 +21,10 @@ build the port's, or give the port's back as numpy:
   device ``metrics``), its halo rows zero (the next slot's exchange fills
   them); the per-shard keys are not carried, the generator starts from
   ``seed``;
+* :func:`topology_state_from_numpy` — a
+  :class:`~repro_torch.core.graph.TopologyState` of tensors from a
+  reference ``TopologyState``'s arrays (the live topology of a dynamic
+  engine);
 * :func:`load_reference_params` — a model parameter tree (nested dicts of
   arrays) into an ``nn.Module`` whose ``state_dict`` names follow it;
 * :func:`hybrid_params_from_reference` — the zamba2 hybrid's
@@ -33,7 +37,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.dp_cd import DPConfig
-from repro_torch.core.graph import AgentGraph, CSRGraph
+from repro_torch.core.graph import AgentGraph, CSRGraph, TopologyState
 from repro_torch.core.objective import AgentData, Objective, make_objective
 from repro_torch.device import resolve_device
 from repro_torch.models.hybrid import HybridLM
@@ -282,3 +286,21 @@ def hybrid_params_from_reference(tree, cfg, device="cuda"):
     """The reference hybrid's ``init_params(key, cfg)`` tree (its leaves as
     numpy, the ``layers`` axis stacked) -> a :class:`HybridLM` on ``device``."""
     return load_reference_params(HybridLM(cfg, device=device), tree, stacked=("layers",))
+
+
+def topology_state_from_numpy(nbr, w, valid, version, *, device="cuda") -> TopologyState:
+    """A :class:`TopologyState` of tensors on ``device`` from the arrays of a
+    reference ``TopologyState`` (``nbr`` (n, capacity) int32, ``w`` float,
+    ``valid`` bool, ``version`` 0-d int32), copied."""
+    dev = resolve_device(device)
+    nbr, w, valid = (np.array(a, copy=True) for a in (nbr, w, valid))
+    if not (nbr.ndim == 2 and nbr.shape == w.shape == valid.shape):
+        raise ValueError(f"nbr, w and valid must share one (n, capacity) shape, got "
+                         f"{nbr.shape}, {w.shape}, {valid.shape}")
+
+    def t(a, dt):
+        return torch.as_tensor(a).to(device=dev, dtype=dt)
+
+    return TopologyState(nbr=t(nbr, torch.int32), w=t(w, torch.as_tensor(w).dtype),
+                         valid=t(valid, torch.bool),
+                         version=t(np.asarray(version, dtype=np.int32), torch.int32))

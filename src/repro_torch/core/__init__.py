@@ -4,6 +4,7 @@
 from repro_torch.core.graph import (
     AgentGraph,
     CSRGraph,
+    TopologyState,
     angular_similarity_graph,
     as_csr,
     as_dense,

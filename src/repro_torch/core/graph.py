@@ -1,10 +1,11 @@
 """Agent graphs for peer-to-peer personalized learning (numpy, host side).
 
-The port's own copy of ``repro.core.graph`` without the jit-side
-``TopologyState`` (dynamic topology comes with a later slice). Graph
-construction is host work in both packages, so the arrays here are
-bit-equal to the reference's under the same numpy seed
-(``tests/test_torch_graph.py``).
+The port's own copy of ``repro.core.graph``. Graph construction is host
+work in both packages, so the arrays here are bit-equal to the
+reference's under the same numpy seed (``tests/test_torch_graph.py``);
+:class:`TopologyState`, the mutable slot form of a live graph, keeps its
+host builders in numpy and its three in-graph edge mutators in torch
+(``tests/test_torch_dynamic_topology.py``).
 
 The paper (Sec. 2.1) models the collaboration network as a weighted
 connected graph G = ([n], E, W) whose weights encode task relatedness:
@@ -33,6 +34,7 @@ import hashlib
 import os
 
 import numpy as np
+import torch
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -417,6 +419,196 @@ def csr_from_coo(
     indptr = np.zeros(n + 1, dtype=np.int64)
     np.cumsum(np.bincount(rows, minlength=n), out=indptr[1:])
     return CSRGraph(indptr=indptr, indices=cols.astype(np.int32), data=vals)
+
+
+# ---------------------------------------------------------------------------
+# Mutable, versioned topology (capacity-padded slot form)
+# ---------------------------------------------------------------------------
+
+
+def _host(a) -> np.ndarray:
+    """A numpy array or a tensor (on any device) as a host numpy array."""
+    return a.to("cpu").numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class TopologyState:
+    """Mutable, versioned topology backing a :class:`CSRGraph`.
+
+    Each row holds ``capacity`` neighbour *slots*: ``nbr[i, s]`` is the
+    neighbour id (the row's own index where the slot is free, so a gather
+    at it stays in range), ``w[i, s]`` its weight (0 where invalid) and
+    ``valid[i, s]`` whether the slot holds a live edge; ``version`` is a
+    0-d int32 counter bumped by every mutation.
+
+    The host builders (:meth:`from_csr`, :meth:`apply_edge_updates`) give
+    numpy arrays, as the reference's do; the three in-graph mutators
+    (:meth:`with_edge_weights`, :meth:`deactivate_edges`,
+    :meth:`activate_edges`) are torch functions on the state's device that
+    keep the (n, capacity) shape and return a new state of tensors.
+    Symmetry holds by construction: each mutator applies every (i, j) pair
+    in both directions. A row must not repeat within one
+    :meth:`activate_edges` batch (two activations racing for one free slot
+    collide; which one lands is undefined, as in the reference); the host
+    path has no such restriction.
+    """
+
+    nbr: np.ndarray | torch.Tensor  # (n, capacity) int32, own index where invalid
+    w: np.ndarray | torch.Tensor  # (n, capacity) float, 0 where invalid
+    valid: np.ndarray | torch.Tensor  # (n, capacity) bool
+    version: np.ndarray | torch.Tensor  # () int32
+
+    @property
+    def n(self) -> int:
+        return self.nbr.shape[0]
+
+    @property
+    def capacity(self) -> int:
+        return self.nbr.shape[1]
+
+    @classmethod
+    def from_csr(cls, csr: CSRGraph, capacity: int | None = None, slack: int = 0,
+                 version: int = 0) -> "TopologyState":
+        """Slot form of ``csr`` (numpy); ``capacity`` defaults to max degree + slack."""
+        need = max(csr.max_degree(), 1)
+        if capacity is None:
+            capacity = need + max(slack, 0)
+        if capacity < need:
+            raise ValueError(f"capacity={capacity} < max degree {need}")
+        idx, w = csr.padded_neighbors(pad_to=capacity)
+        deg = np.diff(csr.indptr)
+        valid = np.arange(capacity)[None, :] < deg[:, None]
+        return cls(nbr=idx, w=w, valid=valid, version=np.asarray(version, dtype=np.int32))
+
+    def to_csr(self) -> CSRGraph:
+        """Host-side CSR snapshot of the live edge set."""
+        nbr, w, valid = _host(self.nbr), _host(self.w), _host(self.valid)
+        r, s = np.nonzero(valid)
+        return csr_from_coo(self.n, r, nbr[r, s], w[r, s], symmetrize=True)
+
+    def degrees(self):
+        """Weighted degrees D_ii = sum_j W_ij (w is 0 at invalid slots)."""
+        return self.w.sum(axis=1)
+
+    def neighbor_counts(self):
+        """|N_i| per row — live slots only."""
+        return self.valid.sum(axis=1)
+
+    # -- in-graph mutators (torch) -------------------------------------------
+    def _tensors(self):
+        nbr = torch.as_tensor(self.nbr)
+        dev = nbr.device
+        return (nbr, torch.as_tensor(self.w).to(dev), torch.as_tensor(self.valid).to(dev),
+                torch.as_tensor(self.version).to(dev))
+
+    def _pairs(self, rows, cols, vals=None):
+        """``rows``/``cols`` (and ``vals`` in the weights' dtype) as tensors
+        on the state's device."""
+        nbr, w, _, _ = self._tensors()
+        r, c = (torch.as_tensor(a).to(device=nbr.device, dtype=torch.long) for a in (rows, cols))
+        if vals is None:
+            return r, c, None
+        return r, c, torch.as_tensor(vals).to(device=nbr.device, dtype=w.dtype).expand(r.shape)
+
+    def _directed(self, rows, cols, fn):
+        """Apply ``fn(nbr, w, valid, rows, cols) -> (nbr, w, valid)`` both
+        ways, on copies, and bump the version."""
+        nbr, w, valid, version = self._tensors()
+        nbr, w, valid = nbr.clone(), w.clone(), valid.clone()
+        nbr, w, valid = fn(nbr, w, valid, rows, cols)
+        nbr, w, valid = fn(nbr, w, valid, cols, rows)
+        return dataclasses.replace(self, nbr=nbr, w=w, valid=valid, version=version + 1)
+
+    @staticmethod
+    def _first(mask):
+        """(first True column, any True) of each row of a (k, capacity) mask."""
+        return torch.argmax(mask.to(torch.int32), dim=1), mask.any(dim=1)
+
+    @staticmethod
+    def _put(a, rows, slot, ok, vals):
+        """``a[rows, slot] = vals`` where ``ok``, in place. The rows that are
+        not ``ok`` are masked out before the write (the reference drops
+        them through an out-of-range sentinel, which a torch scatter
+        refuses)."""
+        a[rows[ok], slot[ok]] = vals[ok] if isinstance(vals, torch.Tensor) else vals
+
+    def with_edge_weights(self, rows, cols, vals) -> "TopologyState":
+        """Set the weights of existing edges (i, j), symmetrically.
+
+        Pairs that are not live edges are ignored (nothing is activated).
+        """
+        rows, cols, vals = self._pairs(rows, cols, vals)
+
+        def set_w(nbr, w, valid, r, c):
+            slot, found = self._first((nbr[r] == c[:, None]) & valid[r])
+            self._put(w, r, slot, found, vals)
+            return nbr, w, valid
+
+        return self._directed(rows, cols, set_w)
+
+    def deactivate_edges(self, rows, cols) -> "TopologyState":
+        """Remove edges (i, j); their slots become free for later activation."""
+        rows, cols, _ = self._pairs(rows, cols)
+
+        def drop(nbr, w, valid, r, c):
+            slot, found = self._first((nbr[r] == c[:, None]) & valid[r])
+            self._put(w, r, slot, found, 0.0)
+            self._put(valid, r, slot, found, False)
+            return nbr, w, valid
+
+        return self._directed(rows, cols, drop)
+
+    def activate_edges(self, rows, cols, vals) -> "TopologyState":
+        """Add (or reweight) edges (i, j) within the row capacity.
+
+        A slot already holding j (live or freed) is reused, else the first
+        free slot is claimed; a row with neither drops the activation
+        (capacity growth is the host's :meth:`apply_edge_updates`). At most
+        one activation per row per call, the mirrored direction included.
+        """
+        rows, cols, vals = self._pairs(rows, cols, vals)
+
+        def add(nbr, w, valid, r, c):
+            slot_hit, found = self._first(nbr[r] == c[:, None])  # a matching slot, even freed
+            slot_free, has_free = self._first(~valid[r])
+            slot = torch.where(found, slot_hit, slot_free)
+            ok = found | has_free
+            self._put(nbr, r, slot, ok, c.to(nbr.dtype))
+            self._put(w, r, slot, ok, vals)
+            self._put(valid, r, slot, ok, True)
+            return nbr, w, valid
+
+        return self._directed(rows, cols, add)
+
+    # -- host structural update (numpy) ---------------------------------------
+    def apply_edge_updates(self, add_rows=(), add_cols=(), add_vals=(), remove_rows=(),
+                           remove_cols=(), slack: int = 0) -> "TopologyState":
+        """Host-side structural update, capacity growth included.
+
+        Removes then adds the given (i, j) pairs (symmetrically, duplicates
+        collapse by max weight) and rebuilds the slot arrays. When the new
+        max degree exceeds the capacity, the capacity grows to the next
+        multiple of 8; it never shrinks. The version advances by one.
+        """
+        nbr, wts, valid = _host(self.nbr), _host(self.w), _host(self.valid)
+        r, s = np.nonzero(valid)
+        rows, cols, vals = r, nbr[r, s], wts[r, s]
+        if len(np.asarray(remove_rows)):
+            rr = np.asarray(remove_rows, dtype=np.int64)
+            rc = np.asarray(remove_cols, dtype=np.int64)
+            drop_keys = np.concatenate([rr * self.n + rc, rc * self.n + rr])
+            keep = ~np.isin(rows * self.n + cols, drop_keys)
+            rows, cols, vals = rows[keep], cols[keep], vals[keep]
+        if len(np.asarray(add_rows)):
+            rows = np.concatenate([rows, np.asarray(add_rows, dtype=np.int64)])
+            cols = np.concatenate([cols, np.asarray(add_cols, dtype=np.int64)])
+            vals = np.concatenate([vals, np.asarray(add_vals, dtype=np.float64)])
+        csr = csr_from_coo(self.n, rows, cols, vals, symmetrize=True, dedupe="max")
+        need = max(csr.max_degree(), 1) + max(slack, 0)
+        capacity = self.capacity
+        if need > capacity:
+            capacity = ((need + 7) // 8) * 8
+        return type(self).from_csr(csr, capacity=capacity, version=int(_host(self.version)) + 1)
 
 
 def neighbor_counts(graph) -> np.ndarray:

@@ -12,9 +12,12 @@ Port of the parts of ``repro.obs`` the engines need:
   drains and phase rows, JSONL round trip in the reference's format) and
   the ``python -m repro_torch.obs.report`` CLI.
 
+The dynamic-topology counters (``TOPOLOGY_COUNTERS``) are host-side:
+both engines keep them in ``topology_counters()`` and add them to a
+dynamic engine's ``metrics_snapshot`` derived dict as ``topology_*``.
 The reference's ``obs.trace`` (spans, Chrome trace export,
-``profile_supertick``) is ROADMAP item A10b; its topology and serving
-counters come with A11 and A13.
+``profile_supertick``) is ROADMAP item A10b; its serving counters come
+with A13.
 """
 
 from repro_torch.obs.metrics import (

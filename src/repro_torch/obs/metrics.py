@@ -308,10 +308,9 @@ class MetricsAccumulator:
         return {k: v.to("cpu", copy=True).numpy() for k, v in m.items() if k != "last_wake"}
 
 
-# Host-side dynamic-topology counters, kept in a plain dict by the sharded
-# engine (``ShardedAsyncEngine.topology_counters``); the reference's layout.
-# Static topology (all that is ported; dynamic topology is ROADMAP A11)
-# leaves them at zero.
+# Host-side dynamic-topology counters, kept in a plain dict by both engines
+# (``topology_counters()``; ``topology_<key>`` in a dynamic engine's derived
+# metrics), in the reference's layout. A static engine leaves them at zero.
 TOPOLOGY_COUNTERS = (
     "edge_refreshes",  # GraphUpdate.refresh rounds fired
     "edges_added",  # undirected edges created across all topology swaps

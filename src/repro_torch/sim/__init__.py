@@ -6,8 +6,9 @@ through the ``LocalUpdate`` protocol: the single-device ``AsyncEngine``
 and the sharded ``ShardedAsyncEngine`` (agent blocks with a halo
 exchange, its S shards stacked on one device), whose chunks of slots
 replay as captured CUDA graphs on the card (:mod:`repro_torch.sim.capture`),
-and the agent-block partitioner (:mod:`repro_torch.sim.partition`). The
-reference's arrivals and dynamic topology are queued in ``ROADMAP.md``.
+and the agent-block partitioner (:mod:`repro_torch.sim.partition`).
+Both engines take dynamic topology: the Dada edge refresh
+(:class:`GraphUpdate`) and agent arrivals (:class:`ArrivalConfig`).
 """
 
 from repro_torch.sim.clocks import (
@@ -34,8 +35,20 @@ from repro_torch.sim.partition import (
     rcm_order,
     sfc_order,
 )
-from repro_torch.sim.scenarios import ChurnConfig, DelayConfig, Scenario, StragglerConfig
-from repro_torch.sim.updates import CDUpdate, DPCDUpdate, LocalUpdate, PropagationUpdate
+from repro_torch.sim.scenarios import (
+    ArrivalConfig,
+    ChurnConfig,
+    DelayConfig,
+    Scenario,
+    StragglerConfig,
+)
+from repro_torch.sim.updates import (
+    CDUpdate,
+    DPCDUpdate,
+    GraphUpdate,
+    LocalUpdate,
+    PropagationUpdate,
+)
 
 __all__ = [
     # engine and configuration
@@ -50,9 +63,11 @@ __all__ = [
     # update rules
     "CDUpdate",
     "DPCDUpdate",
+    "GraphUpdate",
     "LocalUpdate",
     "PropagationUpdate",
     # scenarios
+    "ArrivalConfig",
     "ChurnConfig",
     "DelayConfig",
     "Scenario",

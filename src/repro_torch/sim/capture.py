@@ -38,6 +38,14 @@ What a graph needs, and how the engine gives it:
   counts it added are taken back out and added once per replay, so
   ``ops.launch_counts()`` keeps counting the launches that reached the
   card.
+* **Topology swaps.** A dynamic engine's slot reads device tiles of the
+  live topology. A swap that keeps their shapes copies into them, and the
+  graphs replay on. One that reallocates what the slot reads (a larger
+  neighbour-slot capacity; any swap of the sharded engine, whose state
+  may change shape with it) calls :meth:`ChunkGraphs.reset`: the graphs
+  and the live buffers are dropped, never replayed over freed tensors,
+  and the next ``advance`` adopts the state it is given, runs an eager
+  warm-up slot (it counts) and captures again.
 
 A capture that fails raises; nothing carries on eagerly.
 """
@@ -79,6 +87,19 @@ class ChunkGraphs:
         self.graphs: dict = {}  # slots -> (CUDAGraph, launches per replay)
         self.stream = None  # the capture stream, made with the first warm-up
         self.warm = False
+        self.warmups = 0  # the first capture, then one more per recapture after a reset
+
+    @property
+    def recaptures(self) -> int:
+        """Captures made again after a :meth:`reset` (warm-ups past the first)."""
+        return max(self.warmups - 1, 0)
+
+    def reset(self) -> None:
+        """Drop the captured graphs and the live buffers: the next ``advance``
+        adopts the state it is given, warms up eagerly and captures anew."""
+        self.graphs = {}
+        self.live = None
+        self.warm = False
 
     def bind(self, state):
         """``state`` in the live buffers: adopted as them the first time,
@@ -109,6 +130,7 @@ class ChunkGraphs:
                 state = eng._slot(state, None)
             current.wait_stream(self.stream)
             self.warm = True
+            self.warmups += 1
             slots -= 1
         S = eng.steps_per_chunk
         for steps, replays in ((S, slots // S), (1, slots % S)):

@@ -12,10 +12,9 @@ card.
 The sharded engine's fields (``partition_mode``, ``relabel``,
 ``coords``, ``exchange``, ``partition``, ``devices``) are live; its S
 shards are stacked on ``device``, so ``devices`` may name that one
-device only (several distinct devices are ROADMAP item A9b). The
-reference's fields for the parts not ported yet are kept so that a
-config naming them fails loudly instead of being ignored: setting any of
-them raises ``NotImplementedError`` with its ROADMAP item.
+device only (several distinct devices are ROADMAP item A9b, and raise
+``NotImplementedError`` naming it). ``graph_update`` and
+``drift_threshold`` drive dynamic topology in both engines.
 """
 
 from __future__ import annotations
@@ -28,13 +27,6 @@ import torch
 from repro_torch.core.mixing import ExchangeSpec
 from repro_torch.device import resolve_device
 from repro_torch.sim.scenarios import Scenario
-
-# Field -> (value that means "off", the ROADMAP item that ports it).
-_LATER_FIELDS = {
-    "graph_update": (None, "A11 (dynamic topology)"),
-    "drift_threshold": (0.25, "A11 (dynamic topology)"),
-}
-
 
 def _device_key(device) -> tuple:
     """A device named by ``device`` as (type, index), a CUDA device without
@@ -85,6 +77,15 @@ class EngineConfig:
     * ``devices``: None, or a list naming ``device`` alone: the S shards
       are stacked on one device. More than one distinct device raises
       ``NotImplementedError`` naming ROADMAP item A9b.
+
+    Dynamic topology (both engines; an engine is dynamic when
+    ``graph_update`` is set or the scenario has arrivals):
+
+    * ``graph_update``: a :class:`repro_torch.sim.GraphUpdate` edge
+      refresh fired every ``graph_update.every`` slots (None = static);
+    * ``drift_threshold``: the sharded engine's repartition trigger — a
+      structural swap whose cut-fraction drift exceeds it rebuilds the
+      partition, anything at or below it patches the standing one.
     """
 
     slot_wakes: float = 64.0
@@ -113,13 +114,6 @@ class EngineConfig:
             raise ValueError(f"dtype must be torch.float32 or torch.float64, got {self.dtype!r}")
         if int(self.steps_per_chunk) < 1:
             raise ValueError(f"steps_per_chunk must be >= 1, got {self.steps_per_chunk!r}")
-        for name, (off, item) in _LATER_FIELDS.items():
-            value = getattr(self, name)
-            if (value is not None) if off is None else (value != off):
-                raise NotImplementedError(
-                    f"EngineConfig.{name} belongs to ROADMAP item {item}, "
-                    "which is not ported yet"
-                )
         resolve_device(self.device, "EngineConfig.device")
         if self.devices is not None:
             named = {_device_key(d) for d in self.devices}

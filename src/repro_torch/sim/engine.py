@@ -1,8 +1,9 @@
 """Batched asynchronous simulation engine: Poisson super-ticks on a device.
 
-Port of ``repro.sim.engine``'s static-topology engines: the single-device
+Port of ``repro.sim.engine``'s engines: the single-device
 :class:`AsyncEngine` and the sharded :class:`ShardedAsyncEngine`, whose S
-agent blocks are stacked on one device (see its docstring). The n i.i.d. Poisson clocks are time-slotted by
+agent blocks are stacked on one device (see its docstring), each with
+static or dynamic topology. The n i.i.d. Poisson clocks are time-slotted by
 binomial thinning (:mod:`repro_torch.sim.clocks`): each **super-tick**
 wakes a random subset of agents, computes their updates (Eq. 4, the
 private Eq. 6 or Eq. 16, by the ``LocalUpdate``) from the start-of-slot
@@ -35,6 +36,18 @@ from ``EngineConfig.seed``; they are not the reference's ``jax.random``
 draws, so runs agree with the reference through forced wake sets and in
 distribution, not draw for draw. With ``EngineConfig(metrics=...)`` the
 slot also advances the device counters of :mod:`repro_torch.obs`.
+
+Dynamic topology (``EngineConfig(graph_update=...)`` or a scenario with
+arrivals): the graph becomes mutable state. The live CSR and its slot
+form (:class:`repro_torch.core.graph.TopologyState`) stay on the host;
+``run`` drives the slots through the reference's segment driver
+(:func:`_drive_dynamic`), which applies a :class:`GraphUpdate` refresh and
+the scheduled admissions between chunks, never inside one. The dynamic
+slot gathers with the reference's einsum over capacity-padded neighbour
+tiles held on the device; a swap that keeps their capacity copies into
+them, so the captured chunk stays valid, and one that grows it (or a
+sharded relayout) drops the graphs, which are captured again at the next
+``advance``.
 """
 
 from __future__ import annotations
@@ -46,8 +59,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.core.graph import as_csr, neighbor_counts
+from repro_torch.core.graph import TopologyState, as_csr, csr_from_coo, neighbor_counts
 from repro_torch.core.mixing import sharded_mix_op
+from repro_torch.core.model_propagation import propagation_rows_from
 from repro_torch.device import resolve_device
 from repro_torch.kernels.fused_row_update import MAX_M, MAX_P
 from repro_torch.obs.metrics import ExchangeVolume, MetricsAccumulator, topology_log_init
@@ -171,11 +185,12 @@ def _event_stride(events, default: int) -> int:
 
 def _run_driver(engine, Theta0, slots: int, *, record_every: int = 0, state=None,
                 metrics_every: int = 0, report=None):
-    """The run loop behind ``AsyncEngine.run``: objective recording every
+    """The run loop behind both engines' ``run``: objective recording every
     ``record_every`` slots and metric drains into a
     :class:`repro_torch.obs.RunReport` every ``metrics_every``, as
     ``(every, callback)`` events of :func:`_drive_slots`, chunked at
-    :func:`_event_stride`. Returns ``(state, objective, report)``."""
+    :func:`_event_stride` — or of :func:`_drive_dynamic` for a
+    dynamic-topology engine. Returns ``(state, objective, report)``."""
     _check_recordable(engine.update, record_every)
     if metrics_every > 0 and engine._macc is None:
         raise ValueError(
@@ -196,9 +211,218 @@ def _run_driver(engine, Theta0, slots: int, *, record_every: int = 0, state=None
             report.add_snapshot(engine._ptr_of(s), counters, derived)
 
         events.append((metrics_every, _drain))
-    stride = _event_stride(events, engine.steps_per_chunk)
-    state = _drive_slots(state, slots, stride, engine.advance, events)
+    if engine.dynamic:
+        state = _drive_dynamic(engine, state, slots, events, engine.advance)
+    else:
+        stride = _event_stride(events, engine.steps_per_chunk)
+        state = _drive_slots(state, slots, stride, engine.advance, events)
     return state, objective, report
+
+
+# ---------------------------------------------------------------------------
+# Dynamic-topology host helpers (shared by both engines; the reference's)
+# ---------------------------------------------------------------------------
+
+
+def _csr_triples(csr):
+    """Directed ``(rows, cols, vals)`` triples of a CSR graph."""
+    rows = csr.row_ids().astype(np.int64)
+    return rows, np.asarray(csr.indices, dtype=np.int64), np.asarray(csr.data)
+
+
+def _slot_capacity(csr) -> int:
+    """Neighbour-slot capacity for a live topology: the max degree rounded
+    up to a multiple of 8, so moderate edge churn keeps the tiles' shapes
+    (and the captured chunk) between refreshes."""
+    need = max(1, int(csr.max_degree()))
+    return ((need + 7) // 8) * 8
+
+
+def _edge_delta(old, new) -> tuple[int, int]:
+    """Undirected ``(added, removed)`` edge counts between two CSR graphs.
+
+    A CSR's ``row * n + col`` keys are sorted and unique when its rows
+    hold sorted distinct columns (``csr_from_coo``'s output), and then the
+    set differences skip ``np.unique``, which some numpy builds (2.3) run
+    through a hash table at seconds per 8 M keys; the counts are the same.
+    """
+    ro, co, _ = _csr_triples(old)
+    rn, cn, _ = _csr_triples(new)
+    ko = ro * old.n + co
+    kn = rn * new.n + cn
+    unique = bool(np.all(ko[1:] > ko[:-1]) and np.all(kn[1:] > kn[:-1]))
+    return (int(np.setdiff1d(kn, ko, assume_unique=unique).size) // 2,
+            int(np.setdiff1d(ko, kn, assume_unique=unique).size) // 2)
+
+
+def _check_topology(n: int, new_csr, pending) -> None:
+    """Validate a topology swap: same n, and no agent outside the pending
+    arrival set may end up with zero neighbours (Eq. 4 / Eq. 16 divide by
+    the degree the moment the agent wakes)."""
+    if new_csr.n != n:
+        raise ValueError(f"topology must keep n={n}, got n={new_csr.n}")
+    orphans = np.setdiff1d(np.flatnonzero(np.diff(new_csr.indptr) == 0), sorted(pending))
+    if orphans.size:
+        raise ValueError(
+            f"agents {orphans[:8].tolist()} would have no neighbours "
+            "(Eq. 4 / Eq. 16 divide by the degree)"
+        )
+
+
+def _detach_edges(csr, ids, *, require_connected: bool = True):
+    """Drop every edge incident to ``ids`` (the not-yet-arrived agents).
+
+    With ``require_connected`` (default) every *other* agent must keep at
+    least one neighbour: an established agent whose edges all ran through
+    scheduled arrivals would wake into a division by zero.
+    """
+    rows, cols, vals = _csr_triples(csr)
+    drop = np.isin(rows, ids) | np.isin(cols, ids)
+    out = csr_from_coo(csr.n, rows[~drop], cols[~drop], vals[~drop], symmetrize=True)
+    if require_connected:
+        bad = np.setdiff1d(np.flatnonzero(np.diff(out.indptr) == 0), ids)
+        if bad.size:
+            raise ValueError(
+                f"agents {bad[:8].tolist()} would have no neighbours until the "
+                "scheduled arrivals join; established agents need edges that "
+                "do not run through not-yet-arrived agents"
+            )
+    return out
+
+
+def _attach_edges(csr, rows, cols, vals):
+    """A CSR graph with the given undirected edges added (max-weight dedupe)."""
+    r0, c0, v0 = _csr_triples(csr)
+    return csr_from_coo(
+        csr.n,
+        np.concatenate([r0, np.asarray(rows, np.int64)]),
+        np.concatenate([c0, np.asarray(cols, np.int64)]),
+        np.concatenate([v0, np.asarray(vals, np.float64)]),
+        symmetrize=True,
+        dedupe="max",
+    )
+
+
+def _arrival_edges(arrival, ids, established, rng):
+    """Attachment edges for an admission batch: ``(rows, cols, vals)``."""
+    rows: list[int] = []
+    cols: list[int] = []
+    for i in ids:
+        nbrs = arrival.neighbors_for(int(i), established, rng)
+        rows.extend([int(i)] * len(nbrs))
+        cols.extend(int(j) for j in nbrs)
+    vals = np.full(len(rows), float(arrival.attach_weight))
+    return np.asarray(rows, np.int64), np.asarray(cols, np.int64), vals
+
+
+def _allowed(n: int, pending) -> np.ndarray | None:
+    """The refresh's (n,) mask of agents whose edges it may re-select: all
+    but the pending arrivals (None when there are none)."""
+    if not pending:
+        return None
+    allowed = np.ones(n, dtype=bool)
+    allowed[sorted(pending)] = False
+    return allowed
+
+
+def _warm_start_rows(csr, Theta, ids, rounds: int) -> np.ndarray:
+    """Eq. 16 warm start for arriving agents (host side): their (len(ids), p)
+    float64 rows.
+
+    The model-propagation step with confidence ``c_i = 0`` is a weighted
+    neighbour average, iterated ``rounds`` times over the arrival rows only
+    (the others stay fixed), through :func:`propagation_rows_from`, as in
+    the reference. ``Theta``: the (n, p) models, an array or a tensor on
+    any device; only the rows of the arrivals and their neighbours are
+    taken to the host, in float64 (the reference copies all of Theta; the
+    rows it reads are the same, so are the bits).
+    """
+    ids = np.asarray(ids, dtype=np.int64)
+    spans = [(int(csr.indptr[i]), int(csr.indptr[i + 1])) for i in ids]
+    need = np.unique(np.concatenate([ids] + [csr.indices[lo:hi] for lo, hi in spans]))
+    if isinstance(Theta, torch.Tensor):
+        taken = Theta[torch.as_tensor(need, device=Theta.device)].to("cpu").numpy()
+    else:
+        taken = np.asarray(Theta)[need]
+    local = np.array(taken, dtype=np.float64, copy=True)
+    at_ids = np.searchsorted(need, ids)
+    cols = [np.searchsorted(need, csr.indices[lo:hi]) for lo, hi in spans]
+    p = local.shape[1]
+    for _ in range(rounds):
+        neigh = np.zeros((ids.size, p))
+        d = np.zeros(ids.size)
+        for j, (lo, hi) in enumerate(spans):
+            w = np.asarray(csr.data[lo:hi])
+            neigh[j] = w @ local[cols[j]]
+            d[j] = w.sum()
+        if np.any(d <= 0):
+            raise ValueError("arriving agents must attach with positive-weight edges")
+        f64 = torch.float64
+        rows = propagation_rows_from(1.0, torch.as_tensor(d), torch.zeros(ids.size, dtype=f64),
+                                     torch.zeros((ids.size, p), dtype=f64),
+                                     torch.as_tensor(neigh))
+        local[at_ids] = rows.numpy()
+    return local[at_ids]
+
+
+def _drive_dynamic(engine, state, slots: int, events, advance):
+    """Segment driver for dynamic-topology runs (both engines; the
+    reference's).
+
+    Splits the run at every absolute slot where anything fires — the
+    periodic ``(every, cb)`` events, a :class:`GraphUpdate` refresh, or a
+    scheduled arrival — advances between the fire points with
+    :func:`_drive_slots` (captured chunks on the card), and applies the
+    topology work at the boundaries. Order at a shared boundary: edge
+    refresh, then admissions (new agents attach to the refreshed graph),
+    then the periodic callbacks.
+    """
+    gu = engine.config.graph_update
+    arrival = engine.scenario.arrival
+    start = engine._ptr_of(state)
+    end = start + slots
+    points = {end}
+    for every, _cb in events:
+        points.update(range(start + every, end, every))
+    if gu is not None:
+        # The refresh grid is absolute (multiples of gu.every in slot
+        # time), so a run split across resumes fires the same refreshes at
+        # the same slots as one run.
+        first = (start // gu.every + 1) * gu.every
+        points.update(range(first, end, gu.every))
+    admissions: dict[int, tuple[int, ...]] = {}
+    if arrival is not None:
+        for slot, ids in arrival.by_slot().items():
+            t = slot - 1  # agents join at the *start* of their slot
+            pend = tuple(i for i in ids if i in engine._pending)
+            if pend and start <= t < end:
+                admissions[t] = pend
+    points.update(admissions)
+    if (
+        gu is not None
+        and start > 0
+        and start % gu.every == 0
+        and engine.topology_log["edge_refreshes"] < start // gu.every
+    ):
+        # Resuming exactly on a grid slot whose refresh has not fired yet
+        # (the previous segment ended there, and an end never refreshes):
+        # the refresh is owed before the first super-tick. The
+        # edge_refreshes count tells a pre-refresh end from a post-refresh one.
+        state = engine._refresh_topology(state, start // gu.every)
+    prev = start
+    for t in sorted(points):
+        if t > prev:
+            state = _drive_slots(state, t - prev, engine.steps_per_chunk, advance)
+        prev = t
+        rel = t - start
+        if gu is not None and start < t < end and t % gu.every == 0:
+            state = engine._refresh_topology(state, t // gu.every)
+        if t in admissions:
+            state = engine.admit(state, admissions[t])
+        for every, cb in events:
+            if rel % every == 0 or t == end:
+                cb(state)
+    return state
 
 
 class AsyncEngine:
@@ -207,7 +431,13 @@ class AsyncEngine:
     Configured by :class:`repro_torch.sim.EngineConfig` (``config=...``);
     keyword arguments (``slot_wakes``, ``rates``, ``batch_size``,
     ``scenario``, ``seed``, ``dtype``, ``steps_per_chunk``, ``fused``,
-    ``metrics``, ``device``) override its fields.
+    ``metrics``, ``device``, ``graph_update``) override its fields.
+
+    With dynamic topology (``dynamic``: a ``graph_update``, or arrivals in
+    the scenario) the slot gathers through the live topology's device
+    tiles (:meth:`_load_tiles`); ``set_topology``, ``_refresh_topology``
+    and ``admit`` change it between slots, and ``fused=True`` or a delay
+    scenario is refused, as in the reference.
     """
 
     def __init__(self, update: LocalUpdate, *, config: EngineConfig | None = None, **kw):
@@ -231,6 +461,18 @@ class AsyncEngine:
         if not (0 < self.batch_size <= self.n):
             raise ValueError("batch_size must lie in (0, n]")
         self.scenario = cfg.scenario or Scenario()
+        self.dynamic = cfg.graph_update is not None or self.scenario.arrival is not None
+        self.topology_log = topology_log_init()
+        if self.dynamic and self.scenario.delay is not None:
+            raise NotImplementedError(
+                "dynamic topology and per-edge delays do not compose yet: the "
+                "snapshot-ring delay tiles are baked per graph"
+            )
+        if self.dynamic and cfg.fused is True:
+            raise ValueError(
+                "fused=True is static-topology only (the fused kernel's tables "
+                "bake the neighbour lists); leave fused='auto' for dynamic runs"
+            )
 
         def f32(a):
             return torch.as_tensor(np.asarray(a), dtype=torch.float32, device=dev)
@@ -239,7 +481,8 @@ class AsyncEngine:
         self._deg_counts = f32(neighbor_counts(update.graph))
         churn = self.scenario.churn
         self._leave = f32(churn.leave_vector(self.n)) if churn else None
-        self._rejoin = f32(churn.rejoin_vector(self.n)) if churn else None
+        self._rejoin_v = churn.rejoin_vector(self.n) if churn else None
+        self._rejoin = f32(self._rejoin_v) if churn else None
         strag = self.scenario.straggler
         self._drop = f32(strag.drop_vector(self.n)) if strag else None
         self._arange_b = torch.arange(self.batch_size, device=dev)
@@ -259,7 +502,8 @@ class AsyncEngine:
             self._idx = self._w = self._delays = None
 
         obj = getattr(update, "obj", None)  # the data of the updates the kernel serves
-        self.fused = _resolve_fused(update, cfg.fused, dev, self.dtype, delay is not None,
+        fused_knob = False if self.dynamic else cfg.fused
+        self.fused = _resolve_fused(update, fused_knob, dev, self.dtype, delay is not None,
                                     self.p, obj.data.X.shape[1] if obj is not None else 0)
         if self.fused:
             # The fused kernel consumes padded (n, K) neighbour tables
@@ -284,6 +528,75 @@ class AsyncEngine:
         )
         # The captured chunks (sim/capture.py): on a CUDA device only.
         self._graphs = ChunkGraphs(self) if dev.type == "cuda" else None
+
+        # Dynamic topology: the live CSR and its slot form stay on the
+        # host; the slot reads the device tiles of _load_tiles.
+        self._pending: set[int] = set()
+        self._csr = self.topo = self._dyn = None
+        if self.dynamic:
+            self._init_dynamic()
+
+    def _init_dynamic(self) -> None:
+        """The pending arrivals (edge-detached), the update's constants as
+        device tiles (``deg`` re-derived from the live topology) and the
+        topology's tiles."""
+        arrival = self.scenario.arrival
+        csr = as_csr(self.update.graph)
+        if arrival is not None:
+            self._pending = {int(i) for i in arrival.all_ids()}
+            bad = [i for i in self._pending if not 0 <= i < self.n]
+            if bad:
+                raise ValueError(f"arrival ids {bad} outside [0, n={self.n})")
+            csr = _detach_edges(csr, sorted(self._pending))
+        consts_fn = getattr(self.update, "agent_constants", None)
+        base = None if consts_fn is None else consts_fn()
+        if not isinstance(base, dict) or "deg" not in base:
+            raise ValueError(
+                "dynamic topology needs update.agent_constants() to return "
+                "a dict with a 'deg' entry (the graph-dependent constant "
+                "the engine re-derives from the live topology)"
+            )
+        # Float leaves in the engine dtype: the cast commutes with the row
+        # gather, so this is the reference's cast-after-gather bit for bit.
+        self._consts = {}
+        for k, a in base.items():
+            if k != "deg":
+                a = np.asarray(a)
+                dt = self.dtype if np.issubdtype(a.dtype, np.floating) else None
+                self._consts[k] = torch.as_tensor(a).to(device=self.device, dtype=dt)
+        self._csr = csr
+        self.topo = TopologyState.from_csr(csr, capacity=_slot_capacity(csr))
+        self._load_tiles()
+        if self._rejoin is not None and self._pending:
+            # Churn rejoin must not resurrect a not-yet-arrived agent: its
+            # rows are edge-detached (zero degree). Admission restores it.
+            self._rejoin[torch.as_tensor(sorted(self._pending), device=self.device)] = 0.0
+
+    def _load_tiles(self) -> None:
+        """The live topology's device tiles: ``idx``/``w`` the
+        capacity-padded neighbour slots (a free slot points at its own row
+        with weight 0, so the einsum adds exact zeros), ``counts`` the live
+        |N_i| for message accounting, ``deg`` the weighted degrees (the
+        update's ``deg`` constant). Tiles of the same capacity are
+        overwritten in place (``copy_``), so a captured chunk keeps reading
+        them; a larger capacity allocates new ones and drops the captured
+        graphs (:meth:`ChunkGraphs.reset`), captured again at the next
+        ``advance``."""
+        t = self.topo
+        valid = np.asarray(t.valid)
+        w = np.where(valid, np.asarray(t.w), 0.0)
+        host = {"idx": (np.asarray(t.nbr), torch.long), "w": (w, self.dtype),
+                "counts": (valid.sum(axis=1), torch.float32), "deg": (w.sum(axis=1), self.dtype)}
+        old = self._dyn
+        if old is not None and tuple(old["idx"].shape) == host["idx"][0].shape:
+            for k, (a, _) in host.items():
+                old[k].copy_(torch.from_numpy(np.ascontiguousarray(a)))
+            return
+        self._dyn = {k: torch.as_tensor(np.ascontiguousarray(a)).to(device=self.device, dtype=dt)
+                     for k, (a, dt) in host.items()}
+        self._consts["deg"] = self._dyn["deg"]
+        if self._graphs is not None:
+            self._graphs.reset()
 
     @staticmethod
     def _padded_tables(update):
@@ -310,11 +623,16 @@ class AsyncEngine:
         ustate = self.update.init_state()
         if isinstance(ustate, torch.Tensor):
             ustate = ustate.to(dev)
+        active = torch.ones(self.n, dtype=torch.bool, device=dev)
+        if self._pending:
+            # Scheduled arrivals are in the arrays but not in the system yet:
+            # inactive (never woken) and edge-detached until admitted.
+            active[torch.as_tensor(sorted(self._pending), device=dev)] = False
         return SimState(
             Theta=Theta,
             hist=hist,
             ptr=torch.zeros((), dtype=torch.long, device=dev),
-            active=torch.ones(self.n, dtype=torch.bool, device=dev),
+            active=active,
             generator=gen,
             ustate=ustate,
             applied=torch.zeros((), dtype=torch.long, device=dev),
@@ -374,16 +692,28 @@ class AsyncEngine:
                 Theta, woken, valid, gen, state.ustate, self._fidx[slot_rows], self._fw[slot_rows]
             )
         else:
-            if self._delays is not None:
-                hist.index_copy_(0, (state.ptr % self.depth).reshape(1), Theta.unsqueeze(0))
-                cols = self._idx[slot_rows]  # (B, K)
-                lag = torch.remainder(state.ptr - self._delays[slot_rows], self.depth)
-                neigh = torch.einsum("bk,bkp->bp", self._w[slot_rows], hist[lag, cols])
+            if self.dynamic:
+                # The reference's dynamic gather: an einsum over the live
+                # topology's capacity-padded tiles (no kernel of ours), and
+                # the update's constants gathered from their tiles.
+                dyn = self._dyn
+                neigh = torch.einsum("bk,bkp->bp", dyn["w"][slot_rows],
+                                     Theta[dyn["idx"][slot_rows]])
+                consts = {k: v[slot_rows] for k, v in self._consts.items()}
+                new_rows, applied, ustate = self.update.apply_rows(
+                    Theta[slot_rows], woken, valid, neigh, gen, state.ustate, srows=woken,
+                    ssize=n, consts=consts)
             else:
-                neigh = self.update.mix.gather_rows(Theta, woken)
-            new_rows, applied, ustate = self.update.apply(
-                Theta, woken, valid, neigh, gen, state.ustate
-            )
+                if self._delays is not None:
+                    hist.index_copy_(0, (state.ptr % self.depth).reshape(1), Theta.unsqueeze(0))
+                    cols = self._idx[slot_rows]  # (B, K)
+                    lag = torch.remainder(state.ptr - self._delays[slot_rows], self.depth)
+                    neigh = torch.einsum("bk,bkp->bp", self._w[slot_rows], hist[lag, cols])
+                else:
+                    neigh = self.update.mix.gather_rows(Theta, woken)
+                new_rows, applied, ustate = self.update.apply(
+                    Theta, woken, valid, neigh, gen, state.ustate
+                )
             # Every new row is computed before any is written (the
             # start-of-slot snapshot); rows not applied write back their
             # own value, so the scatter touches B distinct rows.
@@ -405,7 +735,7 @@ class AsyncEngine:
             )
         # The counters and the churn flags, in place (a captured graph
         # replays these very tensors).
-        deg = self._deg_counts[slot_rows]
+        deg = (self._dyn["counts"] if self.dynamic else self._deg_counts)[slot_rows]
         state.messages.add_(torch.where(applied, deg, 0.0).sum())
         state.applied.add_(applied.sum())
         state.dropped.add_(dropped)
@@ -442,8 +772,84 @@ class AsyncEngine:
         return self.update.objective(state.Theta)
 
     def _ptr_of(self, state: SimState) -> int:
-        """Host value of the slot counter (drain bookkeeping)."""
+        """Host value of the slot counter (drain and segment bookkeeping)."""
         return int(state.ptr)
+
+    # -- topology ----------------------------------------------------------
+    def set_topology(self, new_csr) -> None:
+        """Swap the live collaboration graph (host side, between slots).
+
+        Validates the swap (same n; no agent outside the pending arrivals
+        may be left without a neighbour), rebuilds the slot form at the
+        current capacity (grown to the next multiple of 8 when the new max
+        degree needs it, never shrunk), reloads the device tiles
+        (:meth:`_load_tiles`: in place while the capacity holds) and adds
+        the edge churn to the counters.
+        """
+        if not self.dynamic:
+            raise ValueError(
+                "static-topology engine; construct with "
+                "EngineConfig(graph_update=...) or an arrival scenario"
+            )
+        _check_topology(self.n, new_csr, self._pending)
+        added, removed = _edge_delta(self._csr, new_csr)
+        cap = max(self.topo.capacity, _slot_capacity(new_csr))
+        self.topo = TopologyState.from_csr(new_csr, capacity=cap,
+                                           version=int(self.topo.version) + 1)
+        self._csr = new_csr
+        self._load_tiles()
+        self.topology_log["edges_added"] += added
+        self.topology_log["edges_removed"] += removed
+
+    def _refresh_topology(self, state: SimState, round_index: int) -> SimState:
+        """Fire one Dada edge-refresh round against the current models."""
+        gu = self.config.graph_update
+        if gu is None:
+            raise ValueError("no graph_update configured")
+        new_csr = gu.refresh(self._csr, state.Theta, round_index=round_index,
+                             allowed=_allowed(self.n, self._pending))
+        self.set_topology(new_csr)
+        self.topology_log["edge_refreshes"] += 1
+        return state
+
+    def admit(self, state: SimState, ids) -> SimState:
+        """Join scheduled arrivals now: attach, warm start, activate.
+
+        ``ids`` must be pending arrivals. Attachment targets come from the
+        :class:`ArrivalConfig` (its explicit map, or a draw over the active
+        agents seeded by ``(arrival.seed, slot)``); with ``warm_start`` the
+        new rows are the Eq. 16 confidence-0 neighbour average before the
+        agent's first wake. The rows and the churn flags are written in
+        place (``index_copy_``), so the state keeps its tensors (a captured
+        chunk's live buffers).
+        """
+        arrival = self.scenario.arrival
+        if arrival is None:
+            raise ValueError("no arrival scenario configured")
+        ids = tuple(int(i) for i in ids)
+        missing = [i for i in ids if i not in self._pending]
+        if missing:
+            raise ValueError(f"agents {missing} are not pending arrivals")
+        rng = np.random.default_rng((arrival.seed, self._ptr_of(state)))
+        established = np.flatnonzero(state.active.to("cpu").numpy())
+        rows, cols, vals = _arrival_edges(arrival, ids, established, rng)
+        self.set_topology(_attach_edges(self._csr, rows, cols, vals))
+        at = torch.as_tensor(ids, dtype=torch.long, device=self.device)
+        if arrival.warm_start:
+            warm = _warm_start_rows(self._csr, state.Theta, ids, arrival.warm_rounds)
+            state.Theta.index_copy_(0, at, torch.as_tensor(warm).to(self.device, self.dtype))
+        state.active.index_fill_(0, at, True)
+        self._pending -= set(ids)
+        if self._rejoin is not None:
+            # Admitted agents regain their churn rejoin probability.
+            self._rejoin.index_copy_(0, at, torch.as_tensor(
+                self._rejoin_v[list(ids)], dtype=torch.float32).to(self.device))
+        self.topology_log["arrivals"] += len(ids)
+        return state
+
+    def topology_counters(self) -> dict:
+        """Host-side dynamic-topology counters (all zeros when static)."""
+        return dict(self.topology_log)
 
     # -- telemetry -----------------------------------------------------------
     def metrics_snapshot(self, state: SimState) -> tuple:
@@ -466,6 +872,8 @@ class AsyncEngine:
             eps = np.asarray(self.update.eps_spent(ustate))
             derived["dp_eps_spent_mean"] = float(eps.mean())
             derived["dp_eps_spent_max"] = float(eps.max())
+        if self.dynamic:
+            derived.update({f"topology_{k}": v for k, v in self.topology_log.items()})
         return derived
 
     def report_meta(self) -> dict:
@@ -575,9 +983,15 @@ class ShardedAsyncEngine:
     reference folds a key per shard), so sampled runs agree with the
     reference in distribution; forced wake sets (:meth:`step`) reproduce
     the single-device engine. Chunks of slots replay as captured CUDA
-    graphs on the card, as for :class:`AsyncEngine`. Refused, each naming
-    its ROADMAP item: per-edge delays (as in the reference), dynamic
-    topology (A11), checkpoints (A12) and phase programs (A10b).
+    graphs on the card, as for :class:`AsyncEngine`.
+
+    Dynamic topology, as in the reference: :meth:`set_topology` patches
+    the weights alone, patches the frozen ownership when the cut's drift
+    is at most ``EngineConfig.drift_threshold``, or cuts a new partition
+    and re-lays the state out; the slab's halo part (and on a repartition
+    the owned part) changes shape, so every swap drops the captured
+    graphs. Refused: per-edge delays (as in the reference), and, each
+    naming its ROADMAP item, checkpoints (A12) and phase programs (A10b).
     """
 
     def __init__(self, update: LocalUpdate, *, num_shards: int, config: EngineConfig | None = None,
@@ -596,14 +1010,30 @@ class ShardedAsyncEngine:
                 "per-edge delays are single-device only (the snapshot-ring "
                 "gather has no halo-exchange form yet); use AsyncEngine"
             )
-        # Static topology only: EngineConfig refuses graph_update and
-        # Scenario refuses arrivals (ROADMAP A11), and with them the
-        # reference's refusal of fused=True on a dynamic graph.
+        self.dynamic = cfg.graph_update is not None or self.scenario.arrival is not None
         self.topology_log = topology_log_init()
+        if self.dynamic and cfg.fused is True:
+            raise ValueError(
+                "fused=True is static-topology only (the fused kernel's tables "
+                "bake the neighbour lists); leave fused='auto' for dynamic runs"
+            )
+        self._pending: set[int] = set()
         csr = as_csr(update.graph)
+        arrival = self.scenario.arrival
+        if arrival is not None:
+            self._pending = {int(i) for i in arrival.all_ids()}
+            bad = [i for i in self._pending if not 0 <= i < self.n]
+            if bad:
+                raise ValueError(f"arrival ids {bad} outside [0, n={self.n})")
+            csr = _detach_edges(csr, sorted(self._pending))
         self._csr = csr
         partition = cfg.partition
         if partition is not None:
+            if self._pending:
+                raise ValueError(
+                    "partition reuse does not compose with arrival scenarios "
+                    "(the engine detaches scheduled arrivals before cutting)"
+                )
             if partition.n != self.n or partition.num_shards != num_shards:
                 raise ValueError(
                     f"prebuilt partition is (n={partition.n}, S={partition.num_shards}), "
@@ -644,12 +1074,20 @@ class ShardedAsyncEngine:
         self.metrics_spec = cfg.metrics_spec()
         consts_fn = getattr(update, "agent_constants", None)
         self._consts_base = None if consts_fn is None else consts_fn()
+        if self.dynamic and not (isinstance(self._consts_base, dict)
+                                 and "deg" in self._consts_base):
+            raise ValueError(
+                "dynamic topology needs update.agent_constants() to return a "
+                "dict with a 'deg' entry (the graph-dependent constant the "
+                "engine re-derives from the live topology)"
+            )
         obj = getattr(update, "obj", None)
-        self.fused = _resolve_fused(update, cfg.fused, self.device, self.dtype, False, self.p,
+        fused_knob = False if self.dynamic else cfg.fused
+        self.fused = _resolve_fused(update, fused_knob, self.device, self.dtype, False, self.p,
                                     obj.data.X.shape[1] if obj is not None else 0)
         self._use_ef = self.smix.error_feedback
-        self._rebuild_static()
         self._graphs = ChunkGraphs(self) if self.device.type == "cuda" else None
+        self._rebuild_static()
 
     def _exchange_volume(self) -> ExchangeVolume:
         """Per-shard static wire volume of the configured halo exchange."""
@@ -680,7 +1118,13 @@ class ShardedAsyncEngine:
         the wake, churn and straggler probabilities, the owned ids, the
         message degrees, the update's constants (float leaves in the engine
         dtype, padding rows 0), the fused kernel's slab tables and the
-        exchange-volume tiles of the metrics."""
+        exchange-volume tiles of the metrics. On a dynamic engine the
+        ``deg`` constant comes from the live graph and the pending
+        arrivals' rejoin probability is 0. Called again after every
+        topology swap: the tensors are new, so the captured graphs are
+        dropped (:meth:`ChunkGraphs.reset`)."""
+        if self._graphs is not None:
+            self._graphs.reset()
         part, dev, S = self.part, self.device, self.num_shards
         R, B = part.rows_per_shard, self.batch_size
         self.rows_per_shard = R
@@ -703,14 +1147,23 @@ class ShardedAsyncEngine:
         def maybe(v):
             return None if v is None else tile(v).view(S, R)
 
+        rejoin_v = self._rejoin_v
+        if rejoin_v is not None and self._pending:
+            # Churn rejoin must not resurrect a not-yet-arrived agent (its
+            # rows are edge-detached: zero degree) until admission.
+            rejoin_v = rejoin_v.copy()
+            rejoin_v[sorted(self._pending)] = 0.0
         self._wake_p = tile(self.wake_probs).view(S, R)
         self._leave, self._rejoin, self._drop = (maybe(v) for v in
-                                                  (self._leave_v, self._rejoin_v, self._drop_v))
+                                                  (self._leave_v, rejoin_v, self._drop_v))
         self._deg = tile(neighbor_counts(self._csr))
         self._consts = None
         if self._consts_base is not None:
+            base = dict(self._consts_base)
+            if self.dynamic:
+                base["deg"] = self._csr.degrees  # the live graph's, as in the reference
             self._consts = {}
-            for k, a in self._consts_base.items():
+            for k, a in base.items():
                 a = np.asarray(a)
                 self._consts[k] = tile(a, self.dtype if np.issubdtype(a.dtype, np.floating)
                                        else None)
@@ -786,7 +1239,11 @@ class ShardedAsyncEngine:
             raise ValueError(f"Theta0 must be {(self.n, self.p)}, got {Theta.shape}")
         S, R = self.num_shards, self.rows_per_shard
         rows = torch.as_tensor(self.part.pad_rows(Theta)).to(self.device, self.dtype)
-        active = torch.as_tensor(self.part.pad_rows(np.ones(self.n, bool), fill=False))
+        active_g = np.ones(self.n, bool)
+        if self._pending:
+            # Scheduled arrivals: inactive and edge-detached until admitted.
+            active_g[sorted(self._pending)] = False
+        active = torch.as_tensor(self.part.pad_rows(active_g, fill=False))
         ustate = self.update.init_state()
         if not (isinstance(ustate, tuple) and not ustate):
             ustate = self._shard_leaf(ustate)
@@ -939,27 +1396,155 @@ class ShardedAsyncEngine:
         """Host value of the slot counter (identical across shards)."""
         return int(state.ptr[0])
 
-    # -- topology and observability -------------------------------------------
-    def set_topology(self, state, new_csr):
-        """Dynamic topology: ROADMAP item A11, not ported yet."""
-        raise NotImplementedError(
-            "ShardedAsyncEngine.set_topology (dynamic topology) is ROADMAP item A11, "
-            "which is not ported yet")
+    # -- topology ----------------------------------------------------------
+    def _to_layout(self, g) -> torch.Tensor:
+        """An (n, ...) agent-order device tensor as the (S * R, ...) rows of
+        the current layout, padding rows 0 (False)."""
+        real = self._owned < self.n
+        out = g[torch.where(real, self._owned, 0)]
+        keep = real.view((-1,) + (1,) * (out.dim() - 1))
+        return torch.where(keep, out, torch.zeros((), dtype=out.dtype, device=out.device))
 
-    def _refresh_topology(self, state, round_index: int):
-        """Dynamic topology: ROADMAP item A11, not ported yet."""
-        raise NotImplementedError(
-            "ShardedAsyncEngine._refresh_topology (edge refresh) is ROADMAP item A11, "
-            "which is not ported yet")
+    def set_topology(self, state: ShardedSimState, new_csr) -> ShardedSimState:
+        """Swap the live graph and rebind the sharded machinery.
 
-    def admit(self, state, ids):
-        """Arrivals: ROADMAP item A11, not ported yet."""
-        raise NotImplementedError(
-            "ShardedAsyncEngine.admit (arrivals) is ROADMAP item A11, which is not ported yet")
+        Three tiers, by how much of the standing cut survives, as in the
+        reference:
+
+        * **weight-only** (identical structure) — :meth:`GraphPartition.patch`
+          regathers the weights; the plan and every index tile carry over;
+        * **structural, drift <= ``config.drift_threshold``** — patch the
+          frozen ownership: the halo, border and exchange tiles rebuild,
+          the owned rows stay where they are;
+        * **drift above the threshold** — cut a new ``partition_graph`` and
+          re-lay the state out onto its ownership (old layout -> agent
+          order -> new layout, on the device).
+
+        Returns the state: the one given after a weight-only patch, else a
+        new one around a slab of the new halo width, with the generator
+        and the (S,) counters carried over. Error feedback starts again on
+        a structural change; the metrics start again only when the
+        rebuild changed their shapes. The captured graphs are dropped
+        (:meth:`_rebuild_static`).
+        """
+        if not self.dynamic:
+            raise ValueError(
+                "static-topology engine; construct with "
+                "EngineConfig(graph_update=...) or an arrival scenario"
+            )
+        _check_topology(self.n, new_csr, self._pending)
+        added, removed = _edge_delta(self._csr, new_csr)
+        old_part = self.part
+        same_structure = np.array_equal(old_part.csr.indptr, new_csr.indptr) and \
+            np.array_equal(old_part.csr.indices, new_csr.indices)
+        relayout = False
+        if same_structure:
+            new_part = old_part.patch(new_csr)
+            self.topology_log["weight_patches"] += 1
+        else:
+            drift = float(old_part.drift(new_csr))
+            self.topology_log["last_drift"] = drift
+            if drift <= float(self.config.drift_threshold):
+                new_part = old_part.patch(new_csr)
+                self.topology_log["structural_patches"] += 1
+            else:
+                new_part = partition_graph(new_csr, self.num_shards,
+                                           mode=self.config.partition_mode,
+                                           relabel=self.config.relabel, coords=self.config.coords)
+                self.topology_log["repartitions"] += 1
+                relayout = True
+        self._csr = new_csr
+        self.topology_log["edges_added"] += added
+        self.topology_log["edges_removed"] += removed
+
+        S, p = self.num_shards, self.p
+        owned = state.slab[: S * self.rows_per_shard]
+        ustate = state.ustate
+        if relayout:
+            # Ownership changed: every per-agent leaf through agent order.
+            at = self._agent_rows
+            owned, active = owned[at], state.active.reshape(-1)[at]
+            if isinstance(ustate, torch.Tensor):
+                ustate = ustate.reshape((-1,) + tuple(ustate.shape[2:]))[at]
+        self.part = new_part
+        self.smix = self.smix.rebound(new_part)
+        self.exchange_method = self.smix.method
+        self.batch_size = int(min(self.batch_size, new_part.rows_per_shard))
+        self._rebuild_static()
+        R = self.rows_per_shard
+
+        ef = state.ef
+        if self._use_ef:
+            fresh_ef = self.smix.init_error_feedback(p, self.dtype, self.device)
+            if not same_structure or ef is None or fresh_ef is None or \
+                    ef.shape != fresh_ef.shape:
+                ef = fresh_ef
+        metrics = state.metrics
+        if self._macc is not None:
+            fresh = self._macc.init(self.device)
+            if fresh.keys() != metrics.keys() or any(
+                    fresh[k].shape != metrics[k].shape for k in fresh):
+                metrics = fresh
+        if same_structure:
+            return state._replace(ef=ef, metrics=metrics)
+        if relayout:
+            owned, active = self._to_layout(owned), self._to_layout(active).view(S, R)
+            if isinstance(ustate, torch.Tensor):
+                ustate = self._to_layout(ustate).view((S, R) + tuple(ustate.shape[1:]))
+        else:
+            active = state.active
+        slab = torch.zeros((self.smix.slab_rows, p), dtype=self.dtype, device=self.device)
+        slab[: S * R] = owned
+        return state._replace(Theta=slab[: S * R].view(S, R, p), active=active, ustate=ustate,
+                              slab=slab, ef=ef, metrics=metrics)
+
+    def _refresh_topology(self, state: ShardedSimState, round_index: int) -> ShardedSimState:
+        """Fire one Dada edge-refresh round against the current models."""
+        gu = self.config.graph_update
+        if gu is None:
+            raise ValueError("no graph_update configured")
+        new_csr = gu.refresh(self._csr, self._agent_theta(state), round_index=round_index,
+                             allowed=_allowed(self.n, self._pending))
+        state = self.set_topology(state, new_csr)
+        self.topology_log["edge_refreshes"] += 1
+        return state
+
+    def admit(self, state: ShardedSimState, ids) -> ShardedSimState:
+        """Join scheduled arrivals now (:meth:`AsyncEngine.admit`'s
+        counterpart: attach, warm start, activate). The attach edges go
+        through :meth:`set_topology`, so an admission can itself patch or
+        repartition; the warm-started rows and flags are then written in
+        place into whatever layout results."""
+        arrival = self.scenario.arrival
+        if arrival is None:
+            raise ValueError("no arrival scenario configured")
+        ids = tuple(int(i) for i in ids)
+        missing = [i for i in ids if i not in self._pending]
+        if missing:
+            raise ValueError(f"agents {missing} are not pending arrivals")
+        rng = np.random.default_rng((arrival.seed, self._ptr_of(state)))
+        active_g = state.active.reshape(-1)[self._agent_rows].to("cpu").numpy()
+        rows, cols, vals = _arrival_edges(arrival, ids, np.flatnonzero(active_g), rng)
+        state = self.set_topology(state, _attach_edges(self._csr, rows, cols, vals))
+        at = self._agent_rows[torch.as_tensor(ids, dtype=torch.long, device=self.device)]
+        if arrival.warm_start:
+            warm = _warm_start_rows(self._csr, self._agent_theta(state), ids,
+                                    arrival.warm_rounds)
+            state.slab.index_copy_(0, at, torch.as_tensor(warm).to(self.device, self.dtype))
+        state.active.view(-1).index_fill_(0, at, True)
+        self._pending -= set(ids)
+        if self._rejoin is not None:
+            # Admitted agents regain their churn rejoin probability.
+            self._rejoin.view(-1).index_copy_(0, at, torch.as_tensor(
+                self._rejoin_v[list(ids)], dtype=torch.float32).to(self.device))
+        self.topology_log["arrivals"] += len(ids)
+        return state
 
     def topology_counters(self) -> dict:
-        """Host-side dynamic-topology counters (all zeros: static topology)."""
+        """Host-side dynamic-topology counters (all zeros when static)."""
         return dict(self.topology_log)
+
+    # -- observability -------------------------------------------------------
 
     def phase_program(self, upto: str | None = None):
         """The slot cut after a named phase: ROADMAP item A10b, not ported yet."""
@@ -985,6 +1570,8 @@ class ShardedAsyncEngine:
             eps = np.asarray(self.update.eps_spent(counts))
             derived["dp_eps_spent_mean"] = float(eps.mean())
             derived["dp_eps_spent_max"] = float(eps.max())
+        if self.dynamic:
+            derived.update({f"topology_{k}": v for k, v in self.topology_log.items()})
         return counters, derived
 
     def report_meta(self) -> dict:

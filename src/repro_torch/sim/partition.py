@@ -34,8 +34,9 @@ Relabeling never leaks into caller-visible ids: ``owned``/``halo``/
 ``pad_rows``/``unpad_rows`` (and the engine's ``global_theta``) are the
 identity round-trip under any permutation — callers need no unrelabel
 step. The permutation itself is exposed as ``order`` for diagnostics.
-``patch``, ``drift`` and ``place_rows`` serve the dynamic topology and
-the checkpoints of later slices (ROADMAP A11, A12).
+``patch`` and ``drift`` serve the sharded engine's dynamic topology
+(``ShardedAsyncEngine.set_topology``); ``place_rows`` the checkpoints of
+a later slice (ROADMAP A12).
 """
 
 from __future__ import annotations

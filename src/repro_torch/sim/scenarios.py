@@ -1,4 +1,4 @@
-"""Deployment scenarios for the batched async engine: churn, delay, stragglers.
+"""Deployment scenarios for the batched async engine: churn, delay, stragglers, arrivals.
 
 Real P2P deployments (P4, arXiv 2405.17697; P4L, arXiv 2302.13438) are
 defined by exactly what the faithful Poisson simulator does not model:
@@ -31,9 +31,11 @@ Semantics (recorded deviations / modelling choices):
   clock rate by ``1 - drop_prob``; it exists as a separate knob so that
   device speed classes (``rates``) and loss processes (``drop_prob``)
   can be configured and swept independently.
-* **Arrival** — agents joining the topology mid-run need the dynamic
-  topology layer, which this package does not have yet (ROADMAP A11):
-  ``Scenario(arrival=...)`` raises ``NotImplementedError``.
+* **Arrival** — agents the topology has never seen join mid-run at
+  scheduled slots, attach to established peers, and (optionally) warm
+  start from the Eq. 16 model-propagation step over their new
+  neighbours; see :class:`ArrivalConfig`. It needs the engine's
+  dynamic-topology mode (a structural graph change between slots).
 """
 
 from __future__ import annotations
@@ -104,20 +106,81 @@ class StragglerConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class ArrivalConfig:
+    """Agents *arriving* mid-run: they join the graph and start learning.
+
+    Where :class:`ChurnConfig` models departure and rejoin of agents the
+    graph already knows, arrival adds agents the topology has never seen.
+    The engine holds the scheduled ids inactive (never woken, their edges
+    detached) until their slot, then attaches them to the live graph and,
+    with ``warm_start``, initializes their model by the Eq. 16
+    model-propagation step with confidence ``c_i = 0``: a weighted
+    neighbour average, iterated ``warm_rounds`` times (the propagation
+    fixed point of an agent with no local data yet, arXiv 1610.05202). A
+    cold start keeps the agent's initial row.
+
+    ``schedule``: ``(slot, ids)`` pairs in absolute slot-counter terms —
+    at the *start* of that slot the listed agents join. ``attach``:
+    optional explicit ``{agent id: (neighbour ids,)}`` map; ids without an
+    entry attach to ``attach_k`` established agents drawn from a numpy
+    generator seeded by ``(seed, slot)``. Numpy only: the reference's
+    class, copied.
+    """
+
+    schedule: tuple[tuple[int, tuple[int, ...]], ...] = ()
+    attach_k: int = 4
+    attach_weight: float = 1.0
+    attach: dict | None = None
+    warm_start: bool = True
+    warm_rounds: int = 2
+    seed: int = 0
+
+    def __post_init__(self):
+        seen: set[int] = set()
+        for slot, ids in self.schedule:
+            if slot < 1:
+                raise ValueError(f"arrival slots are 1-based slot counts, got {slot}")
+            dup = seen.intersection(ids)
+            if dup:
+                raise ValueError(f"agents scheduled to arrive twice: {sorted(dup)}")
+            seen.update(ids)
+        if self.attach_k < 1:
+            raise ValueError("attach_k must be >= 1")
+        if self.warm_rounds < 1:
+            raise ValueError("warm_rounds must be >= 1")
+
+    def all_ids(self) -> tuple[int, ...]:
+        """Every agent id that arrives at some point, in schedule order."""
+        return tuple(i for _, ids in self.schedule for i in ids)
+
+    def by_slot(self) -> dict[int, tuple[int, ...]]:
+        """{slot: ids arriving at its start}, merged across schedule entries."""
+        out: dict[int, tuple[int, ...]] = {}
+        for slot, ids in self.schedule:
+            out[slot] = out.get(slot, ()) + tuple(ids)
+        return dict(sorted(out.items()))
+
+    def neighbors_for(self, agent: int, established, rng) -> np.ndarray:
+        """Attachment targets for ``agent``: the explicit map, or a draw of
+        ``attach_k`` of the ``established`` ids (active, already joined)
+        without replacement, capped at their count."""
+        if self.attach and agent in self.attach:
+            return np.asarray(self.attach[agent], dtype=np.int64)
+        established = np.asarray(established, dtype=np.int64)
+        k = min(self.attach_k, len(established))
+        if k < 1:
+            raise ValueError(f"no established agents for arrival of {agent}")
+        return rng.choice(established, size=k, replace=False)
+
+
+@dataclasses.dataclass(frozen=True)
 class Scenario:
     """Bundle of deployment conditions; ``None`` disables a dimension."""
 
     churn: ChurnConfig | None = None
     delay: DelayConfig | None = None
     straggler: StragglerConfig | None = None
-    arrival: object = None  # ArrivalConfig: not ported yet (ROADMAP A11)
-
-    def __post_init__(self):
-        if self.arrival is not None:
-            raise NotImplementedError(
-                "Scenario.arrival (ArrivalConfig) needs dynamic topology, "
-                "which is ROADMAP item A11 and not ported yet"
-            )
+    arrival: ArrivalConfig | None = None
 
     @staticmethod
     def ideal() -> "Scenario":

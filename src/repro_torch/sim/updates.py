@@ -12,6 +12,10 @@ with its neighbour sum is the update's:
   propagation (Supp. C), data-free and so compatible with the private
   warm start.
 
+:class:`GraphUpdate` is the graph step of dynamic topology: the Dada edge
+refresh the engines fire between super-ticks (host numpy, the
+reference's CSR array for array).
+
 All three reduce to the same contract: given the start-of-slot snapshot,
 the woken row indices (padded with the sentinel n) and their raw neighbour
 sums, return replacement rows and an ``applied`` mask. The math lives next
@@ -37,6 +41,8 @@ reference's ``jax.random`` draws.
 from __future__ import annotations
 
 import dataclasses
+import os
+from concurrent.futures import ThreadPoolExecutor
 from functools import cached_property
 from typing import Protocol, runtime_checkable
 
@@ -486,3 +492,127 @@ class PropagationUpdate:
             self.graph, np.asarray(self.theta_loc), self.mu, np.asarray(self.confidences)
         )
         return float(value(_host(Theta)))
+
+
+# Candidate pairs per block of GraphUpdate's distance pass: 2^16 pairs of
+# p = 100 float64 rows make temporaries of 52 MB, where one pass over the
+# ~10 M candidate pairs of a 500k-agent refresh would make three of 8 GB.
+D2_BLOCK_PAIRS = 1 << 16
+
+
+def pair_sq_dists(Theta, rows, cols, block: int = D2_BLOCK_PAIRS) -> np.ndarray:
+    """``((Theta[rows] - Theta[cols]) ** 2).sum(axis=1)`` in blocks of
+    ``block`` pairs, the blocks spread over host threads (numpy's gathers
+    and reductions release the GIL). Each pair's row sum is the same numpy
+    reduction over its own p values whatever else its block holds, and
+    each block writes its own slice, so the result has the one-pass
+    expression's bits."""
+    out = np.empty(len(rows), dtype=np.float64)
+
+    def run(lo):
+        hi = min(lo + block, len(rows))
+        out[lo:hi] = ((Theta[rows[lo:hi]] - Theta[cols[lo:hi]]) ** 2).sum(axis=1)
+
+    starts = range(0, len(rows), block)
+    with ThreadPoolExecutor(max_workers=max(1, min(len(starts), os.cpu_count() or 1))) as pool:
+        list(pool.map(run, starts))
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class GraphUpdate:
+    """Dada-style sparse similarity-driven edge refresh (arXiv 1901.08460).
+
+    Port of ``repro.sim.updates.GraphUpdate``: the host-side graph step
+    the engines fire every ``every`` slots, at slot boundaries (the
+    super-ticks in between run on the frozen topology):
+
+    1. **Candidates** — every current edge plus ``candidates`` random
+       never-self peers per node;
+    2. **Similarity** — ``w_ij = exp(-||Theta_i - Theta_j||^2 / gamma)``
+       over candidate pairs only;
+    3. **Selection** — per row keep the top-``k`` by similarity, always
+       retaining the single best (every degree stays >= 1: Eq. 4 divides
+       by D_ii) and dropping the rest below ``threshold``; then
+       OR-symmetrize, like the k-NN constructors.
+
+    Numpy throughout and deterministic in ``(seed, round_index)``: the
+    same graph and models give the reference's CSR, array for array
+    (the distances are taken in blocks, :func:`pair_sq_dists`, with the
+    same bits).
+    """
+
+    every: int = 10
+    k: int = 10
+    candidates: int = 8
+    gamma: float = 1.0
+    threshold: float = 1e-4
+    seed: int = 0
+
+    def __post_init__(self):
+        if self.every < 1:
+            raise ValueError("every must be >= 1 slots")
+        if self.k < 1:
+            raise ValueError("k must be >= 1")
+        if self.candidates < 0:
+            raise ValueError("candidates must be >= 0")
+        if self.gamma <= 0.0:
+            raise ValueError("gamma must be > 0")
+
+    def refresh(self, csr, Theta, round_index: int = 0, allowed=None):
+        """One edge-update round: (current graph, models) -> new graph.
+
+        ``csr``: the live :class:`repro_torch.core.graph.CSRGraph`;
+        ``Theta``: (n, p) current models (numpy or a tensor, taken to the
+        host in float64); ``round_index`` seeds the candidate draw.
+        ``allowed``: optional (n,) bool mask — only edges between allowed
+        agents are re-selected; edges touching a non-allowed agent pass
+        through frozen at their weight (how the engines keep
+        not-yet-arrived agents detached).
+        """
+        from repro_torch.core.graph import csr_from_coo
+
+        Theta = np.asarray(_host(Theta), dtype=np.float64)
+        n = csr.n
+        rows = csr.row_ids().astype(np.int64)
+        cols = csr.indices.astype(np.int64)
+        if allowed is not None:
+            allowed = np.asarray(allowed, dtype=bool)
+            live = allowed[rows] & allowed[cols]
+            frozen = (rows[~live], cols[~live], np.asarray(csr.data, np.float64)[~live])
+            rows, cols = rows[live], cols[live]
+        else:
+            frozen = None
+        if self.candidates > 0 and n > 1:
+            rng = np.random.default_rng((self.seed, round_index))
+            c = min(self.candidates, n - 1)
+            # i + U{1, .., n-1} mod n is never i — no self candidates.
+            rand = (np.arange(n, dtype=np.int64)[:, None] + rng.integers(1, n, size=(n, c))) % n
+            crows = np.repeat(np.arange(n, dtype=np.int64), c)
+            ccols = rand.ravel()
+            if allowed is not None:
+                # Draw for every row (stable rng stream), then filter.
+                mask = allowed[crows] & allowed[ccols]
+                crows, ccols = crows[mask], ccols[mask]
+            rows = np.concatenate([rows, crows])
+            cols = np.concatenate([cols, ccols])
+        # Dedupe directed candidate pairs.
+        key = rows * n + cols
+        _, uniq = np.unique(key, return_index=True)
+        rows, cols = rows[uniq], cols[uniq]
+        vals = np.exp(-pair_sq_dists(Theta, rows, cols) / self.gamma)
+        # Per-row top-k: rank candidates within each row by -similarity.
+        order = np.lexsort((-vals, rows))
+        rows, cols, vals = rows[order], cols[order], vals[order]
+        first = np.concatenate([[True], rows[1:] != rows[:-1]])
+        start = np.maximum.accumulate(np.where(first, np.arange(len(rows)), 0))
+        rank = np.arange(len(rows)) - start
+        # The row's best candidate always survives (D_ii > 0 for Eq. 4);
+        # beyond it, keep top-k entries above the negligibility floor.
+        keep = (rank == 0) | ((rank < self.k) & (vals >= self.threshold))
+        rows, cols, vals = rows[keep], cols[keep], vals[keep]
+        if frozen is not None:
+            rows = np.concatenate([rows, frozen[0]])
+            cols = np.concatenate([cols, frozen[1]])
+            vals = np.concatenate([vals, frozen[2]])
+        return csr_from_coo(n, rows, cols, vals, symmetrize=True, dedupe="max")

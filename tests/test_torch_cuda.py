@@ -886,3 +886,135 @@ def test_sharded_fused_slot_against_single_device_fused_on_the_card(dev, p):
     for mask in masks:
         a, b = single.step(a, mask), sharded.step(b, mask)
     _close(torch.as_tensor(sharded.global_theta(b)), a.Theta.cpu(), tol=2e-5)
+
+
+# Dynamic topology (repro_torch.sim: GraphUpdate, ArrivalConfig, set_topology,
+# admit) on the card: the dynamic slot gathers with an einsum over
+# capacity-padded tiles, which the captured chunk reads in place.
+
+DYN_IDS = (500, 501, 502, 503)
+
+
+def _dyn_obj(n=512):
+    rng = np.random.default_rng(1)
+    graph = knn_graph(rng.normal(size=(n, 8)), k=8)
+    X = rng.normal(size=(n, 3, 4)) / 2.0
+    y = np.einsum("nmp,np->nm", X, rng.normal(size=(n, 4)) / 2.0)
+    return make_objective(graph, AgentData(X=X, y=y, mask=np.ones((n, 3))), "quadratic",
+                          mu=0.5, mix_mode="sparse")
+
+
+def _dyn_engine(obj, device, sharded=False, **kw):
+    from repro_torch.sim import (ArrivalConfig, ChurnConfig, GraphUpdate, Scenario,
+                                 ShardedAsyncEngine, StragglerConfig)
+
+    cfg = dict(slot_wakes=64.0, seed=2, device=device,
+               scenario=Scenario(churn=ChurnConfig(leave_prob=0.05, rejoin_prob=0.3),
+                                 straggler=StragglerConfig(drop_prob=0.2),
+                                 arrival=ArrivalConfig(schedule=((10**6, DYN_IDS),), seed=3)),
+               graph_update=GraphUpdate(every=10**6, k=3, candidates=4, gamma=2.0, seed=1))
+    cfg.update(kw)
+    if sharded:
+        return ShardedAsyncEngine(CDUpdate(obj), num_shards=4, relabel="rcm", **cfg)
+    return AsyncEngine(CDUpdate(obj), **cfg)
+
+
+def _leaves(state):
+    out = {n: getattr(state, n) for n in state._fields
+           if isinstance(getattr(state, n), torch.Tensor)}
+    out["generator"] = state.generator.get_state()
+    return out
+
+
+def _hub(csr, agent=1, count=60):
+    from repro_torch.core.graph import csr_from_coo
+
+    others = np.array([j for j in range(csr.n) if j != agent and j not in DYN_IDS][:count])
+    return csr_from_coo(csr.n, np.concatenate([csr.row_ids(), np.full(len(others), agent)]),
+                        np.concatenate([csr.indices, others]),
+                        np.concatenate([csr.data, np.ones(len(others))]), symmetrize=True)
+
+
+def test_dynamic_slot_matches_static_and_the_cpu_on_the_card(dev):
+    """A dynamic engine whose refresh never fires against the static
+    unfused engine (einsum against sparse_mix: 1e-5), and forced runs with
+    an explicit refresh and admission on the card against the CPU (1e-5,
+    the same graph and log)."""
+    from repro_torch.sim import GraphUpdate
+
+    obj = _dyn_obj()
+    rng = np.random.default_rng(4)
+    masks = list(rng.random((16, 512)) < 0.25)
+    Theta0 = rng.normal(size=(512, 4))
+
+    def forced(eng, events=False):
+        state = eng.init_state(Theta0)
+        for k, mask in enumerate(masks):
+            state = eng.step(state, mask)
+            if events and k == 5:
+                state = eng._refresh_topology(state, 1)
+            if events and k == 10:
+                state = eng.admit(state, DYN_IDS)
+        return state.Theta.cpu() if not hasattr(eng, "num_shards") else \
+            torch.as_tensor(eng.global_theta(state))
+
+    static = forced(AsyncEngine(CDUpdate(obj), slot_wakes=64.0, fused=False, device=dev))
+    dynamic = forced(AsyncEngine(CDUpdate(obj), slot_wakes=64.0, device=dev,
+                                 graph_update=GraphUpdate(every=10**9)))
+    _close(dynamic, static)
+    for sharded in (False, True):
+        card, cpu = _dyn_engine(obj, dev, sharded), _dyn_engine(obj, "cpu", sharded)
+        _close(forced(card, True), forced(cpu, True))
+        np.testing.assert_array_equal(card._csr.indices, cpu._csr.indices)
+        a, b = card.topology_counters(), cpu.topology_counters()
+        # The drift is a ratio of edge weights, exp(-d2 / gamma) of float32
+        # models that differ in their last bits between the two devices.
+        assert abs(a.pop("last_drift") - b.pop("last_drift")) <= 1e-6 and a == b
+
+
+@pytest.mark.parametrize("sharded", [False, True])
+def test_dynamic_captured_equals_eager_across_swaps(dev, sharded):
+    """37 slots before and after each swap, captured and eager from the same
+    seed: every state tensor equal. Single-device: a refresh within the
+    slot capacity keeps the graphs, a hub that grows it recaptures once,
+    an admission; sharded (S = 4): a weight-only patch, a structural patch
+    and an admission each recapture (the slab changes), and a repartition
+    forced by drift_threshold=-10 on a second pair."""
+
+    def refresh(e, s):
+        return e._refresh_topology(s, 1)
+
+    def admit(e, s):
+        return e.admit(s, DYN_IDS)
+
+    def grow(e, s):
+        e.set_topology(_hub(e._csr))
+        return s
+
+    def reweight(e, s):
+        c = e._csr
+        return e.set_topology(s, type(c)(indptr=c.indptr, indices=c.indices, data=c.data * 1.5))
+
+    obj = _dyn_obj()
+    if sharded:
+        plans = [(dict(drift_threshold=10.0), [("weight", reweight, 1), ("structural", refresh, 1),
+                                               ("admit", admit, 1)]),
+                 (dict(drift_threshold=-10.0), [("repartition", refresh, 1)])]
+    else:
+        plans = [({}, [("refresh", refresh, 0), ("grow", grow, 1), ("admit", admit, 0)])]
+    for kw, swaps in plans:
+        cap, eag = _dyn_engine(obj, dev, sharded, **kw), _dyn_engine(obj, dev, sharded, **kw)
+        zeros = np.zeros((512, 4), dtype=np.float32)
+        sc, se = cap.advance(cap.init_state(zeros), 37), eag._eager_slots(eag.init_state(zeros), 37)
+        for name, fn, recaptures in swaps:
+            before = cap._graphs.recaptures
+            sc, se = fn(cap, sc), fn(eag, se)
+            sc, se = cap.advance(sc, 37), eag._eager_slots(se, 37)
+            a, b = _leaves(sc), _leaves(se)
+            assert all(torch.equal(a[k], b[k]) for k in a), (name, [k for k in a
+                                                                    if not torch.equal(a[k], b[k])])
+            assert cap.topology_counters() == eag.topology_counters(), name
+            assert cap._graphs.recaptures - before == recaptures, name
+            assert sorted(cap._graphs.graphs) == [1, 16]
+    if sharded:
+        assert cap.topology_counters()["repartitions"] == 1

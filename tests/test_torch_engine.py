@@ -25,12 +25,14 @@ from repro_torch.convert import (
 )
 from repro_torch.core.coordinate_descent import _cd_step
 from repro_torch.sim import (
+    ArrivalConfig,
     AsyncEngine,
     CDUpdate,
     ChurnConfig,
     DelayConfig,
     EngineConfig,
     ExchangeSpec,
+    GraphUpdate,
     Scenario,
     ShardedAsyncEngine,
     StragglerConfig,
@@ -348,8 +350,13 @@ def test_config_overrides_and_later_slices(small):
         AsyncEngine(CDUpdate(port), device="cpu", slotwakes=3.0)
     with pytest.raises(ValueError, match="fused"):
         EngineConfig(fused="yes", device="cpu")
-    with pytest.raises(NotImplementedError, match="A11"):
-        EngineConfig(device="cpu", graph_update=object())
+    # Dynamic topology (A11) is live: a graph_update makes the engine
+    # dynamic, and "auto" resolves to the unfused slot there.
+    dyn = AsyncEngine(CDUpdate(port), config=cfg.replace(
+        fused="auto", graph_update=GraphUpdate(every=3), drift_threshold=0.1))
+    assert dyn.dynamic and not dyn.fused and dyn.topology_counters()["edge_refreshes"] == 0
+    dyn.run(np.zeros((24, 4)), 7)
+    assert dyn.topology_counters()["edge_refreshes"] == 2
     # The sharded engine's fields (A9) are live: the exchange and a
     # prebuilt partition are accepted, and make_engine(shards=) builds it.
     sharded = make_engine(CDUpdate(port), device="cpu", shards=2, slot_wakes=8.0,
@@ -361,8 +368,11 @@ def test_config_overrides_and_later_slices(small):
     # Shards across several devices are A9b.
     with pytest.raises(NotImplementedError, match="A9b"):
         EngineConfig(device="cpu", devices=["cpu", "cuda:1"])
-    with pytest.raises(NotImplementedError, match="A11"):
-        Scenario(arrival=object())
+    arrivals = Scenario(arrival=ArrivalConfig(schedule=((2, (5,)),), attach_k=2))
+    eng = AsyncEngine(CDUpdate(port), config=cfg.replace(scenario=arrivals))
+    assert eng.dynamic and eng._pending == {5}
+    res = eng.run(np.zeros((24, 4)), 3)
+    assert bool(res.active.all()) and eng.topology_counters()["arrivals"] == 1
     port_fields = {f.name for f in dataclasses.fields(EngineConfig)}
     ref_fields = {f.name for f in dataclasses.fields(jsim.EngineConfig)}
     # Every reference field is the port's (steps_per_chunk sizes the

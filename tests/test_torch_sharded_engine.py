@@ -41,6 +41,7 @@ from repro_torch.sim import (
     DelayConfig,
     EngineConfig,
     ExchangeSpec,
+    GraphUpdate,
     PropagationUpdate,
     Scenario,
     ShardedAsyncEngine,
@@ -421,17 +422,20 @@ def test_refusals_name_their_items(quad96):
     st = eng.init_state(np.zeros((96, 4)))
     with pytest.raises(NotImplementedError, match="A12"):
         eng.state_dict(st)
-    for call in (lambda: eng.set_topology(st, port.graph), lambda: eng.admit(st, [0]),
-                 lambda: eng._refresh_topology(st, 0)):
-        with pytest.raises(NotImplementedError, match="A11"):
+    # Dynamic topology (A11) is live; a static engine refuses its swaps.
+    for call, match in ((lambda: eng.set_topology(st, port.graph), "static-topology"),
+                        (lambda: eng.admit(st, [0]), "no arrival"),
+                        (lambda: eng._refresh_topology(st, 0), "no graph_update")):
+        with pytest.raises(ValueError, match=match):
             call()
     with pytest.raises(NotImplementedError, match="A10b"):
         eng.phase_program("fused_row_update")
     with pytest.raises(NotImplementedError, match="delay"):
         ShardedAsyncEngine(CDUpdate(port), num_shards=2, device="cpu",
                            scenario=Scenario(delay=DelayConfig(max_delay=1)))
-    with pytest.raises(NotImplementedError, match="A11"):
-        EngineConfig(device="cpu", fused=True, graph_update=object())
+    with pytest.raises(ValueError, match="fused=True is static-topology only"):
+        ShardedAsyncEngine(CDUpdate(port), num_shards=2, device="cpu", fused=True,
+                           graph_update=GraphUpdate(every=2))
     with pytest.raises(ValueError, match="prebuilt partition"):
         ShardedAsyncEngine(CDUpdate(port), num_shards=3, partition=eng.part, device="cpu")
     with pytest.raises(ValueError, match="batch_size"):

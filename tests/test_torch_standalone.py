@@ -35,7 +35,8 @@ def test_every_module_imports_without_jax_or_reference():
             "repro_torch.bench.cd_vs_admm", "repro_torch.bench.movielens",
             "repro_torch.bench.privacy_utility", "repro_torch.bench.ablations",
             "repro_torch.obs", "repro_torch.obs.metrics", "repro_torch.obs.report",
-            "repro_torch.sim.capture", "repro_torch.sim.partition"} <= set(mods)
+            "repro_torch.sim.capture", "repro_torch.sim.partition",
+            "repro_torch.bench.dynamic_topology"} <= set(mods)
     code = textwrap.dedent(
         f"""
         import importlib, sys
