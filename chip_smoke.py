@@ -72,6 +72,27 @@ Phases, one line each (any failure ends the run with a non-zero code):
    200 DP aggregation rounds of (256, 4096) per-example gradients through
    ``ops.dp_clip_noise``, the path by which the kernel is reached (no engine
    path calls it, as in the JAX package);
+4c. checkpoints and serving on the same problem (``repro_torch.checkpoint``,
+   ``repro_torch.serve``): the ``fused``, ``dp_fused`` (metrics on),
+   ``unfused`` and ``sharded_fused_bf16_ef`` legs' phase-4 states (their
+   captured live buffers) are each saved into a rotation under
+   ``build/ckpt`` (at most 2 entries, removed after the leg; the free
+   space is printed first), restored into a fresh engine of the same
+   config, and both engines advance 37 captured slots: every state
+   tensor and the generator's state must be ``torch.equal``, and the
+   leg's kernel must launch once a slot on each (counts reset before each
+   leg and read after). Printed: seconds to save and to restore, bytes on
+   disk, save MB/s; the S = 8 entry restored at S = 4 (its seconds, the
+   rows, and the run totals, which must be kept). Then live serving on
+   the ``fused`` leg: windows of 800 slots through ``run``, serving off
+   and on in turns (on: ``run(snapshot_every=16, serve=handle)`` in a
+   trainer thread while this thread issues ``predict`` batches of 1024
+   ids, a tenth of them cold with 4 neighbours); every 25th answer is
+   held against a recomputation from its pinned snapshot. Printed: the
+   slot rates off and on, p50 and p99 ms, predictions/s, device us a
+   publication, the largest version lag. Last, ``python -m
+   repro_torch.serve --live`` once at its default size, its summary
+   parsed;
 4d. dynamic topology on the same problem, uncut and unfused by the rule:
    ``GraphUpdate(every=400, k=10, candidates=4, gamma=4.0)`` (the refresh
    of ``benchmarks/bench_dynamic_topology.py``: one interior refresh in 800
@@ -107,7 +128,11 @@ Phases, one line each (any failure ends the run with a non-zero code):
    a refresh within capacity (no recapture), a capacity-growing swap (one),
    an admission and, sharded at S = 4, a weight-only patch, a structural
    patch and a forced repartition, and the card vs the CPU with explicit
-   refreshes and admissions;
+   refreshes and admissions; a dynamic run at n = 512 saved at slots 20
+   (a refresh boundary), 25 and 40 (after an admission), restored into a
+   fresh engine and run to slot 50, bit for bit against the
+   uninterrupted run (single-device and S = 4), and its last entry
+   served on the card and on the CPU (predictions within 1e-5);
 6. zamba2-1.2b serving at its full width and depth (38 layers, d_model
    2048, bfloat16, random weights from a seeded generator on the card):
    4 prompts of 2048 tokens through ``bundle.prefill`` (a warm-up, then 5
@@ -137,7 +162,10 @@ Phases, one line each (any failure ends the run with a non-zero code):
    private accuracy must be finite and in [0, 1]. These benches launch
    none of the kernels. Last, ``repro_torch.bench.dynamic_topology`` at
    n = 200,000 (host-side: patch against rebuild, the drift), which must
-   hold its halo parity;
+   hold its halo parity; ``repro_torch.bench.checkpoint`` at its
+   reference default (n = 200,000, S = 8) and ``repro_torch.bench.serving``
+   (n = 100,000, S = 8, batch 1024), each row beside the reference's CPU
+   row in ``BENCH_summary.json``;
 8. a JSON line of every ported kernel (launches, error, times, bound),
    then the last line ``{"ok": true, "device": {...}}``.
 """
@@ -1999,6 +2027,380 @@ def dynamic_bench() -> dict:
     return rows
 
 
+# Phase 4c: checkpoints and serving on rgg500k_p100 (see PERF.md, "Cells").
+CKPT_LEGS = ("fused", "dp_fused", "unfused", "sharded_fused_bf16_ef")
+CKPT_KERNEL = {"fused": "fused_row_update", "dp_fused": "fused_row_update",
+               "unfused": "sparse_mix", "sharded_fused_bf16_ef": "fused_row_update"}
+CKPT_RESUME_SLOTS = CAPTURE_PARITY_SLOTS  # both engines advance these after the restore
+CKPT_KEEP = 2  # entries of a leg on disk at once, at most
+ELASTIC_SHARDS = 4  # the S = 8 entry restores into this many shards
+SERVE = dict(batch=1024, cold_every=10, cold_neighbors=4, snapshot_every=16, window=800,
+             turns=3, check_every=25)
+
+
+def _entry_bytes(entry) -> int:
+    import os
+
+    return sum(os.path.getsize(os.path.join(entry, f)) for f in os.listdir(entry))
+
+
+def checkpoint_legs(engines, states, make, launches: dict) -> dict:
+    """Phase 4c, checkpoints: for each leg of ``CKPT_LEGS`` the phase-4
+    state (its captured live buffers) is saved into a rotation under
+    ``build/ckpt`` (``keep_last=CKPT_KEEP``), restored into a fresh engine
+    of the same config (``make[leg]()``), and both advance
+    ``CKPT_RESUME_SLOTS`` captured slots: every state tensor and the
+    generator's state must be ``torch.equal``. Launch counts are reset
+    before each leg and read after it: the leg's kernel must have run
+    once a slot on both engines. Prints the seconds to save and restore,
+    the bytes on disk and the save MB/s; the sharded leg's entry is also
+    restored at ``ELASTIC_SHARDS`` shards (:func:`elastic_restore`). Each
+    leg's entry is removed after it, the directory after the phase. The
+    legs' states are their engines' live buffers, advanced in place.
+    Returns the rows."""
+    import shutil
+
+    import torch
+
+    from repro_torch.checkpoint import restore, save_engine_checkpoint
+    from repro_torch.kernels import ops
+
+    root = ROOT / "build" / "ckpt"
+    if root.exists():
+        shutil.rmtree(root)
+    root.mkdir(parents=True)
+    free = shutil.disk_usage(root).free
+    log(f"[4c] free disk under build/: {free / 1e9:.3f} GB; entries kept per leg <= {CKPT_KEEP}")
+    out, m = {"free_disk_bytes": free}, CKPT_RESUME_SLOTS
+    try:
+        for key in CKPT_LEGS:
+            eng, state = engines[key], states[key]
+            ops.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            entry = save_engine_checkpoint(eng, state, str(root / key), keep_last=CKPT_KEEP)
+            save_s = time.perf_counter() - t0
+            nbytes = _entry_bytes(entry)
+            fresh = make[key]()
+            t0 = time.perf_counter()
+            restored, step = restore(fresh, str(root / key))
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            elastic = (elastic_restore(eng, state, str(root / key), make)
+                       if key == "sharded_fused_bf16_ef" else None)
+            want = _state_leaves(eng.advance(state, m))
+            got = _state_leaves(fresh.advance(restored, m))
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            for k, v in counts.items():
+                launches[k] = launches.get(k, 0) + v
+            differ = [k for k in want if not torch.equal(want[k], got[k])]
+            row = dict(step=step, save_s=save_s, restore_s=restore_s, bytes=nbytes,
+                       save_mb_per_s=nbytes / save_s / 1e6, resumed_slots=m, tensors=len(want),
+                       launches=counts)
+            log(f"[4c] rgg500k_p100 {key}: saved at slot {step}, restored into a fresh engine, "
+                f"both advanced {m} captured slots: {fmt({k: v for k, v in row.items() if k != 'launches'})} "
+                f"launches={counts}")
+            if differ:
+                raise SystemExit(f"checkpoint {key}: resumed != uninterrupted in {differ}")
+            if counts[CKPT_KERNEL[key]] != 2 * m:
+                raise SystemExit(f"checkpoint {key}: {CKPT_KERNEL[key]} launched "
+                                 f"{counts[CKPT_KERNEL[key]]} times, not {2 * m}")
+            if elastic is not None:
+                row["elastic"] = elastic
+            out[key] = row
+            del fresh, restored, want, got
+            gc.collect()
+            torch.cuda.empty_cache()
+            shutil.rmtree(root / key)
+    finally:
+        shutil.rmtree(root)
+    return out
+
+
+def elastic_restore(eng, state, path, make) -> dict:
+    """The S = 8 entry at ``path`` restored into an engine of the same
+    config at ``ELASTIC_SHARDS`` shards (its own RCM cut, built here):
+    the seconds, the models (each agent's row equal, on the card), and the
+    run totals, which must be kept (collapsed into shard 0)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint import restore
+
+    t0 = time.perf_counter()
+    small = make["elastic"]()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    restored, step = restore(small, path)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    totals = {k: (int(getattr(state, k).sum()) if k != "messages" else
+                  float(getattr(state, k).double().sum())) for k in ("applied", "dropped",
+                                                                      "messages")}
+    got = {k: (int(getattr(restored, k).sum()) if k != "messages" else
+               float(getattr(restored, k).double().sum())) for k in totals}
+    same_rows = bool(torch.equal(small._agent_theta(restored), eng._agent_theta(state)))
+    # ``messages`` is a float32 counter: its collapsed total is the float32
+    # nearest the saved shards' exact sum (above 2^24 a float32 holds even
+    # counts only), as in the reference.
+    kept = dict(totals, messages=float(np.float32(totals["messages"])))
+    row = dict(shards=f"{eng.num_shards}->{small.num_shards}", restore_s=secs,
+               engine_build_s=build_s, step=step, rows_equal=same_rows, totals=got,
+               ptr=int(restored.ptr[0]))
+    log(f"[4c] elastic restore S={eng.num_shards} -> S={small.num_shards}: {fmt(row)}; "
+        f"saved totals {totals} (messages as float32: {kept['messages']:.1f})")
+    if got != kept or not same_rows or row["ptr"] != eng._ptr_of(state):
+        raise SystemExit(f"elastic restore: totals {got} != {totals}, rows equal {same_rows}")
+    return row
+
+
+def _serve_batches(n, p, rng):
+    """Request batches of ``SERVE["batch"]`` ids, every ``cold_every``-th a
+    cold id (n + j, not yet in the swarm) with ``cold_neighbors`` warm
+    attachment neighbours; features from ``rng``."""
+    import numpy as np
+
+    B = SERVE["batch"]
+    cold = n + np.arange(B // SERVE["cold_every"])
+    neighbors = {int(c): tuple(int(j) for j in rng.choice(n, SERVE["cold_neighbors"],
+                                                          replace=False)) for c in cold}
+    batches = []
+    for _ in range(8):
+        ids = rng.integers(0, n, B)
+        ids[:: SERVE["cold_every"]][: cold.size] = cold
+        batches.append((ids, rng.normal(size=(B, p)).astype(np.float32)))
+    return batches, neighbors
+
+
+def _recompute(snap, ids, X, neighbors):
+    """The scores of ``ids`` from the pinned snapshot's tiles, recomputed in
+    plain PyTorch (the Eq. 16 uniform average for cold ids), and the warm
+    rows."""
+    import numpy as np
+    import torch
+
+    n = snap.tiles.shape[1]
+    K = max(len(v) for v in neighbors.values())
+    gids = np.zeros((ids.size, K), np.int64)
+    w = np.zeros((ids.size, K), np.float32)
+    for b, i in enumerate(ids.tolist()):
+        nb = (i,) if i < n else neighbors[i]
+        gids[b, : len(nb)] = nb
+        w[b, : len(nb)] = 1.0 / len(nb)
+    dev = snap.tiles.device
+    rows = snap.tiles[0][torch.as_tensor(gids, device=dev)]
+    theta = (torch.as_tensor(w, device=dev).unsqueeze(-1) * rows).sum(dim=1)
+    y = (theta * torch.as_tensor(X, device=dev)).sum(dim=-1)
+    return y.cpu().numpy(), theta
+
+
+def live_serving(eng, state) -> dict:
+    """Phase 4c, live serving on the ``fused`` leg: windows of
+    ``SERVE["window"]`` slots through ``run`` (the captured chunk), with
+    serving off and on in turns. On: ``run(snapshot_every=16,
+    serve=handle)`` in a trainer thread while this thread issues
+    ``predict`` batches of 1024 ids (a tenth cold, with 4 neighbours);
+    every ``check_every``-th answer is held against a recomputation from
+    its pinned snapshot (equal, and warm rows equal to the snapshot's).
+    Returns the slot rates off and on, p50/p99 ms, predictions/s, device
+    us a publish (CUDA events around each copy in the trainer's stream) and
+    the copy alone (``time_ms`` of the clone, beside its bound), the
+    largest version lag and the state reached."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from repro_torch.serve import ServeHandle
+
+    handle = ServeHandle.for_engine(eng)
+    batches, neighbors = _serve_batches(eng.n, eng.p, np.random.default_rng(5))
+    W = SERVE["window"]
+    rates, lat, checked = {"off": [], "on": []}, [], 0
+    for _ in range(SERVE["turns"]):
+        for mode in ("off", "on"):
+            torch.cuda.synchronize()
+            if mode == "off":
+                t0 = time.perf_counter()
+                state = eng.run(None, W, state=state).state
+                rates[mode].append(W / (time.perf_counter() - t0))
+                continue
+            box, done = {}, threading.Event()
+
+            def train():
+                try:
+                    box["result"] = eng.run(None, W, state=state, serve=handle,
+                                            snapshot_every=SERVE["snapshot_every"])
+                finally:
+                    done.set()
+
+            trainer = threading.Thread(target=train, name="trainer")
+            first = eng._ptr_of(state)  # the version this window's run publishes first
+            t0 = time.perf_counter()
+            trainer.start()
+            i = 0
+            while not done.is_set():
+                if not handle.published or handle.version < first:
+                    time.sleep(1e-4)  # leave the GIL to the trainer until its first publication
+                    continue
+                ids, X = batches[i % len(batches)]
+                snap = handle.snapshot() if i % SERVE["check_every"] == 0 else None
+                t1 = time.perf_counter()
+                res = handle.predict(ids, X, neighbors=neighbors, at=snap)
+                lat.append(time.perf_counter() - t1)
+                if snap is not None:
+                    want, theta = _recompute(snap, ids, X, neighbors)
+                    warm = ids < eng.n
+                    dev = snap.tiles.device
+                    rows = snap.tiles[0][torch.as_tensor(ids[warm], device=dev)]
+                    if not (np.array_equal(res.values, want) and res.version == snap.version
+                            and torch.equal(theta[torch.as_tensor(warm, device=dev)], rows)):
+                        raise SystemExit(f"live serving: an answer of version {snap.version} "
+                                         "differs from its snapshot's recomputation")
+                    checked += 1
+                i += 1
+            trainer.join()
+            secs = time.perf_counter() - t0
+            if "result" not in box:
+                raise SystemExit("live serving: the trainer thread failed")
+            state = box["result"].state
+            rates[mode].append(W / secs)
+    c = handle.counters()
+    lat = np.asarray(lat)
+    # The publication's copy alone, as time_ms times a kernel: the (1, n, p)
+    # clone, against the bound of its bytes (each read once, written once).
+    theta = state.Theta.unsqueeze(0)
+    clone_ms = time_ms(lambda: theta.clone())
+    clone_bound_ms = 2 * theta.numel() * theta.element_size() / HBM_BYTES_PER_S * 1e3
+    out = dict(slots_per_s_off=rates["off"], slots_per_s_on=rates["on"],
+               clone_ms=clone_ms, clone_bound_ms=clone_bound_ms,
+               on_over_off=[a / b for a, b in zip(rates["on"], rates["off"])],
+               requests=int(lat.size), checked=checked,
+               p50_ms=float(np.percentile(lat, 50) * 1e3),
+               p99_ms=float(np.percentile(lat, 99) * 1e3),
+               predictions_per_s=float(SERVE["batch"] * lat.size / lat.sum()),
+               publish_device_us=1e6 * handle.publish_device_seconds()
+               / c["serve_snapshots_published"],
+               publish_host_us=1e6 * c["serve_publish_s_total"] / c["serve_snapshots_published"],
+               snapshots=c["serve_snapshots_published"], version_lag_max=c["serve_version_lag_max"],
+               cold_rows=c["serve_cold_starts"], version=handle.version)
+    log(f"[4c] rgg500k_p100 fused live serving ({SERVE['window']}-slot windows, off and on in "
+        f"turns, snapshot_every={SERVE['snapshot_every']}, batch {SERVE['batch']}): "
+        f"{fmt({k: v for k, v in out.items() if not isinstance(v, list)})} slots/s off "
+        f"{[round(r, 2) for r in rates['off']]} on {[round(r, 2) for r in rates['on']]}")
+    if checked < SERVE["turns"] or out["version"] != eng._ptr_of(state):
+        raise SystemExit(f"live serving: {checked} answers checked, version {out['version']}")
+    return out, state
+
+
+def serve_cli() -> dict:
+    """``python -m repro_torch.serve --live`` once at its default size on
+    the card, in a subprocess: its JSON summary, parsed."""
+    import os
+
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", "repro_torch.serve", "--live"],
+                         env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+                         capture_output=True, text=True, timeout=300)
+    secs = time.perf_counter() - t0
+    if run.returncode != 0:
+        raise SystemExit(f"python -m repro_torch.serve --live failed: {run.stderr[-2000:]}")
+    summary = json.loads(run.stdout.strip().splitlines()[-1])
+    keep = ("mode", "n", "p", "version", "slots", "requests", "predictions_per_s", "p50_ms",
+            "p99_ms", "publish_device_s_total", "serve_publish_s_total", "serve_version_lag_max",
+            "device")
+    row = {k: summary[k] for k in keep}
+    log(f"[4c] python -m repro_torch.serve --live (default size, {secs:.2f} s with start-up): "
+        f"{fmt(row)}")
+    if summary["version"] != summary["slots"] or summary["device"] != "cuda":
+        raise SystemExit(f"serve CLI: {summary}")
+    return row
+
+
+def dynamic_resume(dev) -> dict:
+    """Phase 5: a dynamic run at n = 512 (churn, stragglers, a refresh every
+    20 slots, 8 arrivals at slot 30) cut at 20 (the refresh boundary), 25
+    and 40 (after the admission), saved, restored into a fresh engine and
+    run to 50: every state tensor, the generator, the graph and the
+    topology log equal the uninterrupted run's, single-device and sharded
+    (S = 4). Then the last entry served on the card and on the CPU:
+    predictions within ``PARITY_TOL``."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint import restore, save_engine_checkpoint
+    from repro_torch.serve import serve_from_checkpoint
+    from repro_torch.sim import ArrivalConfig, ChurnConfig, GraphUpdate, Scenario, StragglerConfig
+
+    obj = _knn512()
+    scen = Scenario(churn=ChurnConfig(leave_prob=0.05, rejoin_prob=0.3),
+                    straggler=StragglerConfig(drop_prob=0.2),
+                    arrival=ArrivalConfig(schedule=((30, DYN_SMALL_IDS),), attach_k=4, seed=3))
+    gu = GraphUpdate(every=20, k=3, candidates=4, gamma=2.0, seed=1)
+    zeros = np.zeros((obj.n, obj.p), dtype=np.float32)
+    out = {}
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as td:
+        for label, sharded in (("single", False), ("sharded", True)):
+            def make():
+                return _dyn_small(obj, dev, sharded=sharded, scenario=scen, graph_update=gu)
+
+            ref = make()
+            want = _state_leaves(ref.run(zeros, 50).state)
+            for cut in (20, 25, 40):
+                eng = make()
+                half = eng.run(zeros, cut)
+                ck = f"{td}/{label}{cut}"
+                save_engine_checkpoint(eng, half.state, ck)
+                res = make()
+                st, _ = restore(res, ck)
+                got = _state_leaves(res.run(None, 50 - cut, state=st).state)
+                differ = [k for k in want if not torch.equal(want[k], got[k])]
+                if differ or res.topology_counters() != ref.topology_counters() or \
+                        res._csr.digest() != ref._csr.digest():
+                    raise SystemExit(f"dynamic resume {label} cut {cut}: differs in {differ}")
+            out[label] = dict(cuts=[20, 25, 40], tensors=len(want),
+                              topology=ref.topology_counters())
+            card = serve_from_checkpoint(ck, device=dev)
+            cpu = serve_from_checkpoint(ck, device="cpu")
+            rng = np.random.default_rng(9)
+            ids = rng.integers(0, obj.n, 256)
+            ids[:8] = DYN_SMALL_IDS  # admitted by slot 30: warm
+            X = rng.normal(size=(256, obj.p))
+            err = float(np.abs(card.predict(ids, X).values - cpu.predict(ids, X).values).max())
+            out[label]["served_card_vs_cpu"] = err
+            if not err <= PARITY_TOL:
+                raise SystemExit(f"dynamic resume {label}: served card vs CPU {err}")
+    log("[5] dynamic resume at n=512, cut at 20 (refresh boundary), 25, 40 (after the "
+        "admission): resumed == uninterrupted bit for bit, "
+        + " ".join(f"{k}({v['tensors']} tensors, served card vs CPU "
+                   f"{v['served_card_vs_cpu']:.3e})" for k, v in out.items()))
+    return out
+
+
+def checkpoint_benches(dev) -> dict:
+    """Phase 7: ``repro_torch.bench.checkpoint`` at its reference default
+    (n = 200,000, S = 8; the entry under ``build/``) and
+    ``repro_torch.bench.serving`` (n = 100,000, S = 8, batch 1024), each
+    row printed beside the reference's CPU row in ``BENCH_summary.json``."""
+    from repro_torch.bench import checkpoint, serving
+
+    reference = json.loads((ROOT / "BENCH_summary.json").read_text())
+    out = {}
+    for name, rows in (("checkpoint", checkpoint.run(device=dev, workdir=ROOT / "build",
+                                                      verbose=False)),
+                       ("serving", serving.run(device=dev, verbose=False))):
+        out[name] = {row: v for row, v, _ in rows}
+        log(f"[7] {name} bench on the card: "
+            + " ".join(f"{row}={v:.6g} ({note}; reference CPU "
+                       f"{reference[row]['us_per_call'] if row in reference else 'none'}"
+                       f"{', ' + reference[row]['derived'] if row in reference else ''})"
+                       for row, v, note in rows))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2075,11 +2477,11 @@ def main() -> int:
         eng.partition_seconds = part_s
         return eng
 
+    bf16_ef = ExchangeSpec(method="p2p", dtype="bf16", error_feedback=True)
     engines.update(
         sharded_fused=sharded("auto", ExchangeSpec(), metrics=True),
         sharded_unfused=sharded(False, ExchangeSpec()),
-        sharded_fused_bf16_ef=sharded("auto", ExchangeSpec(method="p2p", dtype="bf16",
-                                                           error_feedback=True)))
+        sharded_fused_bf16_ef=sharded("auto", bf16_ef))
     torch.cuda.synchronize()
     log(f"[4] set-up rgg500k_p100: n={obj.n} p={obj.p} m={c['m']} "
         f"max_degree={obj.graph.max_degree()} mean_degree={obj.graph.nnz / obj.n:.3f} "
@@ -2122,6 +2524,31 @@ def main() -> int:
     sharded_metrics_check(engines, states, main_path)
     main_path["dp_clip_noise"] = dp_clip_noise_leg(dev, launches)
 
+    # [4c] checkpoints and serving: four legs saved, restored into fresh
+    # engines and resumed (counts reset before each leg and read after),
+    # the S = 8 -> 4 elastic restore, live serving on the fused leg, and
+    # the serving CLI
+    ckpt_make = {
+        "fused": lambda: engine(CDUpdate(obj), "auto"),
+        "dp_fused": lambda: engine(DPCDUpdate.plan(dp_obj, dp_cfg, planned_Ti), "auto",
+                                   metrics=True),
+        "unfused": lambda: engine(CDUpdate(obj), False),
+        "sharded_fused_bf16_ef": lambda: sharded("auto", bf16_ef),
+        "elastic": lambda: ShardedAsyncEngine(
+            CDUpdate(obj), num_shards=ELASTIC_SHARDS, exchange=bf16_ef,
+            partition=partition_graph(obj.graph, ELASTIC_SHARDS, mode=SHARDED["partition_mode"],
+                                      relabel=SHARDED["relabel"]),
+            slot_wakes=c["slot_wakes"], scenario=scenario, seed=c["seed"], fused="auto",
+            device=dev),
+    }
+    ckpt = checkpoint_legs(engines, states, ckpt_make, launches)
+    ckpt["live_serving"], states["fused"] = live_serving(engines["fused"], states["fused"])
+    ckpt["serve_cli"] = serve_cli()
+    main_path["checkpoint_serving"] = ckpt
+    del ckpt_make
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # [4d] dynamic topology: a refresh and two admissions in 800 slots of
     # each dynamic leg, then 16 traced slots of each
     dyn_engines = dynamic_engines(obj, scenario.churn, dev)
@@ -2152,6 +2579,7 @@ def main() -> int:
     parity(dev)
     main_path["sharded_parity"] = sharded_parity(dev)
     main_path["dynamic_parity"] = dynamic_parity(dev)
+    main_path["dynamic_resume"] = dynamic_resume(dev)
 
     # [6] zamba2-1.2b serving: the prefill's counts are reset before each
     # prefill and read after it
@@ -2160,6 +2588,7 @@ def main() -> int:
     # [7] the paper benches on the card, and the dynamic-topology bench
     benches = paper_benches(dev)
     benches["dynamic_topology"] = dynamic_bench()
+    benches.update(checkpoint_benches(dev))
 
     # [8] the kernel table and the result
     src = {"sparse_mix": "src/repro/kernels/sparse_mix.py:60",

@@ -15,15 +15,18 @@ Port of the parts of ``repro.obs`` the engines need:
 The dynamic-topology counters (``TOPOLOGY_COUNTERS``) are host-side:
 both engines keep them in ``topology_counters()`` and add them to a
 dynamic engine's ``metrics_snapshot`` derived dict as ``topology_*``.
+The serving counters (``SERVE_COUNTERS``, :func:`serve_counters_init`)
+are host-side too: :class:`repro_torch.serve.ServeHandle` keeps them.
 The reference's ``obs.trace`` (spans, Chrome trace export,
-``profile_supertick``) is ROADMAP item A10b; its serving counters come
-with A13.
+``profile_supertick``) is ROADMAP item A10b.
 """
 
 from repro_torch.obs.metrics import (
+    SERVE_COUNTERS,
     ExchangeVolume,
     MetricsAccumulator,
     MetricsSpec,
+    serve_counters_init,
     summarize_counters,
 )
 from repro_torch.obs.report import RunReport, merge_bench_summary
@@ -33,6 +36,8 @@ __all__ = [
     "MetricsAccumulator",
     "MetricsSpec",
     "RunReport",
+    "SERVE_COUNTERS",
     "merge_bench_summary",
+    "serve_counters_init",
     "summarize_counters",
 ]

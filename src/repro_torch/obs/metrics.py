@@ -328,6 +328,27 @@ def topology_log_init() -> dict:
     return {k: (0.0 if k == "last_drift" else 0) for k in TOPOLOGY_COUNTERS}
 
 
+# Host-side serving counters, in the reference's layout: serving happens on
+# the host (snapshot publication from run() events, batched predict() calls
+# against the latest published version), so repro_torch.serve.ServeHandle
+# keeps a plain dict of these.
+SERVE_COUNTERS = (
+    "serve_requests",  # predict()/rows() calls answered
+    "serve_predictions",  # total rows scored across all batches
+    "serve_batch_rows_max",  # gauge: largest request batch seen
+    "serve_cold_starts",  # rows synthesized via the Eq. 16 neighbour average
+    "serve_snapshots_published",  # publish() calls (one per snapshot_every slots)
+    "serve_version_lag",  # gauge: newest published slot minus the slot just served
+    "serve_version_lag_max",  # worst version lag any request observed
+    "serve_publish_s_total",  # wall seconds spent publishing snapshots (float)
+)
+
+
+def serve_counters_init() -> dict:
+    """A fresh host-side serving counter dict (all zeros)."""
+    return {k: (0.0 if k == "serve_publish_s_total" else 0) for k in SERVE_COUNTERS}
+
+
 def summarize_counters(snapshot: dict) -> dict:
     """Collapse a snapshot into JSON-ready totals.
 

@@ -47,6 +47,11 @@ What a graph needs, and how the engine gives it:
   and the next ``advance`` adopts the state it is given, runs an eager
   warm-up slot (it counts) and captures again.
 
+* **Other threads.** A capture is ``thread_local``: it checks only the
+  capturing thread's CUDA calls, so a serving thread (``repro_torch.serve``)
+  may gather from its snapshots on its own stream while the trainer
+  captures; the snapshots are copies, never the live buffers.
+
 A capture that fails raises; nothing carries on eagerly.
 """
 
@@ -153,7 +158,10 @@ class ChunkGraphs:
         before = _build.launch_counts()
         current = torch.cuda.current_stream(eng.device)
         try:
-            with torch.cuda.graph(graph, pool=pool, stream=self.stream):
+            # thread_local: a capture checks only this thread's CUDA calls, so
+            # a serving thread reading snapshots meanwhile breaks nothing.
+            with torch.cuda.graph(graph, pool=pool, stream=self.stream,
+                                  capture_error_mode="thread_local"):
                 out = live
                 for _ in range(steps):
                     out = eng._slot(out, None)

@@ -184,18 +184,41 @@ def _event_stride(events, default: int) -> int:
 
 
 def _run_driver(engine, Theta0, slots: int, *, record_every: int = 0, state=None,
-                metrics_every: int = 0, report=None):
-    """The run loop behind both engines' ``run``: objective recording every
-    ``record_every`` slots and metric drains into a
-    :class:`repro_torch.obs.RunReport` every ``metrics_every``, as
-    ``(every, callback)`` events of :func:`_drive_slots`, chunked at
-    :func:`_event_stride` — or of :func:`_drive_dynamic` for a
-    dynamic-topology engine. Returns ``(state, objective, report)``."""
+                metrics_every: int = 0, report=None, checkpoint_every: int = 0,
+                checkpoint_dir: str | None = None, checkpoint_keep_last: int = 3,
+                snapshot_every: int = 0, serve=None):
+    """The run loop behind both engines' ``run``, the reference's.
+
+    Validates the periodic side effects (the same messages from either
+    engine) and registers each as an ``(every, callback)`` event of
+    :func:`_drive_slots`, chunked at :func:`_event_stride`, or of
+    :func:`_drive_dynamic` for a dynamic-topology engine: objective
+    recording every ``record_every`` slots, metric drains into a
+    :class:`repro_torch.obs.RunReport` every ``metrics_every``, crash-safe
+    checkpoints (:func:`repro_torch.checkpoint.save_engine_checkpoint`)
+    every ``checkpoint_every`` into the ``checkpoint_keep_last`` rotation
+    at ``checkpoint_dir``, and snapshots published to the
+    :class:`repro_torch.serve.ServeHandle` ``serve`` every
+    ``snapshot_every``, plus once before the first slot, so readers have
+    a version from the start. Every event runs between chunks: the
+    captured chunk replays ``stride`` slots at a time between them.
+    Returns ``(state, objective, report)``."""
     _check_recordable(engine.update, record_every)
     if metrics_every > 0 and engine._macc is None:
         raise ValueError(
             "metrics_every requires metrics collection on; construct the "
             "engine with EngineConfig(metrics=True) (or a MetricsSpec)"
+        )
+    if (checkpoint_every > 0) != (checkpoint_dir is not None):
+        raise ValueError(
+            "checkpoint_every and checkpoint_dir come together: pass both "
+            "(periodic checkpoints) or neither"
+        )
+    if (snapshot_every > 0) != (serve is not None):
+        raise ValueError(
+            "snapshot_every and serve come together: pass both (a "
+            "repro_torch.serve.ServeHandle receiving the published snapshots) "
+            "or neither"
         )
     state = engine.init_state(Theta0) if state is None else state
     objective = [engine._objective_value(state)] if record_every > 0 else None
@@ -211,11 +234,28 @@ def _run_driver(engine, Theta0, slots: int, *, record_every: int = 0, state=None
             report.add_snapshot(engine._ptr_of(s), counters, derived)
 
         events.append((metrics_every, _drain))
+    if checkpoint_every > 0:
+        from repro_torch.checkpoint.engine_io import save_engine_checkpoint
+
+        events.append((checkpoint_every, lambda s: save_engine_checkpoint(
+            engine, s, checkpoint_dir, keep_last=checkpoint_keep_last)))
+    advance = engine.advance
+    if snapshot_every > 0:
+        # The publications' versions, counted on the host as the slots are
+        # driven: one read of the slot counter, not one per publication.
+        slot = [engine._ptr_of(state)]
+
+        def advance(s, k):
+            slot[0] += k
+            return engine.advance(s, k)
+
+        serve.publish(state, version=slot[0])
+        events.append((snapshot_every, lambda s: serve.publish(s, version=slot[0])))
     if engine.dynamic:
-        state = _drive_dynamic(engine, state, slots, events, engine.advance)
+        state = _drive_dynamic(engine, state, slots, events, advance)
     else:
         stride = _event_stride(events, engine.steps_per_chunk)
-        state = _drive_slots(state, slots, stride, engine.advance, events)
+        state = _drive_slots(state, slots, stride, advance, events)
     return state, objective, report
 
 
@@ -641,6 +681,15 @@ class AsyncEngine:
             metrics=None if self._macc is None else self._macc.init(dev),
         )
 
+    def state_dict(self, state: SimState, step: int | None = None):
+        """The complete resume closure as ``(files, manifest)``: every state
+        leaf (the generator's state as ``.generator``) plus the live topology
+        and its host log; what
+        :func:`repro_torch.checkpoint.save_engine_checkpoint` writes."""
+        from repro_torch.checkpoint.engine_io import engine_state_dict
+
+        return engine_state_dict(self, state, step=step)
+
     # -- one super-tick ----------------------------------------------------
     def _compact(self, wake):
         """The woken batch of a slot, at static shape (B,).
@@ -897,6 +946,11 @@ class AsyncEngine:
         state: SimState | None = None,
         metrics_every: int = 0,
         report=None,
+        checkpoint_every: int = 0,
+        checkpoint_dir: str | None = None,
+        checkpoint_keep_last: int = 3,
+        snapshot_every: int = 0,
+        serve=None,
     ) -> SimResult:
         """Drive ``slots`` super-ticks from ``Theta0`` (or a resumed ``state``).
 
@@ -906,12 +960,21 @@ class AsyncEngine:
         ``EngineConfig(metrics=...)``) into a
         :class:`repro_torch.obs.RunReport` returned as ``SimResult.report``;
         pass ``report=`` to keep appending to an existing one across resumed
-        runs. The slots run in chunks of ``steps_per_chunk`` (of the gcd of
-        the periods when any is set), as in the reference.
+        runs. ``checkpoint_every`` > 0 with ``checkpoint_dir`` writes a
+        crash-safe engine checkpoint every that many slots into a rotation
+        keeping the newest ``checkpoint_keep_last`` entries
+        (:func:`repro_torch.checkpoint.restore` then ``run(None, k,
+        state=...)`` continues bit for bit). ``snapshot_every`` > 0 with
+        ``serve`` (a :class:`repro_torch.serve.ServeHandle`) publishes a
+        serving snapshot every that many slots and once at the start. The
+        slots run in chunks of ``steps_per_chunk`` (of the gcd of the
+        periods when any is set), as in the reference.
         """
         state, objective, report = _run_driver(
             self, Theta0, slots, record_every=record_every, state=state,
-            metrics_every=metrics_every, report=report,
+            metrics_every=metrics_every, report=report, checkpoint_every=checkpoint_every,
+            checkpoint_dir=checkpoint_dir, checkpoint_keep_last=checkpoint_keep_last,
+            snapshot_every=snapshot_every, serve=serve,
         )
         return SimResult(
             Theta=state.Theta.to("cpu", copy=True).numpy(),
@@ -990,8 +1053,8 @@ class ShardedAsyncEngine:
     is at most ``EngineConfig.drift_threshold``, or cuts a new partition
     and re-lays the state out; the slab's halo part (and on a repartition
     the owned part) changes shape, so every swap drops the captured
-    graphs. Refused: per-edge delays (as in the reference), and, each
-    naming its ROADMAP item, checkpoints (A12) and phase programs (A10b).
+    graphs. Refused: per-edge delays (as in the reference), and phase
+    programs (ROADMAP item A10b).
     """
 
     def __init__(self, update: LocalUpdate, *, num_shards: int, config: EngineConfig | None = None,
@@ -1263,11 +1326,13 @@ class ShardedAsyncEngine:
                            torch.zeros((S, R), dtype=torch.bool, device=dev), ustate)
 
     def state_dict(self, state: ShardedSimState, step: int | None = None):
-        """The per-shard checkpoint closure: ROADMAP item A12, not ported yet."""
-        raise NotImplementedError(
-            "ShardedAsyncEngine.state_dict (per-shard checkpoints) is ROADMAP item A12, "
-            "which is not ported yet"
-        )
+        """The complete resume closure as ``(files, manifest)``: one file per
+        shard keyed by original agent ids, the partition's ownership and the
+        per-shard scalars (the generator's state among them); what
+        :func:`repro_torch.checkpoint.save_engine_checkpoint` writes."""
+        from repro_torch.checkpoint.engine_io import engine_state_dict
+
+        return engine_state_dict(self, state, step=step)
 
     # -- one stacked super-tick ---------------------------------------------
     def _compact(self, wake):
@@ -1599,11 +1664,18 @@ class ShardedAsyncEngine:
         state: ShardedSimState | None = None,
         metrics_every: int = 0,
         report=None,
+        checkpoint_every: int = 0,
+        checkpoint_dir: str | None = None,
+        checkpoint_keep_last: int = 3,
+        snapshot_every: int = 0,
+        serve=None,
     ) -> SimResult:
         """Drive ``slots`` super-ticks; same contract as :meth:`AsyncEngine.run`."""
         state, objective, report = _run_driver(
             self, Theta0, slots, record_every=record_every, state=state,
-            metrics_every=metrics_every, report=report,
+            metrics_every=metrics_every, report=report, checkpoint_every=checkpoint_every,
+            checkpoint_dir=checkpoint_dir, checkpoint_keep_last=checkpoint_keep_last,
+            snapshot_every=snapshot_every, serve=serve,
         )
         part = self.part
         ustate = state.ustate

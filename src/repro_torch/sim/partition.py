@@ -35,8 +35,9 @@ Relabeling never leaks into caller-visible ids: ``owned``/``halo``/
 identity round-trip under any permutation — callers need no unrelabel
 step. The permutation itself is exposed as ``order`` for diagnostics.
 ``patch`` and ``drift`` serve the sharded engine's dynamic topology
-(``ShardedAsyncEngine.set_topology``); ``place_rows`` the checkpoints of
-a later slice (ROADMAP A12).
+(``ShardedAsyncEngine.set_topology``); ``place_rows`` and
+:func:`partition_from_ownership` the engine checkpoints
+(:mod:`repro_torch.checkpoint.engine_io`).
 """
 
 from __future__ import annotations

@@ -5,6 +5,12 @@ and sharded) against the CPU route, the captured chunks against the eager
 slots, and the zamba2 path (a Mamba2 block through ``ssm_chunk``, a
 2-layer full-width hybrid's prefill against its decode loop).
 
+Then checkpoints and serving on the card: resume through the captured
+chunk (into a fresh engine and into the same one), dynamic resume across
+a refresh and an admission, snapshots isolated from later replays,
+``predict`` on a second thread while the engine trains, and checkpoint
+serving on the card and the CPU.
+
 Marked ``cuda``: every test skips where there is no CUDA device. Run on a
 GPU machine with ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``
 (add ``--noconftest`` where JAX is not installed: the suite's conftest
@@ -1018,3 +1024,180 @@ def test_dynamic_captured_equals_eager_across_swaps(dev, sharded):
             assert sorted(cap._graphs.graphs) == [1, 16]
     if sharded:
         assert cap.topology_counters()["repartitions"] == 1
+
+
+# ---------------------------------------------------------------------------
+# Checkpoints and serving on the card (repro_torch.checkpoint, repro_torch.serve)
+# ---------------------------------------------------------------------------
+
+
+def _copy_leaves(state):
+    """Every tensor of a state and the generator's state, copied (a live
+    state's tensors are overwritten by later replays)."""
+    from repro_torch.checkpoint.checkpoint import _flatten_with_paths
+
+    return {p: (leaf.get_state().clone() if isinstance(leaf, torch.Generator)
+                else leaf.detach().clone()) for p, leaf in _flatten_with_paths(state)}
+
+
+def _assert_leaves_equal(got, want):
+    assert got.keys() == want.keys()
+    bad = [k for k in got if not torch.equal(got[k].cpu(), want[k].cpu())]
+    assert not bad, bad
+
+
+@pytest.mark.parametrize("case", ["fused", "dp_unfused_metrics", "churn_straggler",
+                                  "sharded_fused_bf16_ef_metrics"])
+def test_checkpoint_resume_through_the_captured_chunk(dev, case, tmp_path):
+    """37 captured slots, save, then 21 more: restored into a fresh engine
+    (adopted as its live buffers) and into the same engine after it moved
+    on (copied in through ``ChunkGraphs.bind``), both equal the
+    uninterrupted 58 captured slots in every tensor and the generator's
+    state; the entry restores on the CPU only where no stream must cross."""
+    from repro_torch.checkpoint import CheckpointError, restore, save_engine_checkpoint
+
+    def make():
+        if case.startswith("sharded"):
+            return _sharded_engine(dev, case.removeprefix("sharded_"))
+        return _capture_engine(dev, case)
+
+    ref_eng, Theta0 = make()
+    want = _copy_leaves(ref_eng.advance(ref_eng.init_state(Theta0), 58))
+    eng, _ = make()
+    state = eng.advance(eng.init_state(Theta0), 37)
+    ck = str(tmp_path / "ck")
+    save_engine_checkpoint(eng, state, ck)
+    fresh, _ = make()
+    st, step = restore(fresh, ck)
+    assert step == 37
+    _assert_leaves_equal(_copy_leaves(fresh.advance(st, 21)), want)
+    assert sorted(fresh._graphs.graphs) == [1, 16]
+    eng.advance(state, 9)  # the live buffers move on
+    st, _ = restore(eng, ck)
+    again = eng.advance(st, 21)
+    assert again.Theta is state.Theta  # copied into the live buffers
+    _assert_leaves_equal(_copy_leaves(again), want)
+    cpu = type(eng)(eng.update, **({"num_shards": eng.num_shards} if case.startswith("sharded")
+                                   else {}), config=eng.config.replace(device="cpu"))
+    with pytest.raises(CheckpointError, match="generator"):
+        restore(cpu, ck)
+
+
+def test_dynamic_checkpoint_resume_through_the_captured_chunk(dev, tmp_path):
+    """A dynamic engine's run cut before and after a refresh and an
+    admission, restored into a fresh engine: the resumed run equals the
+    uninterrupted one in every tensor, the generator, the graph and the
+    topology log, single-device and sharded."""
+    from repro_torch.checkpoint import restore, save_engine_checkpoint
+    from repro_torch.sim import ArrivalConfig, ChurnConfig, GraphUpdate, Scenario
+
+    obj = _dyn_obj()
+    scen = Scenario(churn=ChurnConfig(leave_prob=0.05, rejoin_prob=0.3),
+                    arrival=ArrivalConfig(schedule=((30, DYN_IDS),), seed=3))
+    gu = GraphUpdate(every=20, k=3, candidates=4, gamma=2.0, seed=1)
+    zeros = np.zeros((512, 4), dtype=np.float32)
+    for sharded in (False, True):
+        def make():
+            return _dyn_engine(obj, dev, sharded, scenario=scen, graph_update=gu)
+
+        ref = make()
+        want = _copy_leaves(ref.run(zeros, 50).state)
+        for cut in (20, 25, 40):
+            eng = make()
+            half = eng.run(zeros, cut)
+            save_engine_checkpoint(eng, half.state, str(tmp_path / f"ck{sharded}{cut}"))
+            res = make()
+            st, _ = restore(res, str(tmp_path / f"ck{sharded}{cut}"))
+            fin = res.run(None, 50 - cut, state=st)
+            _assert_leaves_equal(_copy_leaves(fin.state), want)
+            assert res.topology_counters() == ref.topology_counters(), (sharded, cut)
+            assert res._csr.digest() == ref._csr.digest()
+
+
+def test_snapshots_are_isolated_from_later_replays(dev):
+    """A published snapshot is a copy: replays of the captured chunk, which
+    write the live buffers in place, leave it unchanged."""
+    from repro_torch.serve import ServeHandle
+
+    for eng, Theta0 in (_capture_engine(dev, "fused"), _sharded_engine(dev, "fused")):
+        handle = ServeHandle.for_engine(eng)
+        state = eng.advance(eng.init_state(Theta0), 20)
+        handle.publish(state)
+        snap = handle.snapshot()
+        kept = snap.tiles.clone()
+        live = state.Theta if snap.tiles.shape[0] > 1 else state.Theta.unsqueeze(0)
+        assert snap.tiles.data_ptr() != live.data_ptr()
+        eng.advance(state, 48)
+        torch.cuda.synchronize()
+        assert torch.equal(snap.tiles, kept) and not torch.equal(live, kept)
+        assert handle.publish_device_seconds() > 0
+
+
+@pytest.mark.parametrize("sharded", [False, True])
+def test_predict_on_a_second_thread_while_the_engine_trains(dev, sharded):
+    """run(snapshot_every=1) in a trainer thread through the captured chunk
+    while this thread predicts from pinned snapshots: every answer equals a
+    recomputation from its version's snapshot bit for bit (warm rows, K =
+    1), versions only grow, and the last one is the trainer's final slot."""
+    import threading
+
+    from repro_torch.serve import ServeHandle
+
+    eng, Theta0 = _sharded_engine(dev, "fused") if sharded else _capture_engine(dev, "fused")
+    handle = ServeHandle.for_engine(eng)
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, eng.n, 256)
+    X = rng.normal(size=(256, eng.p)).astype(np.float32)
+    box, done = {}, threading.Event()
+
+    def train():
+        try:
+            box["result"] = eng.run(Theta0, 96, snapshot_every=1, serve=handle)
+        finally:
+            done.set()
+
+    trainer = threading.Thread(target=train)
+    trainer.start()
+    answers = []
+    while not done.is_set():
+        if handle.published:
+            snap = handle.snapshot()
+            answers.append((snap, handle.predict(ids, X, at=snap)))
+    trainer.join()
+    snap = handle.snapshot()
+    answers.append((snap, handle.predict(ids, X, at=snap)))
+    assert "result" in box and len(answers) > 1
+    sids = np.zeros_like(ids) if snap.shard_of is None else snap.shard_of[ids]
+    lids = ids if snap.local_of is None else snap.local_of[ids]
+    versions = []
+    for snap, res in answers:
+        rows = snap.tiles[torch.as_tensor(sids, device=dev), torch.as_tensor(lids, device=dev)]
+        want = (rows * torch.as_tensor(X, device=dev)).sum(dim=-1).cpu().numpy()
+        assert res.version == snap.version and np.array_equal(res.values, want)
+        versions.append(res.version)
+    assert versions == sorted(versions)
+    assert handle.version == box["result"].slots == 96
+
+
+def test_serve_from_checkpoint_on_the_card_and_the_cpu(dev, tmp_path):
+    """A card run's entry served on the card (its default device) and on
+    the CPU: warm rows are the run's final Theta exactly on both,
+    predictions agree within 1e-6, cold rows within 1e-6."""
+    from repro_torch.serve import serve_from_checkpoint
+
+    for eng, Theta0 in (_capture_engine(dev, "fused"), _sharded_engine(dev, "fused")):
+        ck = str(tmp_path / type(eng).__name__)
+        res = eng.run(Theta0, 40, checkpoint_every=20, checkpoint_dir=ck, checkpoint_keep_last=2)
+        card = serve_from_checkpoint(ck)
+        cpu = serve_from_checkpoint(ck, device="cpu")
+        assert card.snapshot().tiles.is_cuda and card.version == cpu.version == 40
+        ids = np.arange(eng.n)
+        assert np.array_equal(card.rows(ids).values, res.Theta.astype(np.float32))
+        assert np.array_equal(cpu.rows(ids).values, res.Theta.astype(np.float32))
+        X = np.random.default_rng(1).normal(size=(eng.n, eng.p))
+        np.testing.assert_allclose(card.predict(ids, X).values, cpu.predict(ids, X).values,
+                                   rtol=1e-6, atol=1e-6)
+        nb = {eng.n + 1: (0, 5, 9)}
+        np.testing.assert_allclose(card.rows([eng.n + 1], neighbors=nb).values,
+                                   cpu.rows([eng.n + 1], neighbors=nb).values, rtol=1e-6,
+                                   atol=1e-7)

@@ -420,8 +420,6 @@ def test_refusals_name_their_items(quad96):
     _, port = quad96
     eng = ShardedAsyncEngine(CDUpdate(port), num_shards=2, device="cpu")
     st = eng.init_state(np.zeros((96, 4)))
-    with pytest.raises(NotImplementedError, match="A12"):
-        eng.state_dict(st)
     # Dynamic topology (A11) is live; a static engine refuses its swaps.
     for call, match in ((lambda: eng.set_topology(st, port.graph), "static-topology"),
                         (lambda: eng.admit(st, [0]), "no arrival"),

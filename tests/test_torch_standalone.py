@@ -36,7 +36,11 @@ def test_every_module_imports_without_jax_or_reference():
             "repro_torch.bench.privacy_utility", "repro_torch.bench.ablations",
             "repro_torch.obs", "repro_torch.obs.metrics", "repro_torch.obs.report",
             "repro_torch.sim.capture", "repro_torch.sim.partition",
-            "repro_torch.bench.dynamic_topology"} <= set(mods)
+            "repro_torch.bench.dynamic_topology", "repro_torch.checkpoint",
+            "repro_torch.checkpoint.checkpoint", "repro_torch.checkpoint.engine_io",
+            "repro_torch.serve", "repro_torch.serve.__main__", "repro_torch.serve.handle",
+            "repro_torch.serve.checkpoint_io", "repro_torch.bench.checkpoint",
+            "repro_torch.bench.serving"} <= set(mods)
     code = textwrap.dedent(
         f"""
         import importlib, sys
@@ -72,6 +76,27 @@ def test_capture_failures_raise_and_never_fall_back():
     assert handlers
     for h in handlers:
         assert isinstance(h.body[-1], ast.Raise), f"capture.py:{h.lineno} does not re-raise"
+
+
+def test_checkpoint_and_serving_failures_raise_and_never_fall_back():
+    """No ``except`` in the checkpoint and serving modules (or their
+    benches) lets a failed save, restore, publication or thread carry on:
+    each handler ends by raising, but the rotation's fallback to an older
+    entry (``_resolve_entry``), which collects each entry's error and
+    raises when none verifies."""
+    paths = sorted((SRC / "checkpoint").glob("*.py")) + sorted((SRC / "serve").glob("*.py"))
+    paths += [SRC / "bench" / "checkpoint.py", SRC / "bench" / "serving.py"]
+    fallbacks = 0
+    for path in paths:
+        tree = ast.parse(path.read_text())
+        for fn in [n for n in ast.walk(tree) if isinstance(n, ast.FunctionDef)]:
+            for h in [n for n in ast.walk(fn) if isinstance(n, ast.ExceptHandler)]:
+                if fn.name == "_resolve_entry":
+                    assert isinstance(fn.body[-1], ast.Raise)
+                    fallbacks += 1
+                else:
+                    assert isinstance(h.body[-1], ast.Raise), f"{path.name}:{h.lineno}"
+    assert fallbacks == 1
 
 
 def test_every_kernel_has_a_source_and_a_counter():
