@@ -87,12 +87,14 @@ Phases, one line each (any failure ends the run with a non-zero code):
    the ``fused`` leg: windows of 800 slots through ``run``, serving off
    and on in turns (on: ``run(snapshot_every=16, serve=handle)`` in a
    trainer thread while this thread issues ``predict`` batches of 1024
-   ids, a tenth of them cold with 4 neighbours); every 25th answer is
-   held against a recomputation from its pinned snapshot. Printed: the
-   slot rates off and on, p50 and p99 ms, predictions/s, device us a
-   publication, the largest version lag. Last, ``python -m
-   repro_torch.serve --live`` once at its default size, its summary
-   parsed;
+   ids, a tenth of them cold with 4 neighbours); from every 25th request
+   on, the first answer whose snapshot is still the newest ready one is
+   held against a recomputation from it. Printed: the slot rates off and
+   on, p50 and p99 ms, predictions/s, device us a publication, the
+   largest version lag counted at the requests' start, which must be at
+   most ``snapshot_every`` (PERF.md section 2), and the one counted at
+   their end. Last, ``python -m repro_torch.serve --live`` once at its
+   default size, its summary parsed;
 4d. dynamic topology on the same problem, uncut and unfused by the rule:
    ``GraphUpdate(every=400, k=10, candidates=4, gamma=4.0)`` (the refresh
    of ``benchmarks/bench_dynamic_topology.py``: one interior refresh in 800
@@ -166,8 +168,29 @@ Phases, one line each (any failure ends the run with a non-zero code):
    reference default (n = 200,000, S = 8) and ``repro_torch.bench.serving``
    (n = 100,000, S = 8, batch 1024), each row beside the reference's CPU
    row in ``BENCH_summary.json``;
-8. a JSON line of every ported kernel (launches, error, times, bound),
-   then the last line ``{"ok": true, "device": {...}}``.
+8. the engine benches and the examples (``repro_torch.bench``,
+   ``repro_torch.examples``): first the phase attribution of the
+   ``fused``, ``unfused`` and ``sharded_fused`` legs of ``rgg500k_p100``
+   (printed beside the captured chunk's time a slot); then
+   ``bench.kernels.measure`` at the reference bench's four shapes (each
+   kernel against its plain version, with its time, the plain version's,
+   the library call's and the bound), the sparse-scale (n = 100,000),
+   async-engine (n = 500,000), sharded-engine (n = 1,000,000, S = 8
+   stacked, through ``python -m repro_torch.bench.run --full --only
+   sharded_engine``, the entry point; the host set-up of the graph, both
+   partitions and the engine printed from its rows) and obs (n = 200,000,
+   S = 8) runners at ``bench.run``'s full sizes, each with the launch
+   counts reset before and read after and required to launch its kernels
+   (``RUNNER_KERNELS``); the obs engine's sum of phases over the captured
+   chunk's time a slot must lie in [0.85, 1.15], the exported trace
+   validate, and the profiled engine equal an unprofiled twin bit for bit
+   after the profile and after 37 more slots. Then every example of
+   ``repro_torch.examples`` at its ``--smoke`` size (else its default),
+   with its launches;
+9. a JSON line of every ported kernel (launches, error, times, bound),
+   the phases' command seconds (each also printed as a ``[time]`` line
+   when its phase ends), then the last line
+   ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -177,6 +200,7 @@ import dataclasses
 import gc
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -2200,13 +2224,19 @@ def live_serving(eng, state) -> dict:
     ``SERVE["window"]`` slots through ``run`` (the captured chunk), with
     serving off and on in turns. On: ``run(snapshot_every=16,
     serve=handle)`` in a trainer thread while this thread issues
-    ``predict`` batches of 1024 ids (a tenth cold, with 4 neighbours);
-    every ``check_every``-th answer is held against a recomputation from
-    its pinned snapshot (equal, and warm rows equal to the snapshot's).
+    ``predict`` batches of 1024 ids (a tenth cold, with 4 neighbours) on
+    the newest ready snapshot; from every ``check_every``-th request on,
+    the first answer whose snapshot is still the newest ready one after
+    it returns is held against a recomputation from that snapshot (equal,
+    and warm rows equal to the snapshot's). Gates (PERF.md section 2, E =
+    ``snapshot_every``): each request's lag at its start at most E; its
+    lag at its end (``serve_version_lag``, the reference's count) at most
+    E * (3 + 2 * floor(t * r / E)), t its duration and r the fastest
+    serving-off slot rate; ``serve_version_lag_max`` the largest end lag.
     Returns the slot rates off and on, p50/p99 ms, predictions/s, device
-    us a publish (CUDA events around each copy in the trainer's stream) and
-    the copy alone (``time_ms`` of the clone, beside its bound), the
-    largest version lag and the state reached."""
+    us a publish (CUDA events around each copy in the trainer's stream)
+    and the copy alone (``time_ms`` of the clone, beside its bound), both
+    lags and the state reached."""
     import threading
 
     import numpy as np
@@ -2217,7 +2247,7 @@ def live_serving(eng, state) -> dict:
     handle = ServeHandle.for_engine(eng)
     batches, neighbors = _serve_batches(eng.n, eng.p, np.random.default_rng(5))
     W = SERVE["window"]
-    rates, lat, checked = {"off": [], "on": []}, [], 0
+    rates, lat, lags, checked = {"off": [], "on": []}, [], [], 0
     for _ in range(SERVE["turns"]):
         for mode in ("off", "on"):
             torch.cuda.synchronize()
@@ -2239,17 +2269,20 @@ def live_serving(eng, state) -> dict:
             first = eng._ptr_of(state)  # the version this window's run publishes first
             t0 = time.perf_counter()
             trainer.start()
-            i = 0
+            i, check = 0, False
             while not done.is_set():
                 if not handle.published or handle.version < first:
                     time.sleep(1e-4)  # leave the GIL to the trainer until its first publication
                     continue
                 ids, X = batches[i % len(batches)]
-                snap = handle.snapshot() if i % SERVE["check_every"] == 0 else None
+                check = check or i % SERVE["check_every"] == 0
                 t1 = time.perf_counter()
-                res = handle.predict(ids, X, neighbors=neighbors, at=snap)
+                res = handle.predict(ids, X, neighbors=neighbors)
                 lat.append(time.perf_counter() - t1)
-                if snap is not None:
+                lags.append((handle.version_lag_start[0], handle.counters()["serve_version_lag"]))
+                snap = handle.snapshot() if check else None
+                if snap is not None and snap.version == res.version:  # still the one served
+                    check = False
                     want, theta = _recompute(snap, ids, X, neighbors)
                     warm = ids < eng.n
                     dev = snap.tiles.device
@@ -2268,6 +2301,13 @@ def live_serving(eng, state) -> dict:
             rates[mode].append(W / secs)
     c = handle.counters()
     lat = np.asarray(lat)
+    # PERF.md section 2: publish(v + E) waits for the copy of v, and the copy
+    # of v + E lands E slots of card work later, so two publications are
+    # E / r apart at the least and a request of t seconds sees at most
+    # 2 * (floor(t * r / E) + 1) of them.
+    E, r = SERVE["snapshot_every"], max(rates["off"])
+    start_lag, end_lag = np.asarray(lags).T
+    end_limit = E * (3 + 2 * np.floor(lat * r / E))
     # The publication's copy alone, as time_ms times a kernel: the (1, n, p)
     # clone, against the bound of its bytes (each read once, written once).
     theta = state.Theta.unsqueeze(0)
@@ -2284,6 +2324,10 @@ def live_serving(eng, state) -> dict:
                / c["serve_snapshots_published"],
                publish_host_us=1e6 * c["serve_publish_s_total"] / c["serve_snapshots_published"],
                snapshots=c["serve_snapshots_published"], version_lag_max=c["serve_version_lag_max"],
+               version_lag_start_max=int(start_lag.max()),
+               end_lag_p99=float(np.percentile(end_lag, 99)),
+               end_limit_at_p99=float(E * (3 + 2 * np.floor(np.percentile(lat, 99) * r / E))),
+               end_over_limit_max=float((end_lag / end_limit).max()),
                cold_rows=c["serve_cold_starts"], version=handle.version)
     log(f"[4c] rgg500k_p100 fused live serving ({SERVE['window']}-slot windows, off and on in "
         f"turns, snapshot_every={SERVE['snapshot_every']}, batch {SERVE['batch']}): "
@@ -2291,6 +2335,15 @@ def live_serving(eng, state) -> dict:
         f"{[round(r, 2) for r in rates['off']]} on {[round(r, 2) for r in rates['on']]}")
     if checked < SERVE["turns"] or out["version"] != eng._ptr_of(state):
         raise SystemExit(f"live serving: {checked} answers checked, version {out['version']}")
+    if not 0 <= out["version_lag_start_max"] <= E:
+        raise SystemExit(f"live serving: version lag {out['version_lag_start_max']} slots at a "
+                         f"request's start, over snapshot_every={E}")
+    if out["version_lag_max"] != end_lag.max() or (end_lag > end_limit).any():
+        i = int(np.argmax(end_lag / end_limit))
+        raise SystemExit(f"live serving: version lag {end_lag[i]} slots at the end of a request of "
+                         f"{lat[i] * 1e3:.3f} ms, over its limit {end_limit[i]:.0f} (r = {r:.1f} "
+                         f"slots/s), or serve_version_lag_max {out['version_lag_max']} is not the "
+                         f"largest end lag {end_lag.max()}")
     return out, state
 
 
@@ -2401,6 +2454,240 @@ def checkpoint_benches(dev) -> dict:
     return out
 
 
+# Phase 8: the engine benches at repro_torch.bench.run's full sizes (the
+# reference's) and the examples at their smoke (else default) sizes.
+RUNNER_KERNELS = {"kernels": ("dp_clip_noise", "graph_mix", "ssm_chunk", "fused_row_update"),
+                  "sparse_scale": ("graph_mix", "sparse_mix"),  # parity_check at n = 512
+                  "async_engine": ("fused_row_update",), "sharded_engine": ("fused_row_update",),
+                  "obs": ("fused_row_update",)}
+PATH_KERNEL.update({f"bench_{k}": v for k, v in RUNNER_KERNELS.items()})
+EXAMPLES = (("quickstart", ()), ("p2p_linear_classification", ()), ("sparse_p2p_scale", ()),
+            ("async_p2p_simulation", ()), ("sharded_async_simulation", ("--smoke",)),
+            ("movielens_recommendation", ()), ("serve_batched", ("--smoke",)))
+PHASE_COVERAGE = (0.85, 1.15)  # obs_phase_total over the separately timed full slot
+TWIN_SLOTS = CAPTURE_PARITY_SLOTS  # slots both the profiled engine and its twin advance after
+
+
+def _path_kernels(label) -> tuple:
+    want = PATH_KERNEL[label]
+    return () if want is None else (want,) if isinstance(want, str) else want
+
+
+def _chunk_s_per_slot(eng, state, slots: int = 64, repeats: int = 3) -> float:
+    """Seconds a slot of the captured chunk that ``advance`` replays (the
+    main path): the best of ``repeats`` synchronized runs of ``slots``
+    slots, after one to warm up. Advances ``state``."""
+    import torch
+
+    best = math.inf
+    for i in range(repeats + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = eng.advance(state, slots)
+        torch.cuda.synchronize()
+        if i:
+            best = min(best, (time.perf_counter() - t0) / slots)
+    return best
+
+
+def _sharded_setup_s(rows, notes, n) -> dict:
+    """The sharded runner's host set-up from its rows: the graph and the
+    engine (us per agent) and both partitions with RCM (on the halo rows)."""
+    part = [float(re.search(r"partition_build=([0-9.]+)s", notes[f"sharded_halo_frac_{k}"])[1])
+            for k in ("norelabel", "rcm")]
+    return dict(graph_s=rows["sharded_graph_build"] * n / 1e6, partitions_s=sum(part),
+                engine_s=rows["sharded_engine_build"] * n / 1e6)
+
+
+def _profiled_against_twin(keep) -> dict:
+    """The obs bench's metrics-on engine, profiled at its run's state,
+    against an unprofiled twin (same config and partition) run from the
+    same start: equal bit for bit, then after ``TWIN_SLOTS`` more slots."""
+    import numpy as np
+    import torch
+
+    from repro_torch.sim import ShardedAsyncEngine
+
+    eng, state = keep["engine"], keep["state"]
+    twin = ShardedAsyncEngine(eng.update, num_shards=eng.num_shards,
+                              config=dataclasses.replace(eng.config, partition=eng.part))
+    tstate = twin.run(np.zeros((eng.n, eng.p)), eng._ptr_of(state)).state
+    out = {}
+    for when in ("after the profile", f"after {TWIN_SLOTS} more slots"):
+        a, b = _state_leaves(state), _state_leaves(tstate)
+        differ = [k for k in a if not torch.equal(a[k], b[k])]
+        if differ:
+            raise SystemExit(f"obs bench: the profiled engine differs from its twin {when} "
+                             f"in {differ}")
+        out[when] = len(a)
+        state, tstate = eng.advance(state, TWIN_SLOTS), twin.advance(tstate, TWIN_SLOTS)
+    return out
+
+
+def engine_benches(dev, launches: dict) -> dict:
+    """Phase 8: ``bench.kernels.measure``, then the sparse-scale,
+    async-engine, sharded-engine (through ``python -m
+    repro_torch.bench.run --full --only sharded_engine``, the entry point)
+    and obs runners at ``bench.run``'s full sizes, each with the launch
+    counts reset before it and read after, each required to launch its
+    kernels (``RUNNER_KERNELS``); then every example. Gates: every kernel
+    of ``bench.kernels`` within its tolerance (the runner raises), the obs
+    engine's sum of phases over the captured chunk's time a slot in
+    ``PHASE_COVERAGE``, the profiled engine equal to an unprofiled twin,
+    the exported trace valid."""
+    import importlib
+
+    from repro_torch.bench import async_engine, kernels, obs, sparse_scale
+    from repro_torch.bench import run as bench_run
+    from repro_torch.obs import RunReport, validate_trace
+
+    work = ROOT / "build" / "bench"
+    work.mkdir(parents=True, exist_ok=True)
+
+    def path(label, fn):
+        return _counted(label, fn, launches)
+
+    res, secs, counts = path("bench_kernels", lambda: kernels.measure(dev))
+    for name, r in res.items():
+        log(f"[8] bench.kernels {name} at {r['shape']}: " + fmt({
+            k: r[k] for k in ("max_abs_err", "tol", "ms", "plain_ms", "library_ms", "bound_ms",
+                              "bound_by", "nbytes", "flops")}))
+    out = {"kernel_table": res,
+           "kernels": dict(seconds=secs, launches=counts,
+                           rows={k: v for k, v, _ in kernels.bench_rows(res)})}
+    log(f"[8] bench.kernels ({secs:.2f} s): launches {counts}")
+
+    summary = work / "BENCH_torch_summary.json"
+
+    def entry_point(name):
+        summary.unlink(missing_ok=True)
+        rc = bench_run.main(["--full", "--only", name, "--device", str(dev),
+                             "--out", str(summary)])
+        if rc != 0:
+            raise SystemExit(f"python -m repro_torch.bench.run --full --only {name}: exit {rc}")
+        return [(k, v["us_per_call"], v["derived"])
+                for k, v in json.loads(summary.read_text()).items()]
+
+    sizes = {name: dict(bench_run.SIZES[name][True]) for name in
+             ("sparse_scale", "async_engine", "sharded_engine", "obs")}
+    keep = {}
+    runs = {
+        "sparse_scale": lambda: sparse_scale.run(device=dev, verbose=False,
+                                                 **sizes["sparse_scale"]),
+        "async_engine": lambda: async_engine.run(device=dev, verbose=False,
+                                                 **sizes["async_engine"]),
+        "sharded_engine": lambda: entry_point("sharded_engine"),
+        "obs": lambda: obs.run(device=dev, verbose=False, keep=keep,
+                               trace_out=str(work / "obs_torch_trace.json"),
+                               report_out=str(work / "obs_torch_runreport.jsonl"),
+                               **sizes["obs"]),
+    }
+    for name, fn in runs.items():
+        memory(f"before bench {name}")
+        rows, secs, counts = path(f"bench_{name}", fn)
+        if not all(math.isfinite(v) for _, v, _ in rows):
+            raise SystemExit(f"bench {name}: a row is not finite")
+        out[name] = dict(size=sizes[name], seconds=secs, launches=counts,
+                         rows={k: v for k, v, _ in rows}, notes={k: n for k, _, n in rows})
+        log(f"[8] bench {name} {fmt(sizes[name])} ({secs:.2f} s): launches {counts} "
+            + " ".join(f"{k}={v:.6g} ({note})" for k, v, note in rows))
+    sk = out["sharded_engine"]
+    sk["host_setup_s"] = _sharded_setup_s(sk["rows"], sk["notes"], sizes["sharded_engine"]["n"])
+    log(f"[8] sharded_engine host set-up at n={sizes['sharded_engine']['n']}: "
+        f"{fmt(sk['host_setup_s'])} (graph; both partitions with RCM; engine)")
+    prof, eng = keep["profile"], keep["engine"]
+    spans = validate_trace(str(work / "obs_torch_trace.json"))
+    report = RunReport.from_jsonl(str(work / "obs_torch_runreport.jsonl"))
+    twin = _profiled_against_twin(keep)
+    chunk_s = _chunk_s_per_slot(eng, keep["state"])
+    coverage = prof.total_s / chunk_s
+    out["obs"].update(coverage=coverage, coverage_of_the_full_program=prof.coverage,
+                      phases_us={k: v * 1e6 for k, v in prof.phases.items()},
+                      prefix_us={k: v * 1e6 for k, v in prof.prefix_s.items()},
+                      measured_us=prof.measured_s * 1e6, chunk_us_per_slot=chunk_s * 1e6,
+                      trace_spans=spans, report_phase_rows=len(report.phase_rows), twin=twin,
+                      device=str(eng.device))
+    log(f"[8] obs phase attribution (S={eng.num_shards}, captured prefixes, host clock us): "
+        f"{fmt(out['obs']['phases_us'])} sum {prof.total_s * 1e6:.6g}, captured chunk "
+        f"{chunk_s * 1e6:.6g} a slot: coverage {coverage:.4f} (of the full-slot program "
+        f"{prof.coverage:.4f}); trace {spans} spans valid; profiled engine == unprofiled twin "
+        f"after the profile and {TWIN_SLOTS} more slots")
+    if not PHASE_COVERAGE[0] <= coverage <= PHASE_COVERAGE[1]:
+        raise SystemExit(f"obs bench: the phases sum to {coverage:.3f} of the captured chunk's "
+                         f"slot, outside {PHASE_COVERAGE}")
+    del keep, eng
+    memory("after the engine benches")
+
+    examples = {}
+    for name, args in EXAMPLES:
+        mod = importlib.import_module(f"repro_torch.examples.{name}")
+        argv = list(args) + ["--device", str(dev)]
+        _, secs, counts = path(f"example_{name}", lambda: mod.main(argv))
+        examples[name] = dict(args=list(args), seconds=secs, launches=counts)
+        log(f"[8] example {name} {' '.join(args)} ({secs:.2f} s): launches {counts}")
+    out["examples"] = examples
+    return out
+
+
+def main_path_phases(engines) -> dict:
+    """Phase 8, the phase attribution of the main path's captured slots:
+    ``profile_supertick`` on the ``fused``, ``unfused`` and
+    ``sharded_fused`` legs of ``rgg500k_p100`` from a fresh state (each
+    prefix a captured graph on the engine's scratch state), with the sum
+    of its phases over the captured chunk's time a slot, which advances
+    that state through the legs' live buffers (their runs are over)."""
+    import numpy as np
+
+    from repro_torch.obs import profile_supertick
+
+    out = {}
+    for label in ("fused", "unfused", "sharded_fused"):
+        eng = engines[label]
+        state = eng.init_state(np.zeros((eng.n, eng.p), np.float32))
+        prof = profile_supertick(eng, state=state)
+        chunk_s = _chunk_s_per_slot(eng, state)
+        out[label] = dict(phases_us={k: v * 1e6 for k, v in prof.phases.items()},
+                          measured_us=prof.measured_s * 1e6, chunk_us_per_slot=chunk_s * 1e6,
+                          coverage=prof.total_s / chunk_s,
+                          coverage_of_the_full_program=prof.coverage)
+        log(f"[8] rgg500k_p100 {label} phases (captured prefixes, host clock us): "
+            f"{fmt(out[label]['phases_us'])} sum {prof.total_s * 1e6:.6g}, captured chunk "
+            f"{chunk_s * 1e6:.6g} a slot: coverage {out[label]['coverage']:.4f} (of the "
+            f"full-slot program {prof.coverage:.4f})")
+    return out
+
+
+def memory(when: str) -> None:
+    """Print what the card holds allocated and reserved."""
+    import torch
+
+    log(f"[8] memory {when}: allocated {torch.cuda.memory_allocated() / 2**30:.3f} GiB, "
+        f"reserved {torch.cuda.memory_reserved() / 2**30:.3f} GiB")
+
+
+def _counted(label, fn, launches):
+    """``fn()`` with the launch counts reset before it and read after
+    (added into ``launches``); a label of ``PATH_KERNEL`` must launch each
+    of its kernels. Returns the result, the seconds and the counts."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    for k, v in counts.items():
+        launches[k] = launches.get(k, 0) + v
+    missing = [k for k in _path_kernels(label) if counts.get(k, 0) <= 0] \
+        if label in PATH_KERNEL else []
+    if missing:
+        raise SystemExit(f"{label}: {missing} not launched ({counts})")
+    return res, secs, {k: v for k, v in counts.items() if v}
+
+
 def main() -> int:
     import torch
 
@@ -2418,6 +2705,14 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False  # library_ms of graph_mix: full float32
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    phase_s, last = {}, [time.perf_counter()]
+
+    def mark(label: str) -> None:
+        """Print and keep the command seconds of the phase just ended."""
+        now = time.perf_counter()
+        phase_s[label] = now - last[0]
+        last[0] = now
+        log(f"[time] {label}: {phase_s[label]:.1f} s")
 
     # [1] the card
     smi = subprocess.run(
@@ -2434,6 +2729,7 @@ def main() -> int:
     logs = _build.build(ptxas_info=True)
     secs = time.perf_counter() - t0
     log(f"[2] built {len(logs)} kernels in {secs:.2f} s; ptxas: {'; '.join(ptxas_summary(logs))}")
+    mark("1-2 card and build")
 
     # The main-path problem (host set-up) and the dense problem.
     t0 = time.perf_counter()
@@ -2498,11 +2794,15 @@ def main() -> int:
             and not engines["sharded_unfused"].fused) or dense_obj.mix.kind != "dense":
         raise SystemExit("set-up: fused='auto' did not pick the kernel, or no dense path")
 
+    mark("4 set-up")
+
     # [3] kernel checks (these launches are not the main path's)
     results: dict = {}
     kernel_checks(obj, engines["fused"], dense_obj, results)
     sharded_kernel_check(obj, engines["sharded_fused"], results)
     ssm_chunk_checks(dev, results)
+
+    mark("3 kernel checks")
 
     # [4] the main path: each path's counts are reset before it and read after
     main_path, states, launches = drive_main_path(engines, dense_obj, obj, dev)
@@ -2523,6 +2823,8 @@ def main() -> int:
     budget_check(engines, states, main_path)
     sharded_metrics_check(engines, states, main_path)
     main_path["dp_clip_noise"] = dp_clip_noise_leg(dev, launches)
+
+    mark("4 main path")
 
     # [4c] checkpoints and serving: four legs saved, restored into fresh
     # engines and resumed (counts reset before each leg and read after),
@@ -2549,6 +2851,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    mark("4c checkpoints and serving")
+
     # [4d] dynamic topology: a refresh and two admissions in 800 slots of
     # each dynamic leg, then 16 traced slots of each
     dyn_engines = dynamic_engines(obj, scenario.churn, dev)
@@ -2563,9 +2867,13 @@ def main() -> int:
     del dyn_engines, dyn_states
     gc.collect()  # the instrumented engines hold reference cycles
     torch.cuda.empty_cache()
-    missing = [k for k in _build.KERNELS if k not in PATH_KERNEL.values()]
+    covered = {k for label in PATH_KERNEL if not label.startswith("bench_")
+               for k in _path_kernels(label)}
+    missing = [k for k in _build.KERNELS if k not in covered]
     if missing:
         raise SystemExit(f"no path of phase 4 launches {missing}")
+
+    mark("4d dynamic topology")
 
     # [5] parity on the card: the captured chunk against the eager slots (at
     # rgg500k_p100 the fresh states are copied into the engines' live
@@ -2581,16 +2889,31 @@ def main() -> int:
     main_path["dynamic_parity"] = dynamic_parity(dev)
     main_path["dynamic_resume"] = dynamic_resume(dev)
 
+    mark("5 parity")
+
     # [6] zamba2-1.2b serving: the prefill's counts are reset before each
     # prefill and read after it
     serve = zamba2_serve(dev, launches)
+
+    mark("6 zamba2 serving")
 
     # [7] the paper benches on the card, and the dynamic-topology bench
     benches = paper_benches(dev)
     benches["dynamic_topology"] = dynamic_bench()
     benches.update(checkpoint_benches(dev))
+    mark("7 paper benches")
 
-    # [8] the kernel table and the result
+    # [8] the phase attribution of the main path's captured slots, then
+    # the engine benches (bench.run's full sizes) and the examples, with
+    # the earlier phases' engines and states freed first
+    phases = main_path_phases(engines)
+    del engines, states, obj, dp_obj, dense_obj, part, sh, eng, run, o
+    memory("before the engine benches")
+    engine = engine_benches(dev, launches)
+    engine["rgg500k_p100_phases"] = phases
+    mark("8 engine benches and examples")
+
+    # [9] the kernel table and the result
     src = {"sparse_mix": "src/repro/kernels/sparse_mix.py:60",
            "fused_row_update": "src/repro/kernels/fused_row_update.py:133",
            "graph_mix": "src/repro/kernels/graph_mix.py:38",
@@ -2618,6 +2941,8 @@ def main() -> int:
                     "ssm_chunk_bf16": results["ssm_chunk_bf16"]}))
     log(json.dumps({"zamba2_serve": serve}))
     log(json.dumps({"paper_benches": benches}))
+    log(json.dumps({"engine_benches": engine}, default=str))
+    log(json.dumps({"phase_seconds": phase_s, "total_s": sum(phase_s.values())}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))

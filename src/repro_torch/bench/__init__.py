@@ -1,4 +1,4 @@
-"""The paper's benches on the port, as runners inside the package.
+"""The JAX package's benches on the port, as runners inside the package.
 
 Each runs as ``python -m repro_torch.bench.<name> [--device D] [--fast]
 [--out PATH]`` and reports the same fields as its counterpart in the JAX
@@ -7,10 +7,13 @@ package's ``benchmarks/``: ``cd_vs_admm`` (Fig. 1), ``movielens``
 ``ablations`` (noise allocation, mechanism, personalization), each row
 with the reference's ``derived`` string; ``dynamic_topology`` (patch
 against rebuild after a Dada refresh, the reference's ``dyntopo_*``
-rows) takes no device. A run merges its row, under the
-bench's name, into the JSON file ``--out`` (default
+rows) takes no device; ``checkpoint``, ``serving``, ``sparse_scale``,
+``async_engine``, ``kernels``, ``sharded_engine`` and ``obs`` return the
+reference's ``(name, value, note)`` rows. A run merges its row, under
+the bench's name, into the JSON file ``--out`` (default
 ``results/BENCH_torch_summary.json`` at the repository root), so the
-runners share one summary.
+runners share one summary; ``python -m repro_torch.bench.run`` runs them
+in the reference's order (:mod:`repro_torch.bench.run`).
 """
 
 from __future__ import annotations

@@ -31,19 +31,7 @@ import time
 import numpy as np
 
 from repro_torch.bench import parser, write_row
-
-
-def _problem(n, p, m, seed):
-    """The reference bench's quadratic problem on a random geometric graph."""
-    from repro_torch.core import AgentData, make_objective, random_geometric_graph
-
-    rng = np.random.default_rng(seed)
-    graph = random_geometric_graph(n, rng, avg_degree=16.0)
-    targets = rng.normal(size=(n, p)) / np.sqrt(p)
-    X = rng.normal(size=(n, m, p)) / np.sqrt(p)
-    y = np.einsum("nmp,np->nm", X, targets)
-    return make_objective(graph, AgentData(X=X, y=y, mask=np.ones((n, m))), "quadratic",
-                          mu=0.5, mix_mode="sparse")
+from repro_torch.bench.sparse_scale import _make_problem
 
 
 def run(n=200_000, shards=8, slots=2, slot_wakes=2048.0, seed=0, device="cuda", workdir=None,
@@ -56,7 +44,7 @@ def run(n=200_000, shards=8, slots=2, slot_wakes=2048.0, seed=0, device="cuda", 
     from repro_torch.checkpoint import restore, save_engine_checkpoint
     from repro_torch.sim import CDUpdate, ShardedAsyncEngine
 
-    obj = _problem(n, 8, 4, seed)
+    _, obj = _make_problem(n, 8, 4, np.random.default_rng(seed))
 
     def engine():
         return ShardedAsyncEngine(CDUpdate(obj), num_shards=shards, slot_wakes=slot_wakes,

@@ -32,7 +32,7 @@ import time
 import numpy as np
 
 from repro_torch.bench import parser, write_row
-from repro_torch.bench.checkpoint import _problem
+from repro_torch.bench.sparse_scale import _make_problem
 
 
 def run(n=100_000, shards=8, slots=4, slot_wakes=2048.0, batch=1024, seed=0, device="cuda",
@@ -43,7 +43,7 @@ def run(n=100_000, shards=8, slots=4, slot_wakes=2048.0, batch=1024, seed=0, dev
     from repro_torch.sim import CDUpdate, EngineConfig, make_engine
 
     rng = np.random.default_rng(seed)
-    obj = _problem(n, 8, 4, seed)
+    _, obj = _make_problem(n, 8, 4, rng)  # then the request ids, from the same stream
     cfg = EngineConfig(slot_wakes=slot_wakes, seed=seed, relabel="rcm", device=device)
     eng = make_engine(CDUpdate(obj), cfg, shards=shards)
     handle = ServeHandle.for_engine(eng)

@@ -383,14 +383,16 @@ class ShardedMixOp:
         q = torch.clamp(torch.round(v / scale), -127.0, 127.0).to(torch.int8)
         return {"q": q, "scale": scale}, q.to(v.dtype) * scale
 
-    def exchange_halo(self, slab, ef=None, *, collect_stats=False):
+    def exchange_halo(self, slab, ef=None, *, collect_stats=False, upto=None):
         """Fill the halo rows of the stacked ``slab`` from its owned rows, in
         place, for all S shards (publish, collective, scatter; see the class
         docstring). ``ef``: the (S, Bmax, p) error-feedback accumulator,
         updated in place (None when not threaded). Returns the per-shard
         stats ``{"quant_err_sq", "ef_residual_sq"}`` (each (S,) float32)
         on a compressed wire with ``collect_stats``, else None; collecting
-        them never changes the payload."""
+        them never changes the payload. ``upto`` ``"halo_publish"`` or
+        ``"halo_collective"`` stops after that step and returns its
+        payload and scales (the phase programs' cut)."""
         S, R, H = self.num_shards, self.rows_per_shard, self.halo_width
         dev, p = slab.device, slab.shape[1]
         halo = slab[S * R:]  # (S * Hmax, p), a view
@@ -422,6 +424,8 @@ class ShardedMixOp:
                 send, scales = q[rows], (None if scale is None else scale.view(-1, 1)[rows])
             else:
                 send, scales = q.view(S, -1, p), scale
+        if upto == "halo_publish":
+            return send, scales
         # -- collective
         if self.method == "p2p":
             recv, recv_s = self._ring_shift(send, coll), None
@@ -430,6 +434,8 @@ class ShardedMixOp:
         else:
             recv = coll.all_gather(send)
             recv_s = None if scales is None else coll.all_gather(scales)
+        if upto == "halo_collective":
+            return recv, recv_s
         # -- scatter
         if self.method == "p2p":
             keep = self.table("recv_keep", dev)

@@ -147,6 +147,24 @@ class AgentData:
     def num_examples(self) -> np.ndarray:
         return self.mask.sum(axis=1)
 
+    @staticmethod
+    def from_lists(Xs, ys, p=None):
+        """Pad per-agent ``(m_i, p)`` point arrays and ``(m_i,)`` labels
+        into one :class:`AgentData` (the reference's, in numpy)."""
+        n = len(Xs)
+        m_max = max(max((len(x) for x in Xs), default=1), 1)
+        p = p if p is not None else Xs[0].shape[1]
+        X = np.zeros((n, m_max, p))
+        y = np.zeros((n, m_max))
+        mask = np.zeros((n, m_max))
+        for i, (xi, yi) in enumerate(zip(Xs, ys)):
+            m = len(xi)
+            if m:
+                X[i, :m] = xi
+                y[i, :m] = yi
+                mask[i, :m] = 1.0
+        return AgentData(X, y, mask)
+
 
 # ---------------------------------------------------------------------------
 # The objective
@@ -283,6 +301,25 @@ class Objective:
         d, c = t["deg"], t["conf"]
         neigh = self.mix.all(Theta)  # (n, p): sum_j W_ij Theta_j
         return d[:, None] * (Theta + self.mu * c[:, None] * self.local_grad(Theta)) - neigh
+
+    def grad_check(self, Theta, eps=1e-5):
+        """Finite-difference check of :meth:`block_grad` in float64 on the
+        CPU at 10 coordinates drawn from ``default_rng(0)`` (the
+        reference's); returns the largest absolute error."""
+        Theta = torch.as_tensor(np.asarray(Theta, dtype=np.float64))
+        g = self.block_grad(Theta).numpy()
+        err = 0.0
+        rng = np.random.default_rng(0)
+        for _ in range(10):
+            i = rng.integers(self.n)
+            k = rng.integers(self.p)
+            tp = Theta.clone()
+            tp[i, k] += eps
+            tm = Theta.clone()
+            tm[i, k] -= eps
+            fd = (float(self.value(tp)) - float(self.value(tm))) / (2 * eps)
+            err = max(err, abs(fd - g[i, k]))
+        return err
 
     def solve_exact(self) -> np.ndarray:
         """Closed-form minimizer when the loss is quadratic-in-theta (numpy).

@@ -6,3 +6,7 @@ SwiGLU block), its ``layers``, ``attention`` and ``ssm``, and the
 ``registry`` (``build_model``). The other families and training are
 queued in ``ROADMAP.md`` (A15b-A15d).
 """
+
+from repro_torch.models.registry import ModelBundle, build_model
+
+__all__ = ["ModelBundle", "build_model"]

@@ -304,8 +304,8 @@ class MetricsAccumulator:
     def snapshot(self, m: dict) -> dict:
         """Device metrics -> host dict of numpy arrays (drain helper). The
         internal ``last_wake`` marker is dropped — it is state, not a
-        counter."""
-        return {k: v.to("cpu", copy=True).numpy() for k, v in m.items() if k != "last_wake"}
+        counter. Keys come sorted, the order of the reference's pytree."""
+        return {k: m[k].to("cpu", copy=True).numpy() for k in sorted(m) if k != "last_wake"}
 
 
 # Host-side dynamic-topology counters, kept in a plain dict by both engines

@@ -13,15 +13,15 @@ CLI::
 
     python -m repro_torch.obs.report results/obs_runreport.jsonl
     python -m repro_torch.obs.report report.jsonl --merge-bench [PATH]
+    python -m repro_torch.obs.report --validate-trace results/obs_torch_trace.json
 
 The first form renders the run summary table (metadata, final counter
 totals, per-phase rows); ``--merge-bench`` folds the report's ``obs_*``
 rows into a bench summary file, by default the port's
 ``results/BENCH_torch_summary.json`` (the JAX package's
-``BENCH_summary.json`` is the reference's and is never written here).
-The reference's ``--validate-trace`` checks a Chrome trace of
-``repro.obs.trace``, which is ROADMAP item A10b: the option is refused
-with that item's name.
+``BENCH_summary.json`` is the reference's and is never written here);
+``--validate-trace`` loads a Chrome trace (either package's) with
+:func:`repro_torch.obs.trace.validate_trace` and prints its span count.
 """
 
 from __future__ import annotations
@@ -165,19 +165,22 @@ def main(argv=None) -> int:
         f"PATH: {SUMMARY})",
     )
     ap.add_argument("--validate-trace", default=None, metavar="TRACE",
-                    help="not ported yet (ROADMAP A10b)")
+                    help="assert a Chrome trace.json loads and carries spans")
     args = ap.parse_args(argv)
+    if args.report is None and args.validate_trace is None:
+        ap.error("nothing to do: pass a report JSONL and/or --validate-trace")
     if args.validate_trace is not None:
-        ap.error("--validate-trace checks a trace of repro.obs.trace, ROADMAP item A10b, "
-                 "which is not ported yet")
-    if args.report is None:
-        ap.error("nothing to do: pass a report JSONL")
-    report = RunReport.from_jsonl(args.report)
-    print(report.summary_table())
-    rows = report.bench_rows()
-    for path in args.merge_bench:
-        merge_bench_summary(path, rows)
-        print(f"merged {len(rows)} obs rows into {path}")
+        from repro_torch.obs.trace import validate_trace
+
+        n = validate_trace(args.validate_trace)
+        print(f"{args.validate_trace}: valid Chrome trace, {n} spans")
+    if args.report is not None:
+        report = RunReport.from_jsonl(args.report)
+        print(report.summary_table())
+        rows = report.bench_rows()
+        for path in args.merge_bench:
+            merge_bench_summary(path, rows)
+            print(f"merged {len(rows)} obs rows into {path}")
     return 0
 
 

@@ -134,11 +134,7 @@ class SnapshotStore:
         """The newest published snapshot (raises before the first publish)."""
         snap = self._latest
         if snap is None:
-            raise RuntimeError(
-                "no snapshot published yet; run the engine with "
-                "run(..., snapshot_every=, serve=handle) or serve from a "
-                "checkpoint via repro_torch.serve.serve_from_checkpoint"
-            )
+            raise _unpublished()
         return snap
 
     @property
@@ -155,11 +151,28 @@ class SnapshotStore:
     def latest_ready(self) -> ThetaSnapshot:
         """The newest snapshot in the ring whose copy has completed (the
         latest one where none has: the reader's stream then waits for it)."""
-        latest = self.latest
+        return self.read()[1]
+
+    def read(self) -> tuple:
+        """``(latest version, newest ready snapshot)``, read under one lock
+        so a reader's lag is counted against the version that was newest
+        when it chose its snapshot."""
         with self._lock:
+            latest = self._latest
             k = len(self._ring)
             ring = [self._ring[(self._idx - 1 - j) % k] for j in range(k)]
-        return next((snap for snap in ring if snap is not None and snap.is_ready()), latest)
+        if latest is None:
+            raise _unpublished()
+        ready = next((snap for snap in ring if snap is not None and snap.is_ready()), latest)
+        return latest.version, ready
+
+
+def _unpublished() -> RuntimeError:
+    return RuntimeError(
+        "no snapshot published yet; run the engine with "
+        "run(..., snapshot_every=, serve=handle) or serve from a "
+        "checkpoint via repro_torch.serve.serve_from_checkpoint"
+    )
 
 
 class ServeResult(NamedTuple):
@@ -210,6 +223,7 @@ class ServeHandle:
         self._streams: dict = {}  # device -> the stream predict reads on
         self._publish_events: list = []  # (start, end) CUDA events of each copy
         self._publish_device_s = 0.0
+        self._lag_start = (0, 0)  # (last, largest) lag counted at a request's start
 
     # -- publication -------------------------------------------------------
     @classmethod
@@ -317,9 +331,20 @@ class ServeHandle:
 
     def counters(self) -> dict:
         """A copy of the host-side ``serve_*`` counters
-        (:data:`repro_torch.obs.SERVE_COUNTERS` layout)."""
+        (:data:`repro_torch.obs.SERVE_COUNTERS` layout). The version lag is
+        the reference's: counted when the request ends, the newest published
+        version then less the version that served it."""
         with self._lock:
             return dict(self._counters)
+
+    @property
+    def version_lag_start(self) -> tuple:
+        """``(last, largest)`` lag counted at a request's start: the newest
+        published version when it chose its snapshot, less the served one.
+        The end lag (``serve_version_lag``) adds the publications made while
+        the request ran."""
+        with self._lock:
+            return self._lag_start
 
     def rows(self, agent_ids, neighbors=None, at=None) -> ServeResult:
         """The served ``(B, p)`` model rows (float32) for ``agent_ids``.
@@ -328,10 +353,10 @@ class ServeHandle:
         tiles rounded to float32); cold ids the Eq. 16 neighbour average.
         """
         ids = self._check_ids(agent_ids)
-        snap = self._store.latest_ready if at is None else at
+        latest, snap = self._choose(at)
         plan, cold = self._route(ids, snap, neighbors)
         out = self._serve(snap, plan)
-        self._account(ids.size, int(cold.sum()), snap.version)
+        self._account(ids.size, int(cold.sum()), snap.version, latest)
         return ServeResult(values=out, version=snap.version, cold=cold)
 
     def predict(self, agent_ids, X, neighbors=None, at=None) -> ServeResult:
@@ -352,13 +377,19 @@ class ServeHandle:
                 f"X must be (B, p) = ({ids.size}, {self.p}) to match "
                 f"agent_ids; got {X.shape}"
             )
-        snap = self._store.latest_ready if at is None else at
+        latest, snap = self._choose(at)
         plan, cold = self._route(ids, snap, neighbors)
         y = self._serve(snap, plan, np.ascontiguousarray(X, dtype=np.float32))
-        self._account(ids.size, int(cold.sum()), snap.version)
+        self._account(ids.size, int(cold.sum()), snap.version, latest)
         return ServeResult(values=y, version=snap.version, cold=cold)
 
     # -- internals ---------------------------------------------------------
+    def _choose(self, at):
+        """The newest published version at the request's start and the
+        snapshot that serves it (the newest ready one, or the pinned ``at``)."""
+        latest, ready = self._store.read()
+        return latest, (ready if at is None else at)
+
     def _reader_stream(self, device):
         with self._lock:
             stream = self._streams.get(device)
@@ -452,9 +483,11 @@ class ServeHandle:
             lids = snap.local_of[gids].astype(np.int64)
         return (sids, lids, w), cold
 
-    def _account(self, batch: int, cold: int, served_version: int) -> None:
+    def _account(self, batch: int, cold: int, served_version: int, latest_at_start: int) -> None:
+        lag_start = latest_at_start - served_version
         lag = self._store.latest_version - served_version
         with self._lock:
+            self._lag_start = (lag_start, max(self._lag_start[1], lag_start))
             c = self._counters
             c["serve_requests"] += 1
             c["serve_predictions"] += batch

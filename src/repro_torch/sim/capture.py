@@ -51,11 +51,27 @@ What a graph needs, and how the engine gives it:
   capturing thread's CUDA calls, so a serving thread (``repro_torch.serve``)
   may gather from its snapshots on its own stream while the trainer
   captures; the snapshots are copies, never the live buffers.
+* **The garbage collector.** An engine holds its graphs in a reference
+  cycle, so only the collector frees a dropped engine's graphs, and
+  destroying a graph while another stream captures invalidates that
+  capture. The collector is off while a capture runs; what it would have
+  freed waits for the next collection.
+
+The engines' phase programs (:class:`PhaseProgram`, the reference's
+jitted slot prefixes ``phase_program(upto)``) follow the same rules on a
+scratch state of their own: each prefix is a graph of its own, captured
+on a clone of the state it is first given and kept out of the chunk's
+graphs, with the clone's own generator registered; ``load`` copies a
+state (its generator's seed and offset included) into the clone. A
+prefix never touches the state it was given or that state's generator.
+On the CPU a prefix runs eagerly on the clone.
 
 A capture that fails raises; nothing carries on eagerly.
 """
 
 from __future__ import annotations
+
+import gc
 
 import torch
 
@@ -71,6 +87,66 @@ def _copy_leaf(src, dst) -> None:
         for k, leaf in dst.items():
             if src[k] is not leaf:
                 leaf.copy_(src[k])
+
+
+def _clone_leaf(leaf):
+    """A copy of a state leaf: tensors cloned, dicts leaf by leaf."""
+    if isinstance(leaf, torch.Tensor):
+        return leaf.clone()
+    if isinstance(leaf, dict):
+        return {k: v.clone() for k, v in leaf.items()}
+    return leaf
+
+
+def clone_state(state):
+    """A state of new tensors equal to ``state``, with a generator of its
+    own at the same seed and offset (a sharded state's ``Theta`` stays a
+    view of its new slab)."""
+    fields = {f: _clone_leaf(getattr(state, f)) for f in state._fields if f != "generator"}
+    gen = torch.Generator(device=state.generator.device)
+    gen.set_state(state.generator.get_state())
+    fields["generator"] = gen
+    if "slab" in fields:
+        S, R, p = state.Theta.shape
+        fields["Theta"] = fields["slab"][: S * R].view(S, R, p)
+    return type(state)(**fields)
+
+
+def load_state(src, dst) -> None:
+    """Copy every tensor leaf of ``src`` into ``dst`` where they are other
+    tensors, then the generator's seed and offset."""
+    for name in dst._fields:
+        if name != "generator":
+            _copy_leaf(getattr(src, name), getattr(dst, name))
+    if src.generator is not dst.generator:
+        dst.generator.set_state(src.generator.get_state())
+
+
+def capture(fn, generator, stream, pool=None):
+    """Capture ``fn()`` as a CUDA graph on ``stream`` with ``generator``
+    registered; returns ``(graph, output, launches a replay)``. The
+    launches counted while capturing are taken back out (a capture
+    launches nothing). The garbage collector is off meanwhile: a graph it
+    destroyed would invalidate the capture."""
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(generator)
+    before = _build.launch_counts()
+    current = torch.cuda.current_stream(stream.device)
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        # thread_local: a capture checks only this thread's CUDA calls, so
+        # a serving thread reading snapshots meanwhile breaks nothing.
+        with torch.cuda.graph(graph, pool=pool, stream=stream,
+                              capture_error_mode="thread_local"):
+            out = fn()
+    finally:
+        launches = {k: v - before[k] for k, v in _build.launch_counts().items()}
+        _build.add_launches({k: -v for k, v in launches.items()})
+        torch.cuda.set_stream(current)  # a failed capture_end skips the stream's exit
+        if collecting:
+            gc.enable()
+    return graph, out, launches
 
 
 def _same_tensors(a, b) -> bool:
@@ -115,13 +191,8 @@ class ChunkGraphs:
         if self.live is None:
             self.live = state
             return state
-        live = self.live
-        for name in state._fields:
-            if name != "generator":
-                _copy_leaf(getattr(state, name), getattr(live, name))
-        if state.generator is not live.generator:
-            live.generator.set_state(state.generator.get_state())
-        return live
+        load_state(state, self.live)
+        return self.live
 
     def advance(self, state, slots: int):
         """Run ``slots`` sampled super-ticks through the captured graphs."""
@@ -152,29 +223,97 @@ class ChunkGraphs:
         if steps in self.graphs:
             return self.graphs[steps]
         live, eng = self.live, self.engine
-        graph = torch.cuda.CUDAGraph()
-        graph.register_generator_state(live.generator)
         pool = next(iter(self.graphs.values()))[0].pool() if self.graphs else None
-        before = _build.launch_counts()
-        current = torch.cuda.current_stream(eng.device)
+
+        def slots():
+            out = live
+            for _ in range(steps):
+                out = eng._slot(out, None)
+            return out
+
         try:
-            # thread_local: a capture checks only this thread's CUDA calls, so
-            # a serving thread reading snapshots meanwhile breaks nothing.
-            with torch.cuda.graph(graph, pool=pool, stream=self.stream,
-                                  capture_error_mode="thread_local"):
-                out = live
-                for _ in range(steps):
-                    out = eng._slot(out, None)
+            graph, out, launches = capture(slots, live.generator, self.stream, pool)
         except Exception as e:
             raise RuntimeError(
                 f"capturing {steps} engine slot(s) as a CUDA graph failed: {e}") from e
-        finally:
-            launches = {k: v - before[k] for k, v in _build.launch_counts().items()}
-            _build.add_launches({k: -v for k, v in launches.items()})
-            torch.cuda.set_stream(current)  # a failed capture_end skips the stream's exit
         moved = [f for f in live._fields if not _same_tensors(getattr(out, f), getattr(live, f))]
         if moved:
             raise RuntimeError(f"the captured slot replaced the state's {moved}: a graph "
                                "needs the slot to update the state in place")
         self.graphs[steps] = (graph, launches)
         return self.graphs[steps]
+
+
+class PhaseProgram:
+    """One phase prefix of an engine's sampled slot (the reference's
+    ``phase_program(upto)``) on the engine's scratch state: ``load`` a
+    state into the scratch, then ``run`` the prefix there, or call the
+    program with a state for both. Returns the cut phase's intermediates
+    (the scratch state itself for ``upto`` None or ``"finalize"``). On a
+    CUDA device the prefix is a graph of its own, captured at the first
+    ``load`` after an eager warm-up on the scratch; each replay adds its
+    launches to ``ops.launch_counts()``, as a chunk's replay does."""
+
+    def __init__(self, engine, upto):
+        self.engine = engine
+        self.upto = upto
+        self.graph = None
+        self.out = None
+        self.launches = None
+
+    def __call__(self, state):
+        self.load(state)
+        return self.run()
+
+    def load(self, state) -> None:
+        """Copy ``state`` (tensors and the generator's position) into the
+        engine's scratch state, capturing this prefix first if it is not
+        yet; ``state`` itself is only read."""
+        eng = self.engine
+        scratch = eng._phase_scratch
+        if scratch is None:
+            eng._phase_scratch = scratch = clone_state(state)
+        if eng.device.type == "cuda" and self.graph is None:
+            self._capture(scratch)
+        load_state(state, scratch)
+
+    def run(self):
+        """The prefix on the scratch state as it stands (it updates it)."""
+        eng = self.engine
+        if eng._phase_scratch is None:
+            raise ValueError("load a state into the phase program before running it")
+        if self.graph is None:
+            return eng._slot(eng._phase_scratch, None, upto=self.upto)
+        self.graph.replay()
+        _build.add_launches(self.launches)
+        return self.out
+
+    def _capture(self, scratch) -> None:
+        eng = self.engine
+        stream = getattr(eng, "_phase_stream", None)
+        if stream is None:
+            stream = eng._phase_stream = torch.cuda.Stream(eng.device)
+        current = torch.cuda.current_stream(eng.device)
+        stream.wait_stream(current)
+        with torch.cuda.stream(stream):  # the warm-up fills the caches a capture may not
+            eng._slot(scratch, None, upto=self.upto)
+        current.wait_stream(stream)
+        pools = [p.graph for p in eng._phase_cache.values() if p.graph is not None]
+        try:
+            self.graph, self.out, self.launches = capture(
+                lambda: eng._slot(scratch, None, upto=self.upto), scratch.generator, stream,
+                pools[0].pool() if pools else None)
+        except Exception as e:
+            raise RuntimeError(
+                f"capturing the slot prefix up to {self.upto!r} as a CUDA graph failed: {e}"
+            ) from e
+
+
+def phase_program(engine, upto) -> PhaseProgram:
+    """The engine's cached :class:`PhaseProgram` for ``upto`` (None: the
+    full slot); an unknown phase raises the reference's ``ValueError``."""
+    if upto is not None and upto not in engine._phases:
+        raise ValueError(f"unknown phase {upto!r} (have {engine._phases})")
+    if upto not in engine._phase_cache:
+        engine._phase_cache[upto] = PhaseProgram(engine, upto)
+    return engine._phase_cache[upto]

@@ -67,7 +67,7 @@ from repro_torch.kernels.fused_row_update import MAX_M, MAX_P
 from repro_torch.obs.metrics import ExchangeVolume, MetricsAccumulator, topology_log_init
 from repro_torch.obs.report import RunReport
 from repro_torch.sim import clocks
-from repro_torch.sim.capture import ChunkGraphs
+from repro_torch.sim.capture import ChunkGraphs, PhaseProgram, phase_program
 from repro_torch.sim.config import EngineConfig, resolve_config
 from repro_torch.sim.partition import partition_graph
 from repro_torch.sim.scenarios import Scenario
@@ -566,6 +566,12 @@ class AsyncEngine:
                 dp_limit=getattr(update, "planned_Ti", None),
             )
         )
+        if self.fused:
+            self._phases = ("wake_sample", "fused_row_update", "finalize")
+        else:
+            self._phases = ("wake_sample", "gather_mix", "row_update", "scatter", "finalize")
+        self._phase_cache: dict = {}  # upto -> PhaseProgram (sim/capture.py)
+        self._phase_scratch = None  # the state the phase programs run on
         # The captured chunks (sim/capture.py): on a CUDA device only.
         self._graphs = ChunkGraphs(self) if dev.type == "cuda" else None
 
@@ -713,9 +719,11 @@ class AsyncEngine:
         slot_rows = torch.where(valid, woken, spare)
         return woken, slot_rows, valid, total - nvalid
 
-    def _slot(self, state: SimState, wake_mask) -> SimState:
+    def _slot(self, state: SimState, wake_mask, upto: str | None = None):
         """One super-tick, in place; ``wake_mask`` forces the wake set (None
-        samples it)."""
+        samples it). ``upto`` cuts the slot after a named phase and returns
+        that phase's live intermediates, as the reference's ``_slot`` does
+        (the prefix programs of :meth:`phase_program`); None runs it all."""
         n, dev = self.n, self.device
         gen = state.generator
         active_prev = active = state.active
@@ -732,6 +740,8 @@ class AsyncEngine:
             # straggler losses — but departed agents still cannot wake.
             wake_pre = wake = wake_mask & active
         woken, slot_rows, valid, dropped = self._compact(wake)
+        if upto == "wake_sample":
+            return wake, woken, slot_rows, valid, dropped, active
 
         Theta = state.Theta
         hist = state.hist
@@ -740,6 +750,8 @@ class AsyncEngine:
             Theta, applied, ustate = self.update.apply_fused(
                 Theta, woken, valid, gen, state.ustate, self._fidx[slot_rows], self._fw[slot_rows]
             )
+            if upto == "fused_row_update":
+                return Theta, applied
         else:
             if self.dynamic:
                 # The reference's dynamic gather: an einsum over the live
@@ -760,14 +772,20 @@ class AsyncEngine:
                     neigh = torch.einsum("bk,bkp->bp", self._w[slot_rows], hist[lag, cols])
                 else:
                     neigh = self.update.mix.gather_rows(Theta, woken)
+                if upto == "gather_mix":
+                    return neigh
                 new_rows, applied, ustate = self.update.apply(
                     Theta, woken, valid, neigh, gen, state.ustate
                 )
+            if upto == "row_update":
+                return new_rows, applied
             # Every new row is computed before any is written (the
             # start-of-slot snapshot); rows not applied write back their
             # own value, so the scatter touches B distinct rows.
             keep = torch.where(applied[:, None], new_rows.to(Theta.dtype), Theta[slot_rows])
             Theta.index_copy_(0, slot_rows, keep)
+            if upto == "scatter":
+                return Theta
 
         if self._macc is not None:
             self._macc.tick(
@@ -899,6 +917,26 @@ class AsyncEngine:
     def topology_counters(self) -> dict:
         """Host-side dynamic-topology counters (all zeros when static)."""
         return dict(self.topology_log)
+
+    # -- observability -------------------------------------------------------
+    @property
+    def phase_names(self) -> tuple:
+        """The named super-tick phases, in pipeline order (the reference's)."""
+        return self._phases
+
+    def phase_program(self, upto: str | None = None) -> PhaseProgram:
+        """The sampled slot cut after phase ``upto`` (None = the full slot),
+        run on a scratch copy of the state it is given
+        (:class:`repro_torch.sim.capture.PhaseProgram`): on the card a
+        captured CUDA graph of its own, so a prefix times what the captured
+        slot pays. :func:`repro_torch.obs.profile_supertick` times and
+        differences them; the live state and its generator are never
+        touched."""
+        if self.dynamic:
+            raise NotImplementedError(
+                "phase profiling serves the static-topology path only"
+            )
+        return phase_program(self, upto)
 
     # -- telemetry -----------------------------------------------------------
     def metrics_snapshot(self, state: SimState) -> tuple:
@@ -1053,8 +1091,7 @@ class ShardedAsyncEngine:
     is at most ``EngineConfig.drift_threshold``, or cuts a new partition
     and re-lays the state out; the slab's halo part (and on a repartition
     the owned part) changes shape, so every swap drops the captured
-    graphs. Refused: per-edge delays (as in the reference), and phase
-    programs (ROADMAP item A10b).
+    graphs. Refused: per-edge delays (as in the reference).
     """
 
     def __init__(self, update: LocalUpdate, *, num_shards: int, config: EngineConfig | None = None,
@@ -1149,6 +1186,13 @@ class ShardedAsyncEngine:
         self.fused = _resolve_fused(update, fused_knob, self.device, self.dtype, False, self.p,
                                     obj.data.X.shape[1] if obj is not None else 0)
         self._use_ef = self.smix.error_feedback
+        halo = ("wake_sample", "halo_publish", "halo_collective", "halo_scatter")
+        if self.fused:
+            self._phases = halo + ("fused_row_update", "finalize")
+        else:
+            self._phases = halo + ("gather_mix", "row_update", "scatter", "finalize")
+        self._phase_cache: dict = {}
+        self._phase_scratch = None
         self._graphs = ChunkGraphs(self) if self.device.type == "cuda" else None
         self._rebuild_static()
 
@@ -1188,6 +1232,8 @@ class ShardedAsyncEngine:
         dropped (:meth:`ChunkGraphs.reset`)."""
         if self._graphs is not None:
             self._graphs.reset()
+        self._phase_cache.clear()  # the phase programs read the old tiles too
+        self._phase_scratch = None
         part, dev, S = self.part, self.device, self.num_shards
         R, B = part.rows_per_shard, self.batch_size
         self.rows_per_shard = R
@@ -1352,9 +1398,11 @@ class ShardedAsyncEngine:
         slot_rows = torch.where(valid, woken, spare)
         return woken, slot_rows, valid, total - nvalid
 
-    def _slot(self, state: ShardedSimState, wake_mask) -> ShardedSimState:
+    def _slot(self, state: ShardedSimState, wake_mask, upto: str | None = None):
         """One super-tick of all S shards, in place; ``wake_mask`` (S, R)
-        forces the wake set (None samples it)."""
+        forces the wake set (None samples it). ``upto`` cuts it after a
+        named phase and returns that phase's live intermediates (the
+        reference's ``_slot_local(..., upto)``); None runs it all."""
         S, R, dev = self.num_shards, self.rows_per_shard, self.device
         gen = state.generator
         active_prev = active = state.active
@@ -1370,15 +1418,21 @@ class ShardedAsyncEngine:
             # Forced wake sets: no churn transition, no straggler losses —
             # but departed agents still cannot wake.
             wake_pre = wake = wake_mask & active
-        _, slot_rows, valid, dropped = self._compact(wake)
+        woken, slot_rows, valid, dropped = self._compact(wake)
+        if upto == "wake_sample":
+            return wake, woken, slot_rows, valid, dropped, active
         rows = (slot_rows + self._shard_base).reshape(-1)  # (S * B,) flat owned rows
         valid = valid.reshape(-1)
         grows = torch.where(valid, self._owned[rows], self.n)  # global ids, sentinel n
 
         slab = state.slab
-        stats = self.smix.exchange_halo(
-            slab, state.ef if self._use_ef else None,
-            collect_stats=self._macc is not None and self._macc.quantized)
+        collect = self._macc is not None and self._macc.quantized
+        ef = state.ef if self._use_ef else None
+        if upto in ("halo_publish", "halo_collective"):
+            return self.smix.exchange_halo(slab, ef, collect_stats=collect, upto=upto)
+        stats = self.smix.exchange_halo(slab, ef, collect_stats=collect)
+        if upto == "halo_scatter":
+            return slab
         ustate = state.ustate
         flat_u = ustate.view(S * R) if isinstance(ustate, torch.Tensor) else ustate
         consts = None if self._consts is None else {k: v[rows] for k, v in self._consts.items()}
@@ -1388,17 +1442,25 @@ class ShardedAsyncEngine:
             _, applied, _ = self.update.apply_fused(
                 slab, grows, valid, gen, flat_u, self._fidx[rows], self._fw[rows],
                 srows=rows, ssize=S * R, consts=consts)
+            if upto == "fused_row_update":
+                return state.Theta, applied
         else:
             neigh = self.smix.gather_rows(slab, rows)
+            if upto == "gather_mix":
+                return neigh
             owned = slab[: S * R]
             theta_rows = owned[rows]
             new_rows, applied, _ = self.update.apply_rows(
                 theta_rows, grows, valid, neigh, gen, flat_u, srows=rows, ssize=S * R,
                 consts=consts)
+            if upto == "row_update":
+                return new_rows, applied
             # Every new row is computed before any is written; rows not
             # applied write back their own value (B distinct rows a shard).
             owned.index_copy_(0, rows, torch.where(applied[:, None],
                                                    new_rows.to(slab.dtype), theta_rows))
+            if upto == "scatter":
+                return state.Theta
 
         if self._macc is not None:
             self._macc.tick(
@@ -1610,12 +1672,17 @@ class ShardedAsyncEngine:
         return dict(self.topology_log)
 
     # -- observability -------------------------------------------------------
+    @property
+    def phase_names(self) -> tuple:
+        """The named super-tick phases, in pipeline order (the reference's)."""
+        return self._phases
 
-    def phase_program(self, upto: str | None = None):
-        """The slot cut after a named phase: ROADMAP item A10b, not ported yet."""
-        raise NotImplementedError(
-            "ShardedAsyncEngine.phase_program (phase programs and traces) is ROADMAP "
-            "item A10b, which is not ported yet")
+    def phase_program(self, upto: str | None = None) -> PhaseProgram:
+        """The sampled stacked slot cut after phase ``upto`` (None = full),
+        on a scratch copy of the state; same contract as
+        :meth:`AsyncEngine.phase_program`. The halo's publish, collective
+        and scatter are the three steps of ``ShardedMixOp.exchange_halo``."""
+        return phase_program(self, upto)
 
     def metrics_snapshot(self, state: ShardedSimState) -> tuple:
         """Drain the device counters: ``(counters, derived)`` host dicts.

@@ -9,7 +9,9 @@ Then checkpoints and serving on the card: resume through the captured
 chunk (into a fresh engine and into the same one), dynamic resume across
 a refresh and an admission, snapshots isolated from later replays,
 ``predict`` on a second thread while the engine trains, and checkpoint
-serving on the card and the CPU.
+serving on the card and the CPU. Last, the phase programs captured on the
+card (equal to the eager slot, leaving the state and its generator as they
+were) and the reference kernel bench's shapes.
 
 Marked ``cuda``: every test skips where there is no CUDA device. Run on a
 GPU machine with ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``
@@ -1201,3 +1203,130 @@ def test_serve_from_checkpoint_on_the_card_and_the_cpu(dev, tmp_path):
         np.testing.assert_allclose(card.rows([eng.n + 1], neighbors=nb).values,
                                    cpu.rows([eng.n + 1], neighbors=nb).values, rtol=1e-6,
                                    atol=1e-7)
+
+
+# ---------------------------------------------------------------------------
+# Phase programs, traces and the kernel bench on the card (A10b, A14)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("case", ["fused", "unfused", "fused_bf16_ef_metrics"])
+def test_captured_phase_programs_on_the_card(dev, case):
+    """Each prefix is a captured graph on the scratch state: the full-slot
+    program equals one eager slot on a copy, bit for bit; every prefix
+    leaves the given state and its generator as they were and counts its
+    launches; the engine's chunk graphs are untouched; a profile leaves
+    the engine equal to an unprofiled twin after 37 more slots."""
+    from repro_torch.obs import SpanRecorder, profile_supertick
+    from repro_torch.sim import ShardedAsyncEngine
+    from repro_torch.sim.capture import clone_state
+
+    eng, Theta0 = _sharded_engine(dev, case)
+    twin = ShardedAsyncEngine(eng.update, num_shards=4, config=eng.config)
+    state = eng.advance(eng.init_state(Theta0), 5)
+    tstate = twin.advance(twin.init_state(Theta0), 5)
+    chunk_graphs = dict(eng._graphs.graphs)
+    before = {k: (v.clone() if isinstance(v, torch.Tensor) else v)
+              for k, v in _leaves(state).items()}
+    want = eng._slot(clone_state(state), None)
+    full = eng.phase_program(None)
+    full.load(state)  # the first load warms up eagerly (a launch) and captures
+    ops.reset_launch_counts()
+    got = full(state)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["fused_row_update"] == (1 if eng.fused else 0)
+    _assert_sharded_states_equal(got, want)
+    for name in eng.phase_names:
+        eng.phase_program(name)(state)
+        assert eng.phase_program(name).graph is not None
+    recorder = SpanRecorder(dev)
+    assert recorder.nvtx
+    prof = profile_supertick(eng, state=state, inner=2, repeats=2, recorder=recorder)
+    assert tuple(prof.phases) == eng.phase_names and 0.5 < prof.coverage < 2.0
+    assert eng._graphs.graphs == chunk_graphs
+    after = _leaves(state)
+    for k, v in before.items():
+        assert torch.equal(after[k], v), k
+    state, tstate = eng.advance(state, 37), twin.advance(tstate, 37)
+    _assert_sharded_states_equal(state, tstate)
+
+
+@pytest.mark.parametrize("case", ["fused_metrics", "unfused", "dp_unfused_metrics"])
+def test_single_device_phase_programs_on_the_card(dev, case):
+    """The single-device prefixes captured on the card: the full-slot
+    program equals one eager slot on a copy bit for bit, every prefix
+    leaves the state it was given as it was, and the engine then equals an
+    unprofiled twin after 37 more captured slots."""
+    from repro_torch.obs import profile_supertick
+    from repro_torch.sim.capture import clone_state
+
+    eng, Theta0 = _capture_engine(dev, case)
+    twin, _ = _capture_engine(dev, case)
+    state = eng.advance(eng.init_state(Theta0), 5)
+    tstate = twin.advance(twin.init_state(Theta0), 5)
+    want = eng._slot(clone_state(state), None)
+    _assert_states_equal(eng.phase_program(None)(state), want)
+    profile_supertick(eng, state=state, inner=2, repeats=2)
+    _assert_states_equal(state, tstate)
+    _assert_states_equal(eng.advance(state, 37), twin.advance(tstate, 37))
+
+
+def test_kernel_bench_shapes_on_the_card(dev):
+    """The reference kernel bench's four shapes: each kernel within its
+    tolerance of its plain version (``measure`` raises otherwise)."""
+    from repro_torch.bench import kernels
+
+    res = kernels.measure(dev)
+    assert set(res) == {"dp_clip_noise", "graph_mix", "ssm_chunk", "fused_row_update"}
+    for r in res.values():
+        assert r["max_abs_err"] <= r["tol"] and r["ms"] > 0 and r["bound_ms"] > 0
+
+
+class _Cycle:
+    """A reference cycle holding ``items``: only the garbage collector frees it."""
+
+    def __init__(self, items):
+        self.items, self.me = items, self
+
+
+def test_a_capture_survives_the_collector_freeing_another_engines_graphs(dev):
+    """An engine holds its graphs in a reference cycle, so only the garbage
+    collector frees a dropped engine's graphs, and a graph destroyed while
+    another stream captures invalidates that capture. ``capture`` keeps the
+    collector off: a captured engine's two graphs, held by a young cycle
+    alone, become garbage inside the captured function with the collector
+    set to run at every allocation, and the capture holds; the graphs go at
+    the next collection."""
+    import gc
+    import weakref
+
+    from repro_torch.sim.capture import capture
+
+    eng, Theta0 = _capture_engine(dev, "fused_metrics")
+    eng.advance(eng.init_state(Theta0), 20)  # a 16-slot graph and a one-slot graph
+    graphs = [graph for graph, _ in eng._graphs.graphs.values()]
+    assert len(graphs) == 2
+    eng._graphs.reset()  # the graphs now live only in the cycle below
+    box = [_Cycle(graphs)]
+    gone = weakref.ref(box[0])
+    del graphs, eng
+    y = torch.zeros(8, device=dev)
+    threshold = gc.get_threshold()
+
+    def fn():
+        box.clear()  # the cycle is garbage from here on
+        gc.set_threshold(1, 1, 1)
+        for _ in range(200):
+            [[] for _ in range(8)]
+        return y.add_(1)
+
+    try:
+        graph, _, _ = capture(fn, torch.Generator(device=dev), torch.cuda.Stream(dev))
+    finally:
+        gc.set_threshold(*threshold)
+    assert gone() is not None  # nothing was collected while capturing
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(y, torch.ones(8, device=dev))
+    gc.collect()
+    assert gone() is None

@@ -282,6 +282,12 @@ def test_report_cli_renders_and_merges(tmp_path, capsys, monkeypatch):
     assert json.loads(default.read_text())["obs_wakes_applied"]["derived"] == "through slot 1"
     with pytest.raises(SystemExit):
         report_cli.main([])  # nothing to do
-    with pytest.raises(SystemExit):
-        report_cli.main([str(rpath), "--validate-trace", "t.json"])
-    assert "A10b" in capsys.readouterr().err
+    from repro_torch.obs import SpanRecorder
+
+    recorder = SpanRecorder()
+    recorder.add("span", 0.0, 1.0)
+    tpath = tmp_path / "t.json"
+    recorder.export_chrome_trace(str(tpath))
+    capsys.readouterr()
+    assert report_cli.main([str(rpath), "--validate-trace", str(tpath)]) == 0
+    assert f"{tpath}: valid Chrome trace, 1 spans" in capsys.readouterr().out

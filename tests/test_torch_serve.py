@@ -485,3 +485,58 @@ def test_the_port_serves_a_reference_entry(tmp_path, shards):
         snap = mine.snapshot()
         assert snap.tiles.dtype == torch.float32
         assert np.array_equal(snap.tiles[0].numpy(), np.asarray(theirs.snapshot().tiles[0]))
+
+
+class _Copy:
+    """A stand-in for a publication's CUDA event: ready or still copying."""
+
+    def __init__(self, done):
+        self.done = done
+
+    def query(self):
+        return self.done
+
+
+def test_version_lag_is_counted_at_the_request_start_within_snapshot_every():
+    """C4: a reader serves the newest snapshot whose copy is done; the
+    trainer publishes version v + E only once the copy of v is done, so the
+    served version trails the newest one published at the request's start
+    by at most E = snapshot_every (``version_lag_start``). The counters keep
+    the reference's end lag: publications made while a request runs add to
+    ``serve_version_lag``, and nothing but the request's duration bounds
+    them."""
+    from repro_torch.serve.handle import SnapshotStore, ThetaSnapshot
+
+    E = 16
+    store = SnapshotStore(2)
+    handle = ServeHandle(store, ServeSpec(), n=4, p=2)
+
+    def snap(version, done):
+        tiles = torch.full((1, 4, 2), float(version))
+        return ThetaSnapshot(version=version, tiles=tiles, shard_of=None, local_of=None,
+                             pending=frozenset(), ready=_Copy(done))
+
+    store.publish(snap(0, True))
+    pending = snap(E, False)  # enqueued, its copy not done
+    store.publish(pending)
+    res = handle.predict([1, 2], np.ones((2, 2)))
+    assert res.version == 0 and handle.version_lag_start == (E, E)
+    assert handle.counters()["serve_version_lag"] == E
+    pending.ready.done = True  # the trainer waits for this before the next publication
+    store.publish(snap(2 * E, False))
+    serve = handle._serve
+
+    def slow_serve(s, plan, X=None):  # two publications land while the request runs
+        s3 = snap(3 * E, False)
+        store._latest.ready.done = True
+        store.publish(s3)
+        s3.ready.done = True
+        store.publish(snap(4 * E, False))
+        return serve(s, plan, X)
+
+    handle._serve = slow_serve
+    res = handle.predict([3], np.ones((1, 2)))
+    assert res.version == E
+    c = handle.counters()
+    assert handle.version_lag_start == (E, E)  # the newest at the start (2E) less E
+    assert c["serve_version_lag"] == 3 * E and c["serve_version_lag_max"] == 3 * E  # 4E less E

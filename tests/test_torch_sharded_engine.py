@@ -426,8 +426,10 @@ def test_refusals_name_their_items(quad96):
                         (lambda: eng._refresh_topology(st, 0), "no graph_update")):
         with pytest.raises(ValueError, match=match):
             call()
-    with pytest.raises(NotImplementedError, match="A10b"):
+    # Phase programs (A10b) run; an unfused engine has no fused phase to cut at.
+    with pytest.raises(ValueError, match="unknown phase 'fused_row_update'"):
         eng.phase_program("fused_row_update")
+    assert eng.phase_program("gather_mix")(st).shape == (2 * eng.batch_size, 4)
     with pytest.raises(NotImplementedError, match="delay"):
         ShardedAsyncEngine(CDUpdate(port), num_shards=2, device="cpu",
                            scenario=Scenario(delay=DelayConfig(max_delay=1)))
