@@ -187,7 +187,36 @@ Phases, one line each (any failure ends the run with a non-zero code):
    after the profile and after 37 more slots. Then every example of
    ``repro_torch.examples`` at its ``--smoke`` size (else its default),
    with its launches;
-9. a JSON line of every ported kernel (launches, error, times, bound),
+9. the paper's P2P-DP training round (``repro_torch.core.spmd``) on
+   zamba2-1.2b at its full width and depth (38 layers, bfloat16, 1.1 B
+   parameters an agent, random weights from seeded generators): 4 agents
+   stacked on the card, ring gossip by rolls (offsets (1,), the train
+   choice of ``launch/train.py`` for A <= 4), alpha 0.9, mu 0.5, per agent 2 sequences
+   of 2049 tokens from ``token_stream``, remat on, DP noise on (the
+   noise of eps_bar 1 over the rounds run, clip 1, with one next-token
+   example the DP unit, m_i = 4096: not the privacy guarantee of the run,
+   and at the reference launcher's one sequence, m_i = 2, this traffic
+   diverges). A warm-up round (every agent's every leaf must
+   change; its noise, replayed from the generator, read from its update:
+   the mean |noise| of every agent within 1% of its scale), 4 timed
+   rounds (ms a round, training tokens/s, peak memory),
+   each required to launch ``ssm_chunk`` 2 x 38 x 4 = 304 times and to
+   give a finite loss and grad_norm; ``eps_step`` and ``noise_scale`` must
+   be Theorem 1's. One more round traced: the device idle share and the
+   device ms in ``ssm_chunk``, in the backward's plain autograd of it, in
+   the GEMMs and in the DP perturbation, gossip and update. Then the
+   float32 routes at full width cut to 6 layers (4 agents, 2 x 257 tokens,
+   DP off): the kernel route against the einsum route (loss 1e-5, every
+   agent's new parameters 1e-4), remat on against off (``torch.equal``),
+   the dense and sparse gossip against the roll (1e-6), and the roll
+   round with DP on, its clip and noise read from its update against the
+   DP-off round's (each agent's clip scale min(1, C / |g|) within 1e-5,
+   the clipped norm at most C (1 + 1e-6)); and
+   ``tests/test_spmd.py``'s gate on the reduced config (A = 1, mu = 0.3:
+   the second round's loss below the first's), its first round against
+   the CPU within 1e-5. Phase 3 adds ``ssm_chunk`` at the training shape
+   (2 x 16 chunks x 64 heads) with the backward's time and bound;
+10. a JSON line of every ported kernel (launches, error, times, bound),
    the phases' command seconds (each also printed as a ``[time]`` line
    when its phase ends), then the last line
    ``{"ok": true, "device": {...}}``.
@@ -244,6 +273,34 @@ DECODE_TRACED = 2  # decode steps traced with torch.profiler
 # max |a - b| of the float32 gates, relative to max(1, max |logit|): 38
 # layers whose two routes take their float32 sums in different orders.
 MODEL_TOL = 1e-4
+# Phase 9: the paper's P2P-DP training round on zamba2-1.2b (see PERF.md,
+# "Cells"): A agents stacked on the card, each with `batch` sequences of
+# `seq` tokens a round (16 chunks of 128 after the shift), the train
+# ring and constants of launch/train.py, DP on over the rounds run. The DP
+# unit here is one next-token example: m_i = batch x (seq - 1) = 4096 a
+# round, not launch/train.py's one sequence (m_i = 2). Since the round clips
+# the aggregated gradient, one token can move it by up to 2C, so eps_bar is
+# a noise setting here and not the guarantee the run gives
+# (src/repro_torch/DEVIATIONS.md). At the reference's unit this traffic
+# diverges: the Laplace scale is 6 a coordinate against weights of 0.02,
+# the first round turns the weights into noise and the next round's
+# gradient is NaN (PERF.md, Findings).
+TRAIN = dict(arch="zamba2-1.2b", seed=0, agents=4, batch=2, seq=2049, alpha=0.9, mu=0.5,
+             offsets=(1,), gossip="ppermute", eps_bar=1.0, clip=1.0, warmup=1, rounds=4)
+# Its float32 routes at full width cut to 6 layers (one attention site).
+TRAIN_ROUTES = dict(num_layers=6, agents=4, batch=2, tokens=257)
+# Relative to max(1, max |.|): the kernel route against the einsum route
+# (loss, every agent's new parameters), the gossip routes against the roll,
+# the card against the CPU on the reduced round; the clipped norm's slack
+# and the mean |noise| against the Laplace scale, both read from a round's
+# own update; the round's clip scale against min(1, C / |g|), and what is
+# left of its perturbation after the clip and the noise, relative to the
+# noise (float32: the reading is exact to about 1e-8).
+TRAIN_TOL = dict(loss=1e-5, params=1e-4, gossip=1e-6, card_vs_cpu=1e-5, clip=1e-6, noise=0.01,
+                 clip_read=1e-5)
+# The profiler ranges a traced round's kernels are assigned to, innermost first.
+TRAIN_RANGES = ("ssm_chunk_backward", "clip_noise", "gossip", "update", "grad_copy",
+                "agent_backward", "agent_forward")
 # Phase 7: the paper benches, at the reference's sizes, and the reference's
 # CPU rows (BENCH_summary.json) printed beside the card's.
 FIG1 = dict(n=100, p=100, mu=0.3, T_cd=3000, T_admm=300, seed=0)
@@ -576,17 +633,29 @@ def ssm_chunk_checks(dev, results) -> None:
     which took C.B^T once per group, printed so older rows compare. At the
     prefill shape every divisor of the 64 heads is timed as the heads per
     block (``hg_ms``) beside the plan's choice. No single PyTorch call
-    computes the function, so there is no library time."""
+    computes the function, so there is no library time.
+
+    Then the training shape of phase 9 (2 sequences x 16 chunks x 64 heads,
+    float32), with the time of the backward the training path runs
+    (``ops._SSMChunk.backward``: the plain version recomputed under
+    autograd, then its gradient) beside that backward's own bound: its
+    inputs (C, B, cum, dt, x and the upstream gy, gs) read once and its
+    gradients written once, float32, and the operations the gradient needs,
+    twice the forward's products (each product's two operand gradients)
+    plus C.B^T once more to form the scores:
+    2 x 2 [(G / heads) tri N + G tri P + G Q P N] + 2 (G / heads) tri N."""
     import torch
 
     from repro_torch.kernels import _build, ops, ref
-    from repro_torch.kernels.ssm_chunk import blocks_per_sm, head_plan, smem_bytes, ssm_chunk_cuda
+    from repro_torch.kernels.ssm_chunk import (blocks_per_sm, head_plan, smem_bytes,
+                                               ssm_chunk_cuda, ssm_chunk_plain)
 
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     smem = _build.load("ssm_chunk").ssm_chunk_smem_bytes
     gen = torch.Generator(device=dev).manual_seed(3)
     for label, (G, Q, N, P, heads), dt in (("prefill", (4 * 16 * 64, 128, 64, 64, 64), torch.float32),
-                                           ("bf16", (6, 77, 40, 96, 3), torch.bfloat16)):
+                                           ("bf16", (6, 77, 40, 96, 3), torch.bfloat16),
+                                           ("train", (2 * 16 * 64, 128, 64, 64, 64), torch.float32)):
         C = torch.randn((G // heads, Q, N), generator=gen, device=dev).to(dt)
         B = torch.randn((G // heads, Q, N), generator=gen, device=dev).to(dt)
         cum = torch.cumsum(-0.1 * torch.rand((G, Q), generator=gen, device=dev), dim=1)
@@ -616,6 +685,20 @@ def ssm_chunk_checks(dev, results) -> None:
             plain_ms=time_ms(lambda: ref.ssm_chunk_ref(*args)),
             library_ms=None, **bound(nbytes, flops),
         )
+        if label == "train":
+            gy = torch.randn((G, Q, P), generator=gen, device=dev)
+            gs = torch.randn((G, P, N), generator=gen, device=dev)
+
+            def backward():
+                leaves = [t.detach().requires_grad_(True) for t in args[:5]]
+                with torch.enable_grad():
+                    return torch.autograd.grad(ssm_chunk_plain(*leaves, heads), leaves, (gy, gs))
+
+            bwd_flops = 2 * flops + 2.0 * (G // heads) * tri * N
+            bwd = bound(4 * (2 * (2 * C.numel() + 2 * G * Q + x.numel()) + gy.numel() + gs.numel()),
+                        bwd_flops)
+            timing.update(backward_ms=time_ms(backward), backward_gflop=bwd_flops / 1e9,
+                          **{f"backward_{k}": v for k, v in bwd.items()})
         check_kernel("ssm_chunk", got, want, results, **timing)
         results[f"ssm_chunk_{label}"] = results["ssm_chunk"]
     results["ssm_chunk"] = results["ssm_chunk_prefill"]  # the main path's shape
@@ -739,7 +822,8 @@ PATH_KERNEL = {"fused": "fused_row_update", "unfused": "sparse_mix",
                "sharded_fused": "fused_row_update", "sharded_unfused": None,
                "sharded_fused_bf16_ef": "fused_row_update",
                "dense": "graph_mix", "sparse_sync": "sparse_mix",
-               "dp_clip_noise": "dp_clip_noise", "zamba2_prefill": "ssm_chunk"}
+               "dp_clip_noise": "dp_clip_noise", "zamba2_prefill": "ssm_chunk",
+               "zamba2_train": "ssm_chunk"}
 SHARDED_LEGS = ("sharded_fused", "sharded_unfused", "sharded_fused_bf16_ef")
 ENGINE_LEGS = ("fused", "unfused", "dp_fused", "dp_unfused") + SHARDED_LEGS
 PATH_KERNEL.update({f"{key}_eager": PATH_KERNEL[key] for key in ENGINE_LEGS})
@@ -2657,11 +2741,449 @@ def main_path_phases(engines) -> dict:
     return out
 
 
+def _rel_tree(a, b) -> float:
+    """The largest per-leaf error of two stacked trees, each relative to
+    max(1, max |leaf of b|)."""
+    from repro_torch.utils.tree import tree_flatten_with_path
+
+    worst = 0.0
+    for (_, x), (_, y) in zip(tree_flatten_with_path(a), tree_flatten_with_path(b)):
+        x, y = x.double(), y.to(x.device).double()
+        worst = max(worst, float((x - y).abs().max()) / max(1.0, float(y.abs().max())))
+    return worst
+
+
+def _clone_tree(tree):
+    from repro_torch.utils.tree import tree_map
+
+    return tree_map(lambda x: x.clone(), tree)
+
+
+def train_trace(step, params, batch, gen, ms_untraced: float) -> dict:
+    """Trace one training round with torch.profiler: the device idle share
+    (traced, and against the untraced round ``ms_untraced``) and the device
+    ms of each kernel by the innermost of ``TRAIN_RANGES`` open when the
+    host launched it (the autograd thread's launches included), then the
+    round's split: ``ssm_chunk`` (the kernel: forward and remat recompute),
+    the backward's plain autograd of it, the GEMMs elsewhere, the DP
+    perturbation, gossip and update, the gradient copy, and the rest."""
+    from repro_torch.kernels import _build
+
+    trace = _build.build_dir() / "traces" / "trace_zamba2_train_round.json"
+    events, wall_ms = traced(lambda: step(params, batch, gen), trace)
+    spans = {name: sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                          if e.get("cat") == "user_annotation" and e.get("name") == name)
+             for name in TRAIN_RANGES}
+    starts = {name: [a for a, _ in iv] for name, iv in spans.items()}
+    launched = {e["args"]["correlation"]: e["ts"] for e in events
+                if e.get("cat", "").startswith("cuda_") and "correlation" in e.get("args", {})}
+
+    def where(e) -> str:
+        t = launched.get(e.get("args", {}).get("correlation"))
+        if t is None:
+            return "outside"
+        for name in TRAIN_RANGES:
+            i = bisect.bisect_right(starts[name], t) - 1
+            if i >= 0 and t <= spans[name][i][1]:
+                return name
+        return "outside"
+
+    by_key: dict = {}
+    split = dict(ssm_chunk_ms=0.0, ssm_backward_plain_ms=0.0, gemm_ms=0.0,
+                 dp_gossip_update_ms=0.0, grad_copy_ms=0.0, other_ms=0.0)
+    for e in _device_events(events):
+        rng, kind, ms = where(e), _kernel_kind(e["name"]), float(e["dur"]) / 1e3
+        by_key[f"{rng}/{kind}"] = by_key.get(f"{rng}/{kind}", 0.0) + ms
+        if kind == "ssm_chunk":
+            split["ssm_chunk_ms"] += ms
+        elif rng == "ssm_chunk_backward":
+            split["ssm_backward_plain_ms"] += ms
+        elif rng in ("clip_noise", "gossip", "update"):
+            split["dp_gossip_update_ms"] += ms
+        elif rng == "grad_copy":
+            split["grad_copy_ms"] += ms
+        elif kind == "matmul":
+            split["gemm_ms"] += ms
+        else:
+            split["other_ms"] += ms
+    busy = sum(by_key.values())
+    if busy <= 0:
+        raise SystemExit("zamba2 training round: the profiler saw no device time")
+    out = dict(traced_ms=wall_ms, device_busy_ms=busy, idle_share_traced=1.0 - busy / wall_ms,
+               idle_share_untraced=1.0 - busy / ms_untraced, **split)
+    log(f"[9p] zamba2 training round traced: {fmt(out)} trace={trace}")
+    for key, ms in sorted(by_key.items(), key=lambda kv: -kv[1])[:14]:
+        log(f"[9p]   {ms:10.3f} ms  {key}")
+    out["ms_by_range_and_kind"] = by_key
+    return out
+
+
+def _replayed_blocks(trees, replay, A: int):
+    """The column blocks of the stacked trees ``trees``, one tuple per
+    block, in a round's order (leaf order, then ``spmd._column_blocks``),
+    each with the standard Laplace draws the round's DP step took for that
+    block, drawn again from ``replay`` (a generator set to the round's
+    starting state)."""
+    import torch
+
+    from repro_torch.core import spmd
+    from repro_torch.core.coordinate_descent import standard_laplace
+    from repro_torch.utils.tree import tree_flatten_with_path
+
+    leaves = [[x for _, x in tree_flatten_with_path(t)] for t in trees]
+    for xs in zip(*leaves):
+        for blks in zip(*(spmd._column_blocks(x, A) for x in xs)):
+            yield blks, standard_laplace(blks[0].shape, replay, blks[0].device, torch.float32)
+
+
+def _replay(gen_state, dev):
+    import torch
+
+    replay = torch.Generator(device=dev)
+    replay.set_state(gen_state)
+    return replay
+
+
+def train_noise_read(before, after, gen_state, gen_end, noise_scale, dev) -> dict:
+    """The DP noise of one full-width round, read from the round's own
+    update: the round's draws replayed from its generator's starting state
+    ``gen_state`` (the replay must end in the round's end state
+    ``gen_end``: the round drew exactly one draw a coordinate, block by
+    block), and per agent the noise scale the round applied to them,
+    ``beta = <d, N> / <N, N>`` over every coordinate, where ``d = ((1 -
+    alpha) theta + alpha mix(theta) - theta') / (alpha mu)`` is the
+    perturbed gradient the update used (``theta`` before, ``theta'``
+    after, ``mix`` the round's roll gossip). The mean |noise| of an agent,
+    ``beta * mean |N|``, must be ``noise_scale`` within 1%. Nothing is
+    launched but the replay, the gossip and the sums."""
+    import torch
+
+    from repro_torch.core import spmd
+
+    t, A = TRAIN, TRAIN["agents"]
+    am = t["alpha"] * t["mu"]
+    replay = _replay(gen_state, dev)
+    dn = nn = absn = torch.zeros(A, dtype=torch.float64, device=dev)
+    count = 0
+    with torch.no_grad():
+        for (x0, x1), noise in _replayed_blocks((before, after), replay, A):
+            mix = spmd.gossip_ppermute(x0, t["offsets"]).float()
+            d = ((1.0 - t["alpha"]) * x0.float() + t["alpha"] * mix - x1.float()) / am
+            dn = dn + torch.sum(d * noise, dim=1, dtype=torch.float64)
+            nn = nn + torch.sum(noise * noise, dim=1, dtype=torch.float64)
+            absn = absn + torch.sum(noise.abs(), dim=1, dtype=torch.float64)
+            count += noise.shape[1]
+            del mix, d, noise
+    beta = (dn / nn).tolist()
+    mean_abs = (absn / count).tolist()
+    ratio = [b * m / noise_scale for b, m in zip(beta, mean_abs)]
+    out = dict(draws=A * count, replay_ends_in_round_state=torch.equal(replay.get_state(), gen_end),
+               noise_scale=noise_scale, beta_over_scale=[b / noise_scale for b in beta],
+               mean_abs_draw=mean_abs, mean_abs_noise_over_scale=ratio)
+    log(f"[9] DP noise read from the warm-up round's update: {fmt(out)} (tol {TRAIN_TOL['noise']})")
+    if not (out["replay_ends_in_round_state"]
+            and max(abs(r - 1.0) for r in ratio) <= TRAIN_TOL["noise"]):
+        raise SystemExit(f"zamba2 training: DP noise gate failed: {out}")
+    return out
+
+
+def train_clip_read(start, off, dp, gen_state, gen_end, clip, noise_scale, dev) -> dict:
+    """The DP clip and noise of one round, read from the round's own update
+    (float32, so the reading is exact to about 1e-8): ``off`` and ``dp``
+    are the DP-off and DP-on rounds from the same agents ``start`` on the
+    same tokens. Per coordinate ``g = ((1 - alpha) theta + alpha mix -
+    off) / (alpha mu)`` is the gradient and ``(off - dp) / (alpha mu) =
+    g (s - 1) + noise_scale N`` with N the round's draws, replayed (the
+    replay must end in the round's end state). Per agent: the round's clip
+    scale ``s = 1 + <r, g> / <g, g>`` (``r`` the difference less the
+    noise) against ``min(1, C / |g|)`` within 1e-5, the clipped norm ``s
+    |g|`` at most C (1 + 1e-6), and what remains of the difference once
+    both are taken out, relative to the noise, within 1e-5."""
+    import torch
+
+    from repro_torch.core import spmd
+
+    t, A = TRAIN, TRAIN_ROUTES["agents"]
+    am = t["alpha"] * t["mu"]
+    replay = _replay(gen_state, dev)
+    f64 = torch.float64
+    g2 = y = x = n2 = torch.zeros(A, dtype=f64, device=dev)
+    with torch.no_grad():
+        for (x0, x1, x2), noise in _replayed_blocks((start, off, dp), replay, A):
+            mix = spmd.gossip_ppermute(x0, t["offsets"]).double()
+            g = ((1.0 - t["alpha"]) * x0.double() + t["alpha"] * mix - x1.double()) / am
+            r = (x1.double() - x2.double()) / am - noise_scale * noise.double()
+            g2 = g2 + torch.sum(g * g, dim=1)
+            y = y + torch.sum(r * g, dim=1)
+            x = x + torch.sum(r * r, dim=1)
+            n2 = n2 + torch.sum(torch.square(noise_scale * noise.double()), dim=1)
+            del mix, g, r, noise
+    norm = torch.sqrt(g2)
+    s = 1.0 + y / g2
+    want = torch.clamp(clip / norm, max=1.0)
+    k = want - 1.0
+    rest = torch.sqrt(torch.clamp(x - 2.0 * k * y + k * k * g2, min=0.0)) / torch.sqrt(n2)
+    out = dict(clip=clip, grad_norms=norm.tolist(), clip_scale=s.tolist(),
+               clip_scale_err=(torch.abs(s - want) / want).tolist(),
+               clipped_norms=(s * norm).tolist(), clipped_over_clip=(s * norm / clip).tolist(),
+               rest_over_noise=rest.tolist(),
+               replay_ends_in_round_state=torch.equal(replay.get_state(), gen_end))
+    log(f"[9] DP clip read from a float32 round's update: {fmt(out)} (tol scale "
+        f"{TRAIN_TOL['clip_read']:.0e}, norm C (1 + {TRAIN_TOL['clip']:.0e}))")
+    if not (out["replay_ends_in_round_state"]
+            and max(out["clip_scale_err"]) <= TRAIN_TOL["clip_read"]
+            and max(out["clipped_over_clip"]) <= 1 + TRAIN_TOL["clip"]
+            and max(out["rest_over_noise"]) <= TRAIN_TOL["clip_read"]):
+        raise SystemExit(f"zamba2 training: DP clip gate failed: {out}")
+    return out
+
+
+def zamba2_train(dev, launches: dict, card: str, kernel_row: dict) -> dict:
+    """Phase 9: the paper's P2P-DP training round on zamba2-1.2b at its full
+    width and depth, bfloat16, ``TRAIN["agents"]`` agents stacked on the
+    card (random weights from seeded generators), through
+    ``core.spmd.make_train_step`` (ring gossip by rolls, remat on, DP noise
+    on, one next-token example the DP unit).
+
+    A warm-up round, then ``TRAIN["rounds"]`` timed rounds (host clock
+    around a synchronized round), launch counts reset just before each and
+    read just after: each must launch ``ssm_chunk`` 2 L A times (the
+    forward and the remat recompute; the backward is the plain version's).
+    Every round's loss and grad_norm must be finite, and every agent's
+    every leaf must change in the warm-up round, and its noise is read
+    from its update (:func:`train_noise_read`). Then one traced round
+    (:func:`train_trace`), the float32 routes with the DP clip read from a
+    round (:func:`train_routes`) and the reduced rounds
+    (:func:`train_reduced`). The headline numbers and phase 3's
+    ``ssm_chunk`` row at the training shape (``kernel_row``) print once
+    more beside ``card``, the name and power limit ``nvidia-smi`` gave."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import P2PConfig
+    from repro_torch.core import spmd
+    from repro_torch.core.privacy import invert_uniform_budget
+    from repro_torch.data.synthetic import token_stream
+    from repro_torch.kernels import ops
+    from repro_torch.models.registry import build_model
+    from repro_torch.utils.tree import tree_flatten_with_path, tree_size
+
+    t = TRAIN
+    cfg = get_config(t["arch"])
+    A, B, L = t["agents"], t["batch"], cfg.num_layers
+    memory("before phase 9")
+    t0 = time.perf_counter()
+    bundle = build_model(cfg, device=dev)
+    params = bundle.init_agents(A, t["seed"])
+    torch.cuda.synchronize()
+    n_rounds = t["warmup"] + t["rounds"] + 1  # the traced round too
+    p2p = P2PConfig(agent_mode="full", dp_enabled=True, eps_bar=t["eps_bar"],
+                    planned_rounds=n_rounds, clip=t["clip"], mu=t["mu"],
+                    neighbor_offsets=t["offsets"], gossip_dtype=None)
+    m_i = B * (t["seq"] - 1)  # the round's next-token examples an agent
+    step, eps_step, noise_scale = spmd.make_train_step(bundle, p2p, A, m_i, alpha=t["alpha"],
+                                                       gossip=t["gossip"])
+    want_eps = invert_uniform_budget(t["eps_bar"], n_rounds, p2p.delta_bar)
+    if eps_step != want_eps or noise_scale != 2.0 * t["clip"] / (want_eps * m_i):
+        raise SystemExit(f"zamba2 training: eps_step {eps_step} or noise_scale {noise_scale} "
+                         f"is not Theorem 1's ({want_eps})")
+    gen = torch.Generator(device=dev).manual_seed(t["seed"])
+    stream = token_stream(cfg.vocab_size, A * B, t["seq"], t["seed"], A)
+
+    def batch():
+        return {"tokens": torch.as_tensor(next(stream).reshape(A, B, t["seq"]), device=dev)}
+
+    per_agent = tree_size(params) // A
+    log(f"[9] set-up {cfg.name} training: agents={A} params_per_agent={per_agent} "
+        f"dtype={cfg.dtype} batch={B}x{t['seq']} gossip={t['gossip']} offsets={t['offsets']} "
+        f"alpha={t['alpha']} mu={t['mu']} eps_bar={t['eps_bar']} over {n_rounds} rounds "
+        f"m_i={m_i} eps_step={eps_step:.6g} noise_scale={noise_scale:.6g} clip={t['clip']} remat=on "
+        f"in {time.perf_counter() - t0:.1f} s")
+    memory("after the agents' set-up")
+
+    def counted_round(b):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t1 = time.perf_counter()
+        _, metrics = step(params, b, gen)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t1) * 1e3
+        counts = ops.launch_counts()
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+        if counts["ssm_chunk"] != 2 * L * A or not (math.isfinite(loss) and math.isfinite(gnorm)):
+            raise SystemExit(f"zamba2 training round: launches {counts} (want {2 * L * A} "
+                             f"ssm_chunk), loss {loss}, grad_norm {gnorm}")
+        return ms, loss, gnorm
+
+    before, gen_state = _clone_tree(params), gen.get_state()
+    warm = counted_round(batch())
+    unchanged = [(a, name) for (name, x), (_, x0) in zip(tree_flatten_with_path(params),
+                                                          tree_flatten_with_path(before))
+                 for a in range(A) if torch.equal(x[a], x0[a])]
+    if unchanged:
+        raise SystemExit(f"zamba2 training: parameters left unchanged by a round: {unchanged[:8]}")
+    noise = train_noise_read(before, params, gen_state, gen.get_state(), noise_scale, dev)
+    del before
+    torch.cuda.reset_peak_memory_stats(dev)
+    rounds = [counted_round(batch()) for _ in range(t["rounds"])]
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    ms = spread([r[0] for r in rounds])
+    tokens = A * B * (t["seq"] - 1)
+    out = dict(agents=A, params_per_agent=per_agent, tokens_per_round=tokens,
+               warmup_ms=warm[0], round_ms=ms["median"], round_ms_min=ms["min"],
+               round_ms_max=ms["max"], tokens_per_s=tokens / ms["median"] * 1e3,
+               tokens_per_s_min=tokens / ms["max"] * 1e3, tokens_per_s_max=tokens / ms["min"] * 1e3,
+               peak_gb=peak_gb, ssm_chunk_launches_per_round=2 * L * A,
+               losses=[warm[1]] + [r[1] for r in rounds],
+               grad_norms=[warm[2]] + [r[2] for r in rounds], m_i=m_i, eps_step=eps_step,
+               noise_scale=noise_scale)
+    log(f"[9] {cfg.name} P2P-DP rounds: {fmt({k: v for k, v in out.items() if not isinstance(v, list)})} "
+        f"losses={out['losses']} grad_norms={out['grad_norms']}")
+    b = batch()
+    ops.reset_launch_counts()
+    out["trace"] = train_trace(step, params, b, gen, ms["median"])
+    counts = ops.launch_counts()
+    for k, v in counts.items():
+        launches[k] = launches.get(k, 0) + v
+    if counts["ssm_chunk"] != 2 * L * A:
+        raise SystemExit(f"zamba2 traced training round: launches {counts}")
+    out["dp_noise"] = noise
+    del params, bundle, step, b
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["routes"] = train_routes(cfg, dev, n_rounds)
+    out["reduced"] = train_reduced(dev)
+    keys = ("round_ms", "tokens_per_s", "peak_gb")
+    log(f"[9] on {card}: {fmt({k: out[k] for k in keys})} "
+        f"idle_share_untraced={out['trace']['idle_share_untraced']:.6g}")
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "backward_ms", "backward_bound_ms",
+            "backward_bound_by")
+    log(f"[9] on {card}: ssm_chunk at the training shape (G = {kernel_row['G']}): "
+        f"{fmt({k: kernel_row[k] for k in keys})}")
+    return out
+
+
+
+
+def train_routes(cfg, dev, n_rounds: int) -> dict:
+    """The training round's float32 routes at full width cut to
+    ``TRAIN_ROUTES["num_layers"]`` layers (one attention site), A agents,
+    DP off, one round each from the same agents and tokens: the kernel
+    route (``use_kernel=None``) against the reference's einsum route
+    (``use_kernel=False``): the loss within 1e-5 and every agent's new
+    parameters within 1e-4; remat on against off: ``torch.equal``; the
+    dense and sparse gossip routes against the roll: 1e-6. Each relative
+    to max(1, max |.|), TF32 off. Then the roll round with DP on (phase
+    9's budget over ``n_rounds``, the clip a quarter of the DP-off round's
+    mean gradient norm, so that it binds), its clip and noise read from
+    its update (:func:`train_clip_read`). No launch here counts for the
+    path."""
+    import torch
+
+    from repro_torch.configs.base import P2PConfig
+    from repro_torch.core import spmd
+    from repro_torch.models import hybrid
+    from repro_torch.models.registry import build_model
+    from repro_torch.utils.tree import tree_flatten_with_path
+
+    r, t = TRAIN_ROUTES, TRAIN
+    cfg32 = dataclasses.replace(cfg, num_layers=r["num_layers"], dtype="float32")
+    kernel = build_model(cfg32, device=dev)
+    einsum = dataclasses.replace(kernel, loss=lambda p, b: hybrid.loss_fn(
+        p, {"tokens": torch.as_tensor(b["tokens"], device=dev).long()}, cfg32, use_kernel=False))
+    A, B = r["agents"], r["batch"]
+    start = kernel.init_agents(A, t["seed"])
+    tokens = torch.randint(0, cfg.vocab_size, (A, B, r["tokens"]),
+                           generator=torch.Generator(device=dev).manual_seed(5), device=dev)
+    p2p = P2PConfig(dp_enabled=False, mu=t["mu"], neighbor_offsets=t["offsets"], gossip_dtype=None)
+
+    def round_of(bundle, gossip="ppermute"):
+        step, _, _ = spmd.make_train_step(bundle, p2p, A, B, alpha=t["alpha"], gossip=gossip)
+        return step(_clone_tree(start), {"tokens": tokens})
+
+    roll, roll_m = round_of(kernel)
+    other, other_m = round_of(einsum)
+    loss = float(roll_m["loss"])
+    gates = dict(layers=cfg32.num_layers, agents=A, tokens=B * (r["tokens"] - 1), loss=loss,
+                 kernel_vs_einsum_loss=abs(loss - float(other_m["loss"])) / max(1.0, abs(loss)),
+                 kernel_vs_einsum_params=_rel_tree(roll, other))
+    other, other_m = round_of(build_model(cfg32, remat=False, device=dev))
+    gates["remat_on_equals_off"] = (
+        all(torch.equal(x, y) for (_, x), (_, y) in zip(tree_flatten_with_path(roll),
+                                                        tree_flatten_with_path(other)))
+        and all(torch.equal(roll_m[k], other_m[k]) for k in roll_m))
+    for gossip in ("dense", "sparse"):
+        other, _ = round_of(kernel, gossip)
+        gates[f"{gossip}_vs_roll"] = _rel_tree(other, roll)
+    del other
+    clip = 0.25 * float(roll_m["grad_norm"])
+    dp = dataclasses.replace(p2p, dp_enabled=True, eps_bar=t["eps_bar"], planned_rounds=n_rounds,
+                             clip=clip)
+    step, _, noise_scale = spmd.make_train_step(kernel, dp, A, B * (r["tokens"] - 1),
+                                                alpha=t["alpha"])
+    gen = torch.Generator(device=dev).manual_seed(t["seed"] + 1)
+    gen_state = gen.get_state()
+    noisy, _ = step(_clone_tree(start), {"tokens": tokens}, gen)
+    clip_read = train_clip_read(start, roll, noisy, gen_state, gen.get_state(), clip, noise_scale,
+                                dev)
+    del noisy, roll, start
+    torch.cuda.empty_cache()
+    log(f"[9] float32 routes at full width, {cfg32.num_layers} layers: {fmt(gates)} "
+        f"(tol loss {TRAIN_TOL['loss']:.0e}, params {TRAIN_TOL['params']:.0e}, "
+        f"gossip {TRAIN_TOL['gossip']:.0e})")
+    if not (gates["kernel_vs_einsum_loss"] <= TRAIN_TOL["loss"]
+            and gates["kernel_vs_einsum_params"] <= TRAIN_TOL["params"]
+            and gates["remat_on_equals_off"] and math.isfinite(loss)
+            and gates["dense_vs_roll"] <= TRAIN_TOL["gossip"]
+            and gates["sparse_vs_roll"] <= TRAIN_TOL["gossip"]):
+        raise SystemExit(f"zamba2 training routes failed: {gates}")
+    gates["dp_clip"] = clip_read
+    return gates
+
+
+def train_reduced(dev) -> dict:
+    """``tests/test_spmd.py``'s gate with zamba2 in place of llama3.2-1b:
+    the reduced float32 config, A = 1, mu = 0.3, DP off, two rounds on one
+    batch of 2 x 17 tokens; the second round's loss must be below the
+    first's. The same first round on the CPU from the same agents (drawn
+    there and copied to the card) must agree within 1e-5."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.configs.base import P2PConfig
+    from repro_torch.core import spmd
+    from repro_torch.models.registry import build_model
+    from repro_torch.utils.tree import tree_map
+
+    cfg = get_reduced("zamba2-1.2b", dtype="float32")
+    p2p = P2PConfig(agent_mode="full", dp_enabled=False, mu=0.3)
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (1, 2, 17)).astype(np.int32)
+    on_cpu = build_model(cfg, device="cpu")
+    start = on_cpu.init_agents(1, TRAIN["seed"])
+    card_step = spmd.make_train_step(build_model(cfg, device=dev), p2p, 1, 2)[0]
+    cpu_step = spmd.make_train_step(on_cpu, p2p, 1, 2)[0]
+    card, m1 = card_step(tree_map(lambda x: x.to(dev, copy=True), start), {"tokens": tokens})
+    first = _clone_tree(card)
+    card, m2 = card_step(card, {"tokens": tokens})
+    cpu, c1 = cpu_step(start, {"tokens": tokens})
+    l1, l2 = float(m1["loss"]), float(m2["loss"])
+    out = dict(loss_round1=l1, loss_round2=l2, card_vs_cpu_params=_rel_tree(first, cpu),
+               card_vs_cpu_loss=abs(l1 - float(c1["loss"])) / max(1.0, abs(float(c1["loss"]))))
+    log(f"[9] reduced rounds (A = 1, mu = 0.3): {fmt(out)} (tol {TRAIN_TOL['card_vs_cpu']:.0e})")
+    if not (l2 < l1 and out["card_vs_cpu_params"] <= TRAIN_TOL["card_vs_cpu"]
+            and out["card_vs_cpu_loss"] <= TRAIN_TOL["card_vs_cpu"]):
+        raise SystemExit(f"zamba2 reduced training gates failed: {out}")
+    return out
+
+
 def memory(when: str) -> None:
     """Print what the card holds allocated and reserved."""
     import torch
 
-    log(f"[8] memory {when}: allocated {torch.cuda.memory_allocated() / 2**30:.3f} GiB, "
+    log(f"[mem] {when}: allocated {torch.cuda.memory_allocated() / 2**30:.3f} GiB, "
         f"reserved {torch.cuda.memory_reserved() / 2**30:.3f} GiB")
 
 
@@ -2913,7 +3435,12 @@ def main() -> int:
     engine["rgg500k_p100_phases"] = phases
     mark("8 engine benches and examples")
 
-    # [9] the kernel table and the result
+    # [9] zamba2-1.2b P2P-DP training, the earlier phases' memory released:
+    # each round's counts are reset before it and read after it
+    train = zamba2_train(dev, launches, smi, results["ssm_chunk_train"])
+    mark("9 zamba2 P2P training")
+
+    # [10] the kernel table and the result
     src = {"sparse_mix": "src/repro/kernels/sparse_mix.py:60",
            "fused_row_update": "src/repro/kernels/fused_row_update.py:133",
            "graph_mix": "src/repro/kernels/graph_mix.py:38",
@@ -2942,6 +3469,7 @@ def main() -> int:
     log(json.dumps({"zamba2_serve": serve}))
     log(json.dumps({"paper_benches": benches}))
     log(json.dumps({"engine_benches": engine}, default=str))
+    log(json.dumps({"zamba2_train": train, "ssm_chunk_train": results["ssm_chunk_train"]}))
     log(json.dumps({"phase_seconds": phase_s, "total_s": sum(phase_s.values())}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

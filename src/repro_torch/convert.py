@@ -28,7 +28,10 @@ build the port's, or give the port's back as numpy:
 * :func:`load_reference_params` — a model parameter tree (nested dicts of
   arrays) into an ``nn.Module`` whose ``state_dict`` names follow it;
 * :func:`hybrid_params_from_reference` — the zamba2 hybrid's
-  ``init_params`` tree as a :class:`~repro_torch.models.hybrid.HybridLM`.
+  ``init_params`` tree as a :class:`~repro_torch.models.hybrid.HybridLM`;
+* :func:`agent_params_from_reference` — the stacked agents of the P2P
+  layer, ``jax.vmap(bundle.init)``'s tree (a leading agent axis on every
+  leaf), as the same tree of tensors.
 """
 
 from __future__ import annotations
@@ -271,15 +274,48 @@ def load_reference_params(module: torch.nn.Module, tree, stacked=()) -> torch.nn
                        f"unexpected {sorted(set(state) - set(own))}")
     with torch.no_grad():
         for name, dst in own.items():
-            arr = state[name]
-            bf16 = arr.dtype.name == "bfloat16"  # numpy reads it as ml_dtypes' type
-            src = torch.from_numpy(np.array(arr, dtype=np.float32 if bf16 else arr.dtype))
-            src_dtype = torch.bfloat16 if bf16 else src.dtype
-            if src_dtype != dst.dtype or tuple(src.shape) != tuple(dst.shape):
-                raise ValueError(f"{name}: reference {src_dtype} {tuple(src.shape)}, "
+            src = _tensor_of(state[name])
+            if src.dtype != dst.dtype or tuple(src.shape) != tuple(dst.shape):
+                raise ValueError(f"{name}: reference {src.dtype} {tuple(src.shape)}, "
                                  f"port {dst.dtype} {tuple(dst.shape)}")
             dst.copy_(src)
     return module
+
+
+def _tensor_of(arr) -> torch.Tensor:
+    """A CPU tensor of a numpy array, bfloat16 leaves included (numpy reads
+    them as ml_dtypes' type, which torch does not take directly)."""
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(np.array(arr, dtype=np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.array(arr, copy=True))
+
+
+def _agent(tree, a: int):
+    return {k: _agent(v, a) if isinstance(v, dict) else np.asarray(v)[a] for k, v in tree.items()}
+
+
+def agent_params_from_reference(tree, cfg, device="cuda") -> dict:
+    """The reference's stacked agent parameters -> the port's.
+
+    ``tree`` is ``jax.vmap(bundle.init)(keys)``'s tree as numpy: every leaf
+    with a leading agent axis A, the ``layers`` axis under it. Returns the
+    same nested dict of tensors on ``device``, the layout
+    :mod:`repro_torch.core.spmd` trains (``ModelBundle.init_agents``'s).
+    The agents' slices must load into the model: names, shapes and types
+    are checked by :func:`load_reference_params` (agent 0's slice, on a
+    ``HybridLM`` that holds no storage), and the agent axes must agree."""
+    dev = resolve_device(device)
+    counts = {np.asarray(leaf).shape[0] for _, leaf in _flatten(tree)}
+    if len(counts) != 1:
+        raise ValueError(f"the leaves' leading agent axes differ: {sorted(counts)}")
+    load_reference_params(HybridLM(cfg, device="meta"), _agent(tree, 0), stacked=("layers",))
+
+    def build(node):
+        return {k: build(v) if isinstance(v, dict) else _tensor_of(v).to(dev)
+                for k, v in node.items()}
+
+    return build(tree)
 
 
 def hybrid_params_from_reference(tree, cfg, device="cuda"):

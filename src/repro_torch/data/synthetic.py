@@ -103,3 +103,29 @@ def eval_accuracy(Theta: np.ndarray, test: AgentData) -> np.ndarray:
     correct = (pred == test.y) * test.mask
     return correct.sum(axis=1) / np.maximum(test.mask.sum(axis=1), 1.0)
 
+
+
+def token_stream(
+    vocab_size: int,
+    batch: int,
+    seq_len: int,
+    seed: int = 0,
+    n_agents: int = 1,
+):
+    """Per-agent heterogeneous token streams for the LM-scale layer.
+
+    Each agent gets a distinct unigram distribution (Dirichlet-sampled) so the
+    personalization signal exists at the data level. Yields (batch, seq_len)
+    int32 arrays, agent a's rows the a-th ``batch // n_agents``; the same
+    seed gives the reference's arrays.
+    """
+    rng = np.random.default_rng(seed)
+    probs = rng.dirichlet(np.full(vocab_size, 0.5), size=n_agents)
+    while True:
+        toks = np.stack(
+            [
+                rng.choice(vocab_size, size=(batch // n_agents, seq_len), p=probs[a])
+                for a in range(n_agents)
+            ]
+        )
+        yield toks.reshape(batch, seq_len).astype(np.int32)

@@ -11,6 +11,7 @@ went through the kernels.
 from __future__ import annotations
 
 import torch
+from torch.profiler import record_function
 
 from repro_torch.kernels._build import launch_counts, reset_launch_counts
 from repro_torch.kernels.dp_clip_noise import dp_clip_noise_cuda, dp_clip_noise_plain
@@ -90,7 +91,8 @@ class _SSMChunk(torch.autograd.Function):
     """Forward: :func:`ssm_chunk` (the kernel on the card). Backward: the
     autograd of the plain version, recomputed from the saved inputs, as
     the reference's custom VJP takes the oracle's (there is no backward
-    kernel in either package)."""
+    kernel in either package); it runs in the profiler range
+    "ssm_chunk_backward"."""
 
     @staticmethod
     def forward(ctx, C, B, cum, dt, x, heads):
@@ -100,7 +102,7 @@ class _SSMChunk(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gy, gs):
-        with torch.enable_grad():
+        with torch.enable_grad(), record_function("ssm_chunk_backward"):
             leaves = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
             outs = ssm_chunk_plain(*leaves, ctx.heads)
             grads = torch.autograd.grad(outs, leaves, (gy, gs))

@@ -1,0 +1,138 @@
+"""End-to-end P2P-DP training launcher.
+
+Port of ``repro/launch/train.py``: personal models per agent, per-round DP
+perturbation, ring or dense gossip, periodic checkpoints. The A agents
+are stacked on one device (the card unless ``--device cpu``); A is
+``--agents``, else the mesh's data axis. Only the ``hybrid`` family
+(zamba2) is ported; other families raise naming ROADMAP A15c.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-1.2b \\
+        --preset tiny --steps 50 --batch 4 --seq 129 --device cpu
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+from repro_torch.configs import ARCH_IDS, get_config, get_reduced
+from repro_torch.configs.base import P2PConfig
+from repro_torch.core import spmd
+from repro_torch.data.synthetic import token_stream
+from repro_torch.models import build_model
+
+
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="llama3.2-1b", choices=ARCH_IDS)
+    ap.add_argument("--preset", default="tiny", choices=["tiny", "small", "full"],
+                    help="tiny/small = reduced configs for CPU; full = assigned config")
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--batch", type=int, default=4, help="per-agent batch")
+    ap.add_argument("--seq", type=int, default=129)
+    ap.add_argument("--agents", type=int, default=None, help="default: data-axis size")
+    ap.add_argument("--mesh", default="1x1", help="e.g. 4x1 (data x model)")
+    ap.add_argument("--mu", type=float, default=0.5)
+    ap.add_argument("--alpha", type=float, default=0.9)
+    ap.add_argument("--eps", type=float, default=0.0, help="DP budget; 0 = off")
+    ap.add_argument("--clip", type=float, default=1.0)
+    ap.add_argument("--gossip", default="ppermute", choices=["ppermute", "dense"])
+    ap.add_argument("--no-p2p", action="store_true")
+    ap.add_argument("--checkpoint-dir", default=None)
+    ap.add_argument("--checkpoint-every", type=int, default=100)
+    ap.add_argument("--keep-last", type=int, default=3,
+                    help="checkpoint rotation depth (newest K entries kept)")
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    return ap.parse_args(argv)
+
+
+def build(args):
+    if args.preset == "full":
+        cfg = get_config(args.arch)
+    elif args.preset == "small":
+        cfg = get_reduced(args.arch, num_layers=2, d_model=256, d_ff=512,
+                          vocab_size=2048, dtype="float32")
+    else:
+        cfg = get_reduced(args.arch, dtype="float32")
+    return cfg
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    data, model_axis = (int(x) for x in args.mesh.split("x"))
+    if model_axis != 1:
+        raise NotImplementedError(f"--mesh {args.mesh}: a model-parallel axis is not ported "
+                                  "(ROADMAP A15d); the agents stack on one device")
+    cfg = build(args)
+    bundle = build_model(cfg, remat=False, device=args.device)
+    A = args.agents or data
+
+    p2p = P2PConfig(
+        agent_mode="full",
+        enabled=not args.no_p2p,
+        dp_enabled=args.eps > 0,
+        eps_bar=args.eps if args.eps > 0 else 1.0,
+        planned_rounds=args.steps,
+        clip=args.clip,
+        mu=args.mu,
+        neighbor_offsets=(1,) if A <= 4 else (1, 2),
+        gossip_dtype=None,
+    )
+
+    params = bundle.init_agents(A, args.seed)
+    start_step = 0
+    if args.resume and args.checkpoint_dir:
+        try:
+            params, start_step, _ = load_checkpoint(args.checkpoint_dir, params)
+            print(f"resumed from step {start_step}")
+        except FileNotFoundError:
+            pass
+
+    # A is the stacked axis: the step is built for the agents it holds.
+    step_fn, eps_step, noise_scale = spmd.make_train_step(
+        bundle, p2p, A, args.batch, alpha=args.alpha, gossip=args.gossip
+    )
+    generator = torch.Generator(device=bundle.device).manual_seed(args.seed)
+
+    # Heterogeneous per-agent token streams (personalization signal).
+    stream = token_stream(cfg.vocab_size, A * args.batch, args.seq, args.seed, A)
+    t0 = time.time()
+    history = []
+    for step in range(start_step, args.steps):
+        toks = next(stream).reshape(A, args.batch, args.seq)
+        batch = {"tokens": torch.as_tensor(toks, device=bundle.device)}
+        params, metrics = step_fn(params, batch, generator)
+        if step % args.log_every == 0 or step == args.steps - 1:
+            loss = float(metrics["loss"])
+            row = {"step": step, "loss": round(loss, 4),
+                   "grad_norm": round(float(metrics["grad_norm"]), 3),
+                   "elapsed_s": round(time.time() - t0, 1)}
+            history.append(row)
+            print(json.dumps(row), flush=True)
+        if args.checkpoint_dir and (step + 1) % args.checkpoint_every == 0:
+            save_checkpoint(args.checkpoint_dir, params, step=step + 1,
+                            extra={"eps_step": eps_step},
+                            keep_last=args.keep_last)
+    if args.checkpoint_dir:
+        save_checkpoint(args.checkpoint_dir, params, step=args.steps,
+                        extra={"eps_step": eps_step, "noise_scale": noise_scale},
+                        keep_last=args.keep_last)
+    if args.eps > 0:
+        from repro_torch.core.privacy import compose_kairouz
+
+        spent = compose_kairouz(np.full(args.steps - start_step, eps_step), p2p.delta_bar)
+        print(f"DP: per-step eps={eps_step:.4f}, composed eps over run={spent:.3f} "
+              f"(budget {p2p.eps_bar})")
+    return history
+
+
+if __name__ == "__main__":
+    main()

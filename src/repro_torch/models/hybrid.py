@@ -1,14 +1,23 @@
 """Zamba2-style hybrid: Mamba2 backbone + a single *shared* attention block
 applied every ``shared_attn_every`` layers (arXiv:2411.15242).
 
-Port of ``repro/models/hybrid.py`` for serving: ``forward`` (prefill, with
-``last_only``), ``init_cache`` and ``decode_step``. The reference's
-``lax.scan`` over the stacked layers with a ``lax.cond`` on the shared
-block becomes a Python loop over ``HybridLM.layers``; the shared block
-has one copy of its weights, applied after layers i with
-``i % every == every - 1``, and each application site keeps its own KV
-cache in decode. Training (``loss_fn``, remat) is not ported yet
-(ROADMAP A15b).
+Port of ``repro/models/hybrid.py``: ``forward`` (prefill with
+``last_only``, and training with ``remat``), ``loss_fn``, ``init_cache``
+and ``decode_step``. The reference's ``lax.scan`` over the stacked layers
+with a ``lax.cond`` on the shared block becomes a Python loop over
+``HybridLM.layers``; the shared block has one copy of its weights, applied
+after layers i with ``i % every == every - 1``, and each application site
+keeps its own KV cache in decode.
+
+Remat: the reference wraps the layer body (the Mamba2 block and, at a
+site, the shared block) in ``jax.checkpoint``; here it goes through
+``torch.utils.checkpoint.checkpoint(use_reentrant=False)``, so the
+backward recomputes each layer's forward (and launches ``ssm_chunk`` a
+second time on the card) from its saved input.
+
+The agents of the P2P layer hold the reference's tree, nested dicts of
+tensors with the ``layers`` axis stacked (:func:`param_tree`);
+:func:`bind` lays a ``HybridLM`` over one agent's tree without a copy.
 """
 
 from __future__ import annotations
@@ -16,6 +25,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 from torch.profiler import record_function
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
@@ -24,12 +34,14 @@ from repro_torch.models.layers import (
     Embedding,
     RMSNorm,
     SwiGLU,
+    cross_entropy_loss,
     dtype_of,
     embed,
     rms_norm,
     swiglu,
     unembed,
 )
+from repro_torch.utils.tree import module_views
 
 
 class HybridLayer(nn.Module):
@@ -56,11 +68,13 @@ class HybridLM(nn.Module):
     names (``embed.table``, ``layers.<i>.mamba.in_proj.w``, ...): the
     stacked leading layer axis of the reference is ``layers``, a
     ``ModuleList``. Without a ``generator`` the parameters are left
-    uninitialised, to be loaded (:mod:`repro_torch.convert`)."""
+    uninitialised, to be loaded (:mod:`repro_torch.convert`). On
+    ``device="meta"`` it holds no storage: :func:`bind` fills it."""
 
     def __init__(self, cfg, *, device="cuda", generator=None):
         super().__init__()
-        kw = dict(device=resolve_device(device), dtype=dtype_of(cfg), generator=generator)
+        dev = torch.device("meta") if str(device) == "meta" else resolve_device(device)
+        kw = dict(device=dev, dtype=dtype_of(cfg), generator=generator)
         self.cfg = cfg
         self.embed = Embedding(cfg.padded_vocab, cfg.d_model, **kw)
         self.layers = nn.ModuleList(HybridLayer(cfg, **kw) for _ in range(cfg.num_layers))
@@ -95,30 +109,93 @@ def _shared_block(cfg, shared: SharedAttention, x, positions, window):
     return x + swiglu(shared.ffn, rms_norm(shared.ln2, x, cfg.norm_eps))
 
 
-def forward(params: HybridLM, tokens, cfg, window=None, last_only=False, use_kernel=None):
+def forward(params: HybridLM, tokens, cfg, remat=True, window=None, last_only=False,
+            use_kernel=None):
     """tokens (B, S) -> (logits (B, S or 1, vocab), aux 0.0).
 
-    ``use_kernel`` goes to every Mamba2 block (None: the ``ssm_chunk``
-    kernel on the card, the plain einsums on the CPU). Each block runs in
-    a profiler range, "mamba2" or "shared_attn", so a trace can split the
-    device time between them (a range costs a few microseconds when no
-    profiler runs)."""
+    ``remat``: with autograd recording, each layer's body runs under
+    ``torch.utils.checkpoint`` (no effect without a gradient: nothing is
+    saved then). ``use_kernel`` goes to every Mamba2 block (None: the
+    ``ssm_chunk`` kernel on the card, the plain einsums on the CPU). Each
+    block runs in a profiler range, "mamba2" or "shared_attn", so a trace
+    can split the device time between them (a range costs a few
+    microseconds when no profiler runs)."""
     x = embed(params.embed, tokens)
     positions = torch.arange(tokens.shape[1], device=x.device)
     window = window if window is not None else cfg.sliding_window
     sites = set(attn_sites(cfg))
-    for i, layer in enumerate(params.layers):
+    shared = params.shared_attn
+
+    def body(x, layer, site):
         with record_function("mamba2"):
             x = x + ssm.mamba2_forward(layer.mamba, rms_norm(layer.ln, x, cfg.norm_eps), cfg,
                                        use_kernel=use_kernel)
-        if i in sites:
+        if site:
             with record_function("shared_attn"):
-                x = _shared_block(cfg, params.shared_attn, x, positions, window)
+                x = _shared_block(cfg, shared, x, positions, window)
+        return x
+
+    remat = remat and torch.is_grad_enabled()
+    for i, layer in enumerate(params.layers):
+        if remat:
+            # The body draws nothing at random: no RNG state to keep.
+            x = checkpoint(body, x, layer, i in sites, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            x = body(x, layer, i in sites)
     x = rms_norm(params.final_norm, x, cfg.norm_eps)
     if last_only:
         x = x[:, -1:]
     logits = unembed(_head(params), x)
     return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def loss_fn(params: HybridLM, batch, cfg, remat=True, use_kernel=None):
+    """Mean next-token loss of ``batch["tokens"]`` (B, S + 1): the logits
+    of ``tokens[:, :-1]`` against ``tokens[:, 1:]``, plus the aux term."""
+    tokens = batch["tokens"]
+    logits, aux = forward(params, tokens[:, :-1], cfg, remat=remat, use_kernel=use_kernel)
+    return cross_entropy_loss(logits, tokens[:, 1:]) + aux
+
+
+def param_tree(params: HybridLM) -> dict:
+    """The reference's ``init_params`` tree of a model: nested dicts of
+    tensors by the reference's names, each ``layers`` leaf the stack of the
+    layers' tensors (a copy)."""
+    tree: dict = {}
+    per_layer: dict = {}
+    for name, t in params.named_parameters():
+        head, _, rest = name.partition(".")
+        if head == "layers":
+            i, _, rest = rest.partition(".")
+            per_layer.setdefault(rest, []).append(t.detach())
+            continue
+        _insert(tree, name, t.detach())
+    for rest, ts in per_layer.items():
+        _insert(tree, f"layers.{rest}", torch.stack(ts))
+    return tree
+
+
+def _insert(tree: dict, name: str, leaf) -> None:
+    *path, last = name.split(".")
+    for k in path:
+        tree = tree.setdefault(k, {})
+    tree[last] = leaf
+
+
+def bind(cfg, tree) -> HybridLM:
+    """A ``HybridLM`` whose parameters are views of one agent's reference
+    tree (``layers`` stacked): leaf ``layers.mamba.in_proj.w[i]`` becomes
+    ``layers.<i>.mamba.in_proj.w``, sharing storage, so the module computes
+    with the tree's values and autograd gives each view its own gradient."""
+    lm = HybridLM(cfg, device="meta")
+    for name, view in module_views(tree):
+        owner, _, leaf = name.rpartition(".")
+        lm.get_submodule(owner).register_parameter(leaf, nn.Parameter(view))
+    left = [n for n, p in lm.named_parameters() if p.is_meta]
+    if left:
+        raise KeyError(f"{cfg.name}: the tree has no leaves for {left}")
+    return lm
 
 
 def init_cache(params: HybridLM, cfg, batch, max_len):

@@ -125,3 +125,16 @@ def embed(p: Embedding, tokens):
 def unembed(p: Embedding, x):
     """Logits against the (tied) table: ``x @ table.T``."""
     return x @ p.table.T
+
+
+def cross_entropy_loss(logits, labels, mask=None):
+    """Mean next-token NLL in float32; logits (..., V), labels int (...).
+    With ``mask``, the masked sum over ``max(sum(mask), 1)``."""
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0] - logz
+    nll = -ll
+    if mask is None:
+        return torch.mean(nll)
+    mask = torch.as_tensor(mask, device=nll.device).to(torch.float32)
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)

@@ -1330,3 +1330,96 @@ def test_a_capture_survives_the_collector_freeing_another_engines_graphs(dev):
     assert torch.equal(y, torch.ones(8, device=dev))
     gc.collect()
     assert gone() is None
+
+
+# The P2P-DP training round (core/spmd.py) on the card. The small shape is
+# G = 2 batch rows x 2 chunks x 4 heads; (2048, 128, 64, 64, 64) is the
+# zamba2-1.2b training shape: 2 x 16 chunks x 64 heads.
+@pytest.mark.parametrize("G,Q,N,P,heads", [(16, 16, 16, 16, 4), (2048, 128, 64, 64, 64)])
+def test_ssm_chunk_ad_kernel_forward_plain_backward_matches_plain_autograd(dev, G, Q, N, P,
+                                                                           heads):
+    """``ssm_chunk_ad`` on the card: the kernel's forward (one launch) and
+    the plain version's backward (none), against the plain version's
+    autograd on the same inputs and upstream gradients: outputs 1e-5,
+    gradients 2e-5 relative to max(1, max |g|)."""
+    from repro_torch.kernels.ssm_chunk import ssm_chunk_plain
+
+    args = _ssm_inputs(dev, G, Q, N, P, heads, torch.float32, seed=G + 5)
+    g = torch.Generator(device=dev).manual_seed(11)
+    wy = torch.randn((G, Q, P), generator=g, device=dev)
+    ws = torch.randn((G, P, N), generator=g, device=dev)
+    ours = [a.clone().requires_grad_(True) for a in args]
+    plain = [a.clone().requires_grad_(True) for a in args]
+    before = ops.launch_counts()["ssm_chunk"]
+    y, s = ops.ssm_chunk_ad(*ours, heads)
+    ((y * wy).sum() + (s * ws).sum()).backward()
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["ssm_chunk"] == before + 1
+    y_p, s_p = ssm_chunk_plain(*plain, heads)
+    ((y_p * wy).sum() + (s_p * ws).sum()).backward()
+    _close(y.detach(), y_p.detach())
+    _close(s.detach(), s_p.detach())
+    for a, b in zip(ours, plain):
+        _close(a.grad, b.grad, 2e-5)
+
+
+def _reduced_training(device, remat=True):
+    """zamba2's reduced float32 config, 4 agents drawn on the CPU (copied to
+    ``device``), 2 x 33 tokens each, and its bundle on ``device``."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.utils.tree import tree_map
+
+    cfg = get_reduced("zamba2-1.2b", dtype="float32")
+    params = build_model(cfg, device="cpu").init_agents(4, 0)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 2, 33), generator=torch.Generator().manual_seed(1))
+    return (build_model(cfg, remat=remat, device=device),
+            tree_map(lambda x: x.to(device), params), tokens.to(device))
+
+
+def _round(bundle, params, tokens, route="ppermute"):
+    from repro_torch.configs.base import P2PConfig
+    from repro_torch.core import spmd
+
+    p2p = P2PConfig(dp_enabled=False, mu=0.2, neighbor_offsets=(1,), gossip_dtype=None)
+    step, _, _ = spmd.make_train_step(bundle, p2p, 4, 2, alpha=0.5, gossip=route)
+    return step(params, {"tokens": tokens})
+
+
+@pytest.mark.parametrize("route", ["ppermute", "dense", "sparse"])
+def test_training_round_on_the_card_matches_the_cpu(dev, route):
+    """One reduced round through the kernel on the card against the same
+    round through the einsums on the CPU: every agent's parameters and
+    both metrics within 1e-5."""
+    from repro_torch.utils.tree import tree_flatten_with_path
+
+    got, got_m = _round(*_reduced_training(dev), route)
+    want, want_m = _round(*_reduced_training("cpu"), route)
+    for (name, a), (_, b) in zip(tree_flatten_with_path(got), tree_flatten_with_path(want)):
+        _close(a.cpu(), b)
+    for k in ("loss", "grad_norm"):
+        _close(got_m[k].cpu(), want_m[k])
+
+
+def test_training_gradients_with_remat_on_and_off_give_the_same_bits(dev):
+    from repro_torch.core import spmd
+    from repro_torch.utils.tree import tree_flatten_with_path
+
+    bundle, params, tokens = _reduced_training(dev, remat=True)
+    on = spmd.agent_losses_and_grads(bundle, params, {"tokens": tokens})
+    off = spmd.agent_losses_and_grads(build_model(bundle.cfg, remat=False, device=dev), params,
+                                      {"tokens": tokens})
+    assert torch.equal(on[0], off[0])
+    for (name, a), (_, b) in zip(tree_flatten_with_path(on[1]), tree_flatten_with_path(off[1])):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("remat", [True, False])
+def test_training_round_launches_ssm_chunk_twice_a_layer_and_agent(dev, remat):
+    """2 L A launches a round with remat (forward, then the recompute in
+    the backward), L A without; the backward itself launches none."""
+    bundle, params, tokens = _reduced_training(dev, remat=remat)
+    before = ops.launch_counts()["ssm_chunk"]
+    _round(bundle, params, tokens)
+    torch.cuda.synchronize()
+    L = bundle.cfg.num_layers
+    assert ops.launch_counts()["ssm_chunk"] - before == (2 if remat else 1) * L * 4

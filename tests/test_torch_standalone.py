@@ -48,7 +48,9 @@ def test_every_module_imports_without_jax_or_reference():
             "repro_torch.examples.sparse_p2p_scale", "repro_torch.examples.async_p2p_simulation",
             "repro_torch.examples.sharded_async_simulation",
             "repro_torch.examples.movielens_recommendation",
-            "repro_torch.examples.serve_batched"} <= set(mods)
+            "repro_torch.examples.serve_batched", "repro_torch.utils", "repro_torch.utils.tree",
+            "repro_torch.optim", "repro_torch.optim.optimizers", "repro_torch.core.spmd",
+            "repro_torch.launch", "repro_torch.launch.train"} <= set(mods)
     code = textwrap.dedent(
         f"""
         import importlib, sys
@@ -238,15 +240,21 @@ def test_deviations_name_existing_tests_and_current_figures():
     assert "208 KB" not in text
 
 
-# The reference packages the port has done (ROADMAP A1-A14, A15a), and the
-# public names of theirs the port leaves out on purpose, each with the text
-# of its recorded deviation in DEVIATIONS.md.
+# The reference packages the port has done (ROADMAP A1-A14, A15a, A15b and
+# the training half of A15d), and the public names of theirs the port
+# leaves out on purpose, each with the text of its recorded deviation in
+# DEVIATIONS.md.
 DONE_PACKAGES = ("core", "sim", "obs", "checkpoint", "serve", "models", "configs", "data",
-                 "kernels")
+                 "kernels", "optim", "utils")
 RECORDED_ABSENT = {
     "sim.SimState.key": "`.generator` in place of `.key` / `keys`",
     "sim.ShardedSimState.keys": "`.generator` in place of `.key` / `keys`",
-    "models.ModelBundle.train_inputs": "`ModelBundle.train_inputs`",
+}
+# The functions and classes ``repro.core.spmd`` defines that the port's
+# ``core/spmd.py`` leaves out, with their deviation's text.
+SPMD_ABSENT = {
+    "shardings_for": "`shardings_for` and `jit_train_step` absent",
+    "jit_train_step": "`shardings_for` and `jit_train_step` absent",
 }
 
 
@@ -283,6 +291,27 @@ def test_every_public_name_of_a_done_reference_package_is_ported_or_recorded():
                         (ShardedAsyncEngine, "phase_program"),
                         (ShardedAsyncEngine, "phase_names")):
         assert hasattr(cls, member)
+
+
+def test_every_function_of_the_reference_spmd_is_ported_or_recorded():
+    """Each function and class ``repro.core.spmd`` defines (the private
+    ``_ring_perm`` and ``_tree_norm`` included) is in the port's
+    ``core.spmd``, or listed in ``SPMD_ABSENT`` with its deviation's text."""
+    import inspect
+
+    from repro.core import spmd as ref
+    from repro_torch.core import spmd as port
+
+    defined = {name for name, obj in vars(ref).items()
+               if (inspect.isfunction(obj) or inspect.isclass(obj))
+               and obj.__module__ == ref.__name__}
+    assert {"make_train_step", "make_fedavg_step", "gossip_ppermute", "clip_and_noise",
+            "P2PPlan", "_ring_perm", "_tree_norm"} <= defined
+    absent = {name for name in defined if not hasattr(port, name)}
+    assert absent == set(SPMD_ABSENT)
+    text = (SRC / "DEVIATIONS.md").read_text()
+    for why in SPMD_ABSENT.values():
+        assert why in text
 
 
 def test_from_lists_and_grad_check_match_the_reference():
