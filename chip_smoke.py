@@ -216,7 +216,32 @@ Phases, one line each (any failure ends the run with a non-zero code):
    the second round's loss below the first's), its first round against
    the CPU within 1e-5. Phase 3 adds ``ssm_chunk`` at the training shape
    (2 x 16 chunks x 64 heads) with the backward's time and bound;
-10. a JSON line of every ported kernel (launches, error, times, bound),
+10. the transformer families (``models/transformer.py``, ``moe.py``,
+   ``encdec.py``), bfloat16, random weights from seeded generators, no
+   kernel of ours on their paths (the launch counts must stay 0 across
+   the phase, as in the JAX package, where they reach no Pallas kernel):
+   (a) llama3.2-1b served at its full config (16 layers, d_model 2048,
+   32 / 8 heads of 64, d_ff 8192, vocab 128,256 tied): 4 prompts of 2048
+   tokens through ``bundle.prefill`` into caches of 2048 + 64 positions (a
+   warm-up, 5 timed, one traced: device ms by block, "attention" and
+   "ffn", and by kind, the idle share), then 64 greedy decode steps
+   continuing the caches (2 more traced); (b) its P2P-DP training round at
+   full width and depth with phase 9's traffic and gates (4 agents, 2 x
+   2049 tokens each, ring of rolls, alpha 0.9, mu 0.5, remat, DP noise of
+   eps_bar 1 over 6 rounds, m_i = 4096; the noise read from the warm-up
+   round's update, peak memory under 80 GB), a traced round's device ms by
+   range, its float32 routes on 2 layers (remat on equal to off, dense and
+   sparse gossip against the roll, the DP clip read) and the reduced
+   rounds; (c) granite-moe-3b-a800m (32 layers, 40 experts top-8) served
+   as (a), with the share of (token, choice) pairs capacity kept in a
+   prefill and in decode; (d) chameleon-34b at full width with 4 of its 48
+   layers (one prefill, 16 decode steps); (e) seamless-m4t-medium (12 + 12
+   layers) served as (a) against (4, 512, 1024) frame embeddings; (f) the
+   float32 routes at full width, 2 layers: llama's prefill against its
+   decode loop (1e-4), its attention chunked at S = 4096 against dense,
+   the repeated KV cache against the compact one (1e-5), granite-moe on
+   the card against the CPU (1e-5, routing equal);
+11. a JSON line of every ported kernel (launches, error, times, bound),
    the phases' command seconds (each also printed as a ``[time]`` line
    when its phase ends), then the last line
    ``{"ok": true, "device": {...}}``.
@@ -301,6 +326,28 @@ TRAIN_TOL = dict(loss=1e-5, params=1e-4, gossip=1e-6, card_vs_cpu=1e-5, clip=1e-
 # The profiler ranges a traced round's kernels are assigned to, innermost first.
 TRAIN_RANGES = ("ssm_chunk_backward", "clip_noise", "gossip", "update", "grad_copy",
                 "agent_backward", "agent_forward")
+CARD_GB = 80.0  # the H100's device memory: a training round's peak must fit it
+# Phase 10: the transformer families (see PERF.md, "Cells"). Serving: 4
+# prompts of 2048 tokens into caches of 2048 + 64 positions, then greedy
+# decode steps; chameleon-34b at full width with its depth cut to 4 of 48
+# layers (34 B bf16 parameters leave no room for activations on one card).
+FAMILY_SERVE = (
+    dict(arch="llama3.2-1b", num_layers=None, prefills=5, decode_steps=64),
+    dict(arch="granite-moe-3b-a800m", num_layers=None, prefills=5, decode_steps=64),
+    dict(arch="chameleon-34b", num_layers=4, prefills=1, decode_steps=16),
+    dict(arch="seamless-m4t-medium", num_layers=None, prefills=5, decode_steps=64),
+)
+SERVE_TRAFFIC = dict(seed=0, batch=4, prompt=2048)
+# llama3.2-1b's P2P-DP round: phase 9's traffic, agents and constants.
+LLAMA_TRAIN = dict(TRAIN, arch="llama3.2-1b")
+LLAMA_ROUTES = dict(TRAIN_ROUTES, num_layers=2)  # float32 at full width, 2 layers
+# The routes of (f): float32 at full width cut to 2 layers, TF32 off.
+FAMILY_GATE = dict(num_layers=2, batch=2, tokens=256, repeat_kv_steps=8)
+CHUNKED_GATE = dict(batch=1, tokens=4096, threshold=1024, rtol=2e-4, atol=2e-5)
+REPEAT_KV_TOL = 1e-5
+MOE_CPU_TOL = 1e-5
+# The profiler ranges of a transformer's blocks (models/transformer.py).
+BLOCK_RANGES = ("attention", "ffn")
 # Phase 7: the paper benches, at the reference's sizes, and the reference's
 # CPU rows (BENCH_summary.json) printed beside the card's.
 FIG1 = dict(n=100, p=100, mu=0.3, T_cd=3000, T_admm=300, seed=0)
@@ -1835,17 +1882,19 @@ def traced(fn, trace: Path):
     return json.loads(trace.read_text()).get("traceEvents", []), wall_ms
 
 
-def profile_prefill(bundle, model, batch, out_dir: Path, ms_untraced: float) -> dict:
+def profile_prefill(bundle, model, batch, out_dir: Path, ms_untraced: float, label="zamba2",
+                    blocks=("mamba2", "shared_attn"), tag="6", **kw) -> dict:
     """Trace one prefill with torch.profiler. Device time by block (the
-    model's "mamba2" and "shared_attn" profiler ranges, "outside" for the
-    embedding, final norm and lm head), each kernel assigned to the range
-    that launched it, and by kernel kind (``ssm_chunk``, matmul, softmax,
+    model's profiler ranges ``blocks``: zamba2's "mamba2" and "shared_attn",
+    a transformer's "attention" and "ffn"; "outside" for the embedding,
+    final norm and lm head), each kernel assigned to the range that
+    launched it, and by kernel kind (``ssm_chunk``, matmul, softmax,
     other); the device idle share of the traced prefill and of the
-    untraced one (``ms_untraced``)."""
-    trace = out_dir / "trace_zamba2_prefill.json"
-    events, wall_ms = traced(lambda: bundle.prefill(model, batch), trace)
+    untraced one (``ms_untraced``). ``kw`` goes to ``bundle.prefill``."""
+    trace = out_dir / f"trace_{label}_prefill.json"
+    events, wall_ms = traced(lambda: bundle.prefill(model, batch, **kw), trace)
     ranges = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
-                    if e.get("cat") == "user_annotation" and e.get("name") in ("mamba2", "shared_attn"))
+                    if e.get("cat") == "user_annotation" and e.get("name") in blocks)
     starts = [r[0] for r in ranges]
     # Host-side CUDA API calls (the launches) by correlation id.
     launched = {e["args"]["correlation"]: e["ts"] for e in events
@@ -1864,18 +1913,18 @@ def profile_prefill(bundle, model, batch, out_dir: Path, ms_untraced: float) -> 
         by_name[e["name"]] = (us + float(e["dur"]), count + 1)
     busy_ms = sum(by_key.values())
     if busy_ms <= 0:
-        raise SystemExit("zamba2 prefill: the profiler saw no device time")
+        raise SystemExit(f"{label} prefill: the profiler saw no device time")
     out = dict(traced_ms=wall_ms, device_busy_ms=busy_ms,
                device_ops=sum(c for _, c in by_name.values()),
                idle_share_traced=1.0 - busy_ms / wall_ms,
                idle_share_untraced=1.0 - busy_ms / ms_untraced,
                ms_by_block_and_kind=dict(sorted(by_key.items(), key=lambda kv: -kv[1])))
-    log(f"[6p] zamba2 prefill traced: {fmt({k: v for k, v in out.items() if k != 'ms_by_block_and_kind'})} "
-        f"trace={trace}")
+    log(f"[{tag}p] {label} prefill traced: "
+        f"{fmt({k: v for k, v in out.items() if k != 'ms_by_block_and_kind'})} trace={trace}")
     for key, ms in out["ms_by_block_and_kind"].items():
-        log(f"[6p]   {ms:9.3f} ms  {key}")
+        log(f"[{tag}p]   {ms:9.3f} ms  {key}")
     for name, (us, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
-        log(f"[6p]   {us / 1e3:9.3f} ms  x{count:4d}  {name[:110]}")
+        log(f"[{tag}p]   {us / 1e3:9.3f} ms  x{count:4d}  {name[:110]}")
     return out
 
 
@@ -2759,7 +2808,8 @@ def _clone_tree(tree):
     return tree_map(lambda x: x.clone(), tree)
 
 
-def train_trace(step, params, batch, gen, ms_untraced: float) -> dict:
+def train_trace(step, params, batch, gen, ms_untraced: float, label="zamba2",
+                tag="9") -> dict:
     """Trace one training round with torch.profiler: the device idle share
     (traced, and against the untraced round ``ms_untraced``) and the device
     ms of each kernel by the innermost of ``TRAIN_RANGES`` open when the
@@ -2769,7 +2819,7 @@ def train_trace(step, params, batch, gen, ms_untraced: float) -> dict:
     perturbation, gossip and update, the gradient copy, and the rest."""
     from repro_torch.kernels import _build
 
-    trace = _build.build_dir() / "traces" / "trace_zamba2_train_round.json"
+    trace = _build.build_dir() / "traces" / f"trace_{label}_train_round.json"
     events, wall_ms = traced(lambda: step(params, batch, gen), trace)
     spans = {name: sorted((e["ts"], e["ts"] + e["dur"]) for e in events
                           if e.get("cat") == "user_annotation" and e.get("name") == name)
@@ -2808,12 +2858,16 @@ def train_trace(step, params, batch, gen, ms_untraced: float) -> dict:
             split["other_ms"] += ms
     busy = sum(by_key.values())
     if busy <= 0:
-        raise SystemExit("zamba2 training round: the profiler saw no device time")
+        raise SystemExit(f"{label} training round: the profiler saw no device time")
     out = dict(traced_ms=wall_ms, device_busy_ms=busy, idle_share_traced=1.0 - busy / wall_ms,
                idle_share_untraced=1.0 - busy / ms_untraced, **split)
-    log(f"[9p] zamba2 training round traced: {fmt(out)} trace={trace}")
+    out["ms_by_range"] = {name: sum(ms for key, ms in by_key.items()
+                                    if key.startswith(f"{name}/"))
+                          for name in TRAIN_RANGES + ("outside",)}
+    log(f"[{tag}p] {label} training round traced: {fmt(out)} trace={trace}")
+    log(f"[{tag}p]   device ms by range: {fmt(out['ms_by_range'])}")
     for key, ms in sorted(by_key.items(), key=lambda kv: -kv[1])[:14]:
-        log(f"[9p]   {ms:10.3f} ms  {key}")
+        log(f"[{tag}p]   {ms:10.3f} ms  {key}")
     out["ms_by_range_and_kind"] = by_key
     return out
 
@@ -2844,7 +2898,8 @@ def _replay(gen_state, dev):
     return replay
 
 
-def train_noise_read(before, after, gen_state, gen_end, noise_scale, dev) -> dict:
+def train_noise_read(before, after, gen_state, gen_end, noise_scale, dev, t=TRAIN,
+                     tag="9") -> dict:
     """The DP noise of one full-width round, read from the round's own
     update: the round's draws replayed from its generator's starting state
     ``gen_state`` (the replay must end in the round's end state
@@ -2860,7 +2915,7 @@ def train_noise_read(before, after, gen_state, gen_end, noise_scale, dev) -> dic
 
     from repro_torch.core import spmd
 
-    t, A = TRAIN, TRAIN["agents"]
+    A = t["agents"]
     am = t["alpha"] * t["mu"]
     replay = _replay(gen_state, dev)
     dn = nn = absn = torch.zeros(A, dtype=torch.float64, device=dev)
@@ -2880,14 +2935,16 @@ def train_noise_read(before, after, gen_state, gen_end, noise_scale, dev) -> dic
     out = dict(draws=A * count, replay_ends_in_round_state=torch.equal(replay.get_state(), gen_end),
                noise_scale=noise_scale, beta_over_scale=[b / noise_scale for b in beta],
                mean_abs_draw=mean_abs, mean_abs_noise_over_scale=ratio)
-    log(f"[9] DP noise read from the warm-up round's update: {fmt(out)} (tol {TRAIN_TOL['noise']})")
+    log(f"[{tag}] DP noise read from the warm-up round's update: {fmt(out)} "
+        f"(tol {TRAIN_TOL['noise']})")
     if not (out["replay_ends_in_round_state"]
             and max(abs(r - 1.0) for r in ratio) <= TRAIN_TOL["noise"]):
-        raise SystemExit(f"zamba2 training: DP noise gate failed: {out}")
+        raise SystemExit(f"{t['arch']} training: DP noise gate failed: {out}")
     return out
 
 
-def train_clip_read(start, off, dp, gen_state, gen_end, clip, noise_scale, dev) -> dict:
+def train_clip_read(start, off, dp, gen_state, gen_end, clip, noise_scale, dev, t=TRAIN,
+                    A=TRAIN_ROUTES["agents"], tag="9") -> dict:
     """The DP clip and noise of one round, read from the round's own update
     (float32, so the reading is exact to about 1e-8): ``off`` and ``dp``
     are the DP-off and DP-on rounds from the same agents ``start`` on the
@@ -2903,7 +2960,6 @@ def train_clip_read(start, off, dp, gen_state, gen_end, clip, noise_scale, dev) 
 
     from repro_torch.core import spmd
 
-    t, A = TRAIN, TRAIN_ROUTES["agents"]
     am = t["alpha"] * t["mu"]
     replay = _replay(gen_state, dev)
     f64 = torch.float64
@@ -2928,35 +2984,59 @@ def train_clip_read(start, off, dp, gen_state, gen_end, clip, noise_scale, dev) 
                clipped_norms=(s * norm).tolist(), clipped_over_clip=(s * norm / clip).tolist(),
                rest_over_noise=rest.tolist(),
                replay_ends_in_round_state=torch.equal(replay.get_state(), gen_end))
-    log(f"[9] DP clip read from a float32 round's update: {fmt(out)} (tol scale "
+    log(f"[{tag}] DP clip read from a float32 round's update: {fmt(out)} (tol scale "
         f"{TRAIN_TOL['clip_read']:.0e}, norm C (1 + {TRAIN_TOL['clip']:.0e}))")
     if not (out["replay_ends_in_round_state"]
             and max(out["clip_scale_err"]) <= TRAIN_TOL["clip_read"]
             and max(out["clipped_over_clip"]) <= 1 + TRAIN_TOL["clip"]
             and max(out["rest_over_noise"]) <= TRAIN_TOL["clip_read"]):
-        raise SystemExit(f"zamba2 training: DP clip gate failed: {out}")
+        raise SystemExit(f"{t['arch']} training: DP clip gate failed: {out}")
     return out
 
 
 def zamba2_train(dev, launches: dict, card: str, kernel_row: dict) -> dict:
     """Phase 9: the paper's P2P-DP training round on zamba2-1.2b at its full
-    width and depth, bfloat16, ``TRAIN["agents"]`` agents stacked on the
-    card (random weights from seeded generators), through
-    ``core.spmd.make_train_step`` (ring gossip by rolls, remat on, DP noise
-    on, one next-token example the DP unit).
+    width and depth (:func:`p2p_train` with ``TRAIN`` and ``TRAIN_ROUTES``):
+    each round must launch ``ssm_chunk`` 2 L A times (the forward and the
+    remat recompute; the backward is the plain version's), and the float32
+    routes add the kernel route against the einsum route. Phase 3's
+    ``ssm_chunk`` row at the training shape (``kernel_row``) prints once
+    more beside ``card``."""
+    from repro_torch.configs import get_config
 
-    A warm-up round, then ``TRAIN["rounds"]`` timed rounds (host clock
-    around a synchronized round), launch counts reset just before each and
-    read just after: each must launch ``ssm_chunk`` 2 L A times (the
-    forward and the remat recompute; the backward is the plain version's).
-    Every round's loss and grad_norm must be finite, and every agent's
-    every leaf must change in the warm-up round, and its noise is read
-    from its update (:func:`train_noise_read`). Then one traced round
-    (:func:`train_trace`), the float32 routes with the DP clip read from a
-    round (:func:`train_routes`) and the reduced rounds
-    (:func:`train_reduced`). The headline numbers and phase 3's
-    ``ssm_chunk`` row at the training shape (``kernel_row``) print once
-    more beside ``card``, the name and power limit ``nvidia-smi`` gave."""
+    L, A = get_config(TRAIN["arch"]).num_layers, TRAIN["agents"]
+    out = p2p_train(TRAIN, TRAIN_ROUTES, dev, launches, card, {"ssm_chunk": 2 * L * A}, "9")
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "backward_ms", "backward_bound_ms",
+            "backward_bound_by")
+    log(f"[9] on {card}: ssm_chunk at the training shape (G = {kernel_row['G']}): "
+        f"{fmt({k: kernel_row[k] for k in keys})}")
+    return out
+
+
+def _launched_since(before: dict) -> dict:
+    """The launches counted since ``before`` (an earlier ``launch_counts()``)."""
+    from repro_torch.kernels import ops
+
+    return {k: v - before.get(k, 0) for k, v in ops.launch_counts().items()}
+
+
+def p2p_train(t: dict, r: dict, dev, launches: dict, card: str, expect: dict, tag: str) -> dict:
+    """The paper's P2P-DP training round on ``t["arch"]`` at its full width
+    and depth, bfloat16, ``t["agents"]`` agents stacked on the card (random
+    weights from seeded generators), through ``core.spmd.make_train_step``
+    (ring gossip by rolls, remat on, DP noise on, one next-token example
+    the DP unit).
+
+    A warm-up round, then ``t["rounds"]`` timed rounds (host clock around a
+    synchronized round), launch counts read just before each and just
+    after: each must launch exactly the kernels of ``expect`` that many
+    times (``{}``: none). Every round's loss and grad_norm must be
+    finite, every agent's every leaf must change in the warm-up round, and
+    its noise is read from its update (:func:`train_noise_read`). Then one
+    traced round (:func:`train_trace`), the float32 routes with the DP clip
+    read from a round (:func:`train_routes`) and the reduced rounds
+    (:func:`train_reduced`). The headline numbers print once more beside
+    ``card``, the name and power limit ``nvidia-smi`` gave."""
     import torch
 
     from repro_torch.configs import get_config
@@ -2968,10 +3048,9 @@ def zamba2_train(dev, launches: dict, card: str, kernel_row: dict) -> dict:
     from repro_torch.models.registry import build_model
     from repro_torch.utils.tree import tree_flatten_with_path, tree_size
 
-    t = TRAIN
     cfg = get_config(t["arch"])
-    A, B, L = t["agents"], t["batch"], cfg.num_layers
-    memory("before phase 9")
+    A, B, label = t["agents"], t["batch"], cfg.name.split("-")[0]
+    memory(f"before phase {tag}'s training")
     t0 = time.perf_counter()
     bundle = build_model(cfg, device=dev)
     params = bundle.init_agents(A, t["seed"])
@@ -2985,8 +3064,8 @@ def zamba2_train(dev, launches: dict, card: str, kernel_row: dict) -> dict:
                                                        gossip=t["gossip"])
     want_eps = invert_uniform_budget(t["eps_bar"], n_rounds, p2p.delta_bar)
     if eps_step != want_eps or noise_scale != 2.0 * t["clip"] / (want_eps * m_i):
-        raise SystemExit(f"zamba2 training: eps_step {eps_step} or noise_scale {noise_scale} "
-                         f"is not Theorem 1's ({want_eps})")
+        raise SystemExit(f"{cfg.name} training: eps_step {eps_step} or noise_scale "
+                         f"{noise_scale} is not Theorem 1's ({want_eps})")
     gen = torch.Generator(device=dev).manual_seed(t["seed"])
     stream = token_stream(cfg.vocab_size, A * B, t["seq"], t["seed"], A)
 
@@ -2994,27 +3073,32 @@ def zamba2_train(dev, launches: dict, card: str, kernel_row: dict) -> dict:
         return {"tokens": torch.as_tensor(next(stream).reshape(A, B, t["seq"]), device=dev)}
 
     per_agent = tree_size(params) // A
-    log(f"[9] set-up {cfg.name} training: agents={A} params_per_agent={per_agent} "
+    log(f"[{tag}] set-up {cfg.name} training: agents={A} params_per_agent={per_agent} "
         f"dtype={cfg.dtype} batch={B}x{t['seq']} gossip={t['gossip']} offsets={t['offsets']} "
         f"alpha={t['alpha']} mu={t['mu']} eps_bar={t['eps_bar']} over {n_rounds} rounds "
         f"m_i={m_i} eps_step={eps_step:.6g} noise_scale={noise_scale:.6g} clip={t['clip']} remat=on "
         f"in {time.perf_counter() - t0:.1f} s")
     memory("after the agents' set-up")
 
+    def check_counts(counts, what):
+        got = {k: v for k, v in counts.items() if v}
+        if got != expect:
+            raise SystemExit(f"{cfg.name} {what}: launches {got}, want {expect}")
+
     def counted_round(b):
         torch.cuda.synchronize()
-        ops.reset_launch_counts()
+        before = ops.launch_counts()
         t1 = time.perf_counter()
         _, metrics = step(params, b, gen)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t1) * 1e3
-        counts = ops.launch_counts()
+        counts = _launched_since(before)
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
         loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
-        if counts["ssm_chunk"] != 2 * L * A or not (math.isfinite(loss) and math.isfinite(gnorm)):
-            raise SystemExit(f"zamba2 training round: launches {counts} (want {2 * L * A} "
-                             f"ssm_chunk), loss {loss}, grad_norm {gnorm}")
+        check_counts(counts, "training round")
+        if not (math.isfinite(loss) and math.isfinite(gnorm)):
+            raise SystemExit(f"{cfg.name} training round: loss {loss}, grad_norm {gnorm}")
         return ms, loss, gnorm
 
     before, gen_state = _clone_tree(params), gen.get_state()
@@ -3023,63 +3107,61 @@ def zamba2_train(dev, launches: dict, card: str, kernel_row: dict) -> dict:
                                                           tree_flatten_with_path(before))
                  for a in range(A) if torch.equal(x[a], x0[a])]
     if unchanged:
-        raise SystemExit(f"zamba2 training: parameters left unchanged by a round: {unchanged[:8]}")
-    noise = train_noise_read(before, params, gen_state, gen.get_state(), noise_scale, dev)
+        raise SystemExit(f"{cfg.name} training: parameters left unchanged by a round: "
+                         f"{unchanged[:8]}")
+    noise = train_noise_read(before, params, gen_state, gen.get_state(), noise_scale, dev, t,
+                             tag)
     del before
     torch.cuda.reset_peak_memory_stats(dev)
     rounds = [counted_round(batch()) for _ in range(t["rounds"])]
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
-    ms = spread([r[0] for r in rounds])
+    ms = spread([x[0] for x in rounds])
     tokens = A * B * (t["seq"] - 1)
     out = dict(agents=A, params_per_agent=per_agent, tokens_per_round=tokens,
                warmup_ms=warm[0], round_ms=ms["median"], round_ms_min=ms["min"],
                round_ms_max=ms["max"], tokens_per_s=tokens / ms["median"] * 1e3,
                tokens_per_s_min=tokens / ms["max"] * 1e3, tokens_per_s_max=tokens / ms["min"] * 1e3,
-               peak_gb=peak_gb, ssm_chunk_launches_per_round=2 * L * A,
-               losses=[warm[1]] + [r[1] for r in rounds],
-               grad_norms=[warm[2]] + [r[2] for r in rounds], m_i=m_i, eps_step=eps_step,
+               peak_gb=peak_gb, launches_per_round=expect,
+               losses=[warm[1]] + [x[1] for x in rounds],
+               grad_norms=[warm[2]] + [x[2] for x in rounds], m_i=m_i, eps_step=eps_step,
                noise_scale=noise_scale)
-    log(f"[9] {cfg.name} P2P-DP rounds: {fmt({k: v for k, v in out.items() if not isinstance(v, list)})} "
-        f"losses={out['losses']} grad_norms={out['grad_norms']}")
+    log(f"[{tag}] {cfg.name} P2P-DP rounds: "
+        f"{fmt({k: v for k, v in out.items() if not isinstance(v, (list, dict))})} "
+        f"launches_per_round={expect} losses={out['losses']} grad_norms={out['grad_norms']}")
+    if peak_gb >= CARD_GB:
+        raise SystemExit(f"{cfg.name} training: peak memory {peak_gb:.3f} GB")
     b = batch()
-    ops.reset_launch_counts()
-    out["trace"] = train_trace(step, params, b, gen, ms["median"])
-    counts = ops.launch_counts()
+    before = ops.launch_counts()
+    out["trace"] = train_trace(step, params, b, gen, ms["median"], label, tag)
+    counts = _launched_since(before)
     for k, v in counts.items():
         launches[k] = launches.get(k, 0) + v
-    if counts["ssm_chunk"] != 2 * L * A:
-        raise SystemExit(f"zamba2 traced training round: launches {counts}")
+    check_counts(counts, "traced training round")
     out["dp_noise"] = noise
     del params, bundle, step, b
     gc.collect()
     torch.cuda.empty_cache()
-    out["routes"] = train_routes(cfg, dev, n_rounds)
-    out["reduced"] = train_reduced(dev)
+    out["routes"] = train_routes(cfg, dev, n_rounds, t, r, tag)
+    out["reduced"] = train_reduced(dev, t["arch"], tag)
     keys = ("round_ms", "tokens_per_s", "peak_gb")
-    log(f"[9] on {card}: {fmt({k: out[k] for k in keys})} "
+    log(f"[{tag}] on {card}: {cfg.name} {fmt({k: out[k] for k in keys})} "
         f"idle_share_untraced={out['trace']['idle_share_untraced']:.6g}")
-    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "backward_ms", "backward_bound_ms",
-            "backward_bound_by")
-    log(f"[9] on {card}: ssm_chunk at the training shape (G = {kernel_row['G']}): "
-        f"{fmt({k: kernel_row[k] for k in keys})}")
     return out
 
 
-
-
-def train_routes(cfg, dev, n_rounds: int) -> dict:
+def train_routes(cfg, dev, n_rounds: int, t=TRAIN, r=TRAIN_ROUTES, tag="9") -> dict:
     """The training round's float32 routes at full width cut to
-    ``TRAIN_ROUTES["num_layers"]`` layers (one attention site), A agents,
-    DP off, one round each from the same agents and tokens: the kernel
-    route (``use_kernel=None``) against the reference's einsum route
+    ``r["num_layers"]`` layers, A agents, DP off, one round each from the
+    same agents and tokens: for the hybrid, the kernel route
+    (``use_kernel=None``) against the reference's einsum route
     (``use_kernel=False``): the loss within 1e-5 and every agent's new
     parameters within 1e-4; remat on against off: ``torch.equal``; the
     dense and sparse gossip routes against the roll: 1e-6. Each relative
-    to max(1, max |.|), TF32 off. Then the roll round with DP on (phase
-    9's budget over ``n_rounds``, the clip a quarter of the DP-off round's
-    mean gradient norm, so that it binds), its clip and noise read from
-    its update (:func:`train_clip_read`). No launch here counts for the
-    path."""
+    to max(1, max |.|), TF32 off. Then the roll round with DP on (the
+    budget of ``t`` over ``n_rounds``, the clip a quarter of the DP-off
+    round's mean gradient norm, so that it binds), its clip and noise read
+    from its update (:func:`train_clip_read`). No launch here counts for
+    the path."""
     import torch
 
     from repro_torch.configs.base import P2PConfig
@@ -3088,11 +3170,8 @@ def train_routes(cfg, dev, n_rounds: int) -> dict:
     from repro_torch.models.registry import build_model
     from repro_torch.utils.tree import tree_flatten_with_path
 
-    r, t = TRAIN_ROUTES, TRAIN
     cfg32 = dataclasses.replace(cfg, num_layers=r["num_layers"], dtype="float32")
     kernel = build_model(cfg32, device=dev)
-    einsum = dataclasses.replace(kernel, loss=lambda p, b: hybrid.loss_fn(
-        p, {"tokens": torch.as_tensor(b["tokens"], device=dev).long()}, cfg32, use_kernel=False))
     A, B = r["agents"], r["batch"]
     start = kernel.init_agents(A, t["seed"])
     tokens = torch.randint(0, cfg.vocab_size, (A, B, r["tokens"]),
@@ -3104,11 +3183,15 @@ def train_routes(cfg, dev, n_rounds: int) -> dict:
         return step(_clone_tree(start), {"tokens": tokens})
 
     roll, roll_m = round_of(kernel)
-    other, other_m = round_of(einsum)
     loss = float(roll_m["loss"])
-    gates = dict(layers=cfg32.num_layers, agents=A, tokens=B * (r["tokens"] - 1), loss=loss,
-                 kernel_vs_einsum_loss=abs(loss - float(other_m["loss"])) / max(1.0, abs(loss)),
-                 kernel_vs_einsum_params=_rel_tree(roll, other))
+    gates = dict(layers=cfg32.num_layers, agents=A, tokens=B * (r["tokens"] - 1), loss=loss)
+    if cfg.family == "hybrid":
+        einsum = dataclasses.replace(kernel, loss=lambda p, b: hybrid.loss_fn(
+            p, {"tokens": torch.as_tensor(b["tokens"], device=dev).long()}, cfg32,
+            use_kernel=False))
+        other, other_m = round_of(einsum)
+        gates.update(kernel_vs_einsum_loss=abs(loss - float(other_m["loss"])) / max(1.0, abs(loss)),
+                     kernel_vs_einsum_params=_rel_tree(roll, other))
     other, other_m = round_of(build_model(cfg32, remat=False, device=dev))
     gates["remat_on_equals_off"] = (
         all(torch.equal(x, y) for (_, x), (_, y) in zip(tree_flatten_with_path(roll),
@@ -3127,28 +3210,28 @@ def train_routes(cfg, dev, n_rounds: int) -> dict:
     gen_state = gen.get_state()
     noisy, _ = step(_clone_tree(start), {"tokens": tokens}, gen)
     clip_read = train_clip_read(start, roll, noisy, gen_state, gen.get_state(), clip, noise_scale,
-                                dev)
+                                dev, t, A, tag)
     del noisy, roll, start
     torch.cuda.empty_cache()
-    log(f"[9] float32 routes at full width, {cfg32.num_layers} layers: {fmt(gates)} "
+    log(f"[{tag}] float32 routes at full width, {cfg32.num_layers} layers: {fmt(gates)} "
         f"(tol loss {TRAIN_TOL['loss']:.0e}, params {TRAIN_TOL['params']:.0e}, "
         f"gossip {TRAIN_TOL['gossip']:.0e})")
-    if not (gates["kernel_vs_einsum_loss"] <= TRAIN_TOL["loss"]
-            and gates["kernel_vs_einsum_params"] <= TRAIN_TOL["params"]
+    if not (gates.get("kernel_vs_einsum_loss", 0.0) <= TRAIN_TOL["loss"]
+            and gates.get("kernel_vs_einsum_params", 0.0) <= TRAIN_TOL["params"]
             and gates["remat_on_equals_off"] and math.isfinite(loss)
             and gates["dense_vs_roll"] <= TRAIN_TOL["gossip"]
             and gates["sparse_vs_roll"] <= TRAIN_TOL["gossip"]):
-        raise SystemExit(f"zamba2 training routes failed: {gates}")
+        raise SystemExit(f"{cfg.name} training routes failed: {gates}")
     gates["dp_clip"] = clip_read
     return gates
 
 
-def train_reduced(dev) -> dict:
-    """``tests/test_spmd.py``'s gate with zamba2 in place of llama3.2-1b:
-    the reduced float32 config, A = 1, mu = 0.3, DP off, two rounds on one
-    batch of 2 x 17 tokens; the second round's loss must be below the
-    first's. The same first round on the CPU from the same agents (drawn
-    there and copied to the card) must agree within 1e-5."""
+def train_reduced(dev, arch="zamba2-1.2b", tag="9") -> dict:
+    """``tests/test_spmd.py``'s gate on ``arch``'s reduced float32 config
+    (the reference's is llama3.2-1b): A = 1, mu = 0.3, DP off, two rounds
+    on one batch of 2 x 17 tokens; the second round's loss must be below
+    the first's. The same first round on the CPU from the same agents
+    (drawn there and copied to the card) must agree within 1e-5."""
     import numpy as np
     import torch
 
@@ -3158,7 +3241,7 @@ def train_reduced(dev) -> dict:
     from repro_torch.models.registry import build_model
     from repro_torch.utils.tree import tree_map
 
-    cfg = get_reduced("zamba2-1.2b", dtype="float32")
+    cfg = get_reduced(arch, dtype="float32")
     p2p = P2PConfig(agent_mode="full", dp_enabled=False, mu=0.3)
     tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (1, 2, 17)).astype(np.int32)
     on_cpu = build_model(cfg, device="cpu")
@@ -3172,10 +3255,325 @@ def train_reduced(dev) -> dict:
     l1, l2 = float(m1["loss"]), float(m2["loss"])
     out = dict(loss_round1=l1, loss_round2=l2, card_vs_cpu_params=_rel_tree(first, cpu),
                card_vs_cpu_loss=abs(l1 - float(c1["loss"])) / max(1.0, abs(float(c1["loss"]))))
-    log(f"[9] reduced rounds (A = 1, mu = 0.3): {fmt(out)} (tol {TRAIN_TOL['card_vs_cpu']:.0e})")
+    log(f"[{tag}] reduced {arch} rounds (A = 1, mu = 0.3): {fmt(out)} "
+        f"(tol {TRAIN_TOL['card_vs_cpu']:.0e})")
     if not (l2 < l1 and out["card_vs_cpu_params"] <= TRAIN_TOL["card_vs_cpu"]
             and out["card_vs_cpu_loss"] <= TRAIN_TOL["card_vs_cpu"]):
-        raise SystemExit(f"zamba2 reduced training gates failed: {out}")
+        raise SystemExit(f"{arch} reduced training gates failed: {out}")
+    return out
+
+
+class _RoutingProbe:
+    """While open, every ``moe.moe_ffn`` call also routes its input again
+    (``moe.route``) and keeps, per call, the chosen experts and the kept
+    mask of its real tokens, on the host. A measurement outside the timed
+    runs: the probe's routing is an extra computation."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self._moe, self._inner = moe, moe.moe_ffn
+
+        def probed(params, x, cfg):
+            xg, T = moe._groups(x, min(cfg.moe.group_size, x.shape[0] * x.shape[1]))
+            r = moe.route(params, xg, cfg)
+            k = cfg.moe.top_k
+            self.calls.append((r.top_idx.reshape(-1, k)[:T].cpu(), r.keep.reshape(-1, k)[:T].cpu()))
+            return self._inner(params, x, cfg)
+
+        moe.moe_ffn = probed
+        return self
+
+    def __exit__(self, *exc):
+        self._moe.moe_ffn = self._inner
+
+    def kept_share(self, layers: int) -> dict:
+        """The kept share over every call, and layer by layer (the calls
+        run layer after layer, step after step)."""
+        kept = [int(keep.sum()) for _, keep in self.calls]
+        total = [keep.numel() for _, keep in self.calls]
+        return dict(kept=sum(kept), choices=sum(total), kept_share=sum(kept) / max(sum(total), 1),
+                    calls=len(self.calls),
+                    by_layer=[round(sum(kept[i::layers]) / max(sum(total[i::layers]), 1), 4)
+                              for i in range(layers)])
+
+
+def _serve_batch(cfg, dev, gen, B, S):
+    """Token ids (B, S) from ``gen`` and, for an enc-dec config, the stubbed
+    frontend's frame embeddings (B, enc_len(S), d)."""
+    import torch
+
+    from repro_torch.models.encdec import enc_len
+
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device=dev)}
+    if cfg.is_encdec:
+        batch["embeds"] = torch.randn((B, enc_len(S), cfg.d_model), generator=gen, device=dev)
+    return batch
+
+
+def family_serve(spec: dict, dev) -> dict:
+    """Phase 10 (a), (c)-(e): serve ``spec["arch"]`` at its full config
+    (``num_layers`` cuts the depth), bfloat16, random weights from a seeded
+    generator on the card. ``SERVE_TRAFFIC``'s prompts through
+    ``bundle.prefill(max_len=prompt + decode_steps)``: a warm-up, then
+    ``prefills`` timed prefills (host clock around a synchronized call);
+    one more traced (device time by block, "attention" and "ffn", and by
+    kernel kind; the device idle share). Then 2 warm-up and
+    ``DECODE_TRACED`` traced greedy decode steps on the warm-up prefill's
+    caches, and ``decode_steps`` timed greedy steps continuing the last
+    timed prefill's caches. An MoE model also reports the share of its
+    (token, choice) pairs that capacity kept, in one more prefill and in
+    8 decode steps (:class:`_RoutingProbe`). Fails on a shape, a
+    non-finite value or a decode past the cache."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.models.registry import build_model
+
+    cfg = get_config(spec["arch"])
+    if spec["num_layers"]:
+        cfg = dataclasses.replace(cfg, num_layers=spec["num_layers"])
+    z, steps = SERVE_TRAFFIC, spec["decode_steps"]
+    B, S = z["batch"], z["prompt"]
+    t0 = time.perf_counter()
+    bundle = build_model(cfg, device=dev)
+    model = bundle.init(z["seed"])
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    label = cfg.name
+    log(f"[10] set-up {label}: family={cfg.family} layers={cfg.num_layers} "
+        f"(of {get_config(spec['arch']).num_layers}) encoder_layers={cfg.encoder_layers} "
+        f"d_model={cfg.d_model} heads={cfg.num_heads}/{cfg.num_kv_heads}x{cfg.resolved_head_dim} "
+        f"d_ff={cfg.d_ff} vocab={cfg.padded_vocab} tied={cfg.tie_embeddings} "
+        f"moe={dataclasses.asdict(cfg.moe) if cfg.moe else None} dtype={cfg.dtype} "
+        f"params={n_params} (config's count {cfg.param_count()}) "
+        f"in {time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator(device=dev).manual_seed(z["seed"] + 1)
+    batch = _serve_batch(cfg, dev, gen, B, S)
+    max_len = S + steps
+    _, warm_caches = bundle.prefill(model, batch, max_len=max_len)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    times = []
+    for _ in range(spec["prefills"]):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        logits, caches = bundle.prefill(model, batch, max_len=max_len)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t1) * 1e3)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    if logits.shape != (B, 1, cfg.padded_vocab) or not bool(torch.isfinite(logits).all()):
+        raise SystemExit(f"{label} prefill: logits {tuple(logits.shape)} or not finite")
+    ms = spread(times)
+    out = dict(params=n_params, layers=cfg.num_layers, batch=B, prompt=S, cache_positions=max_len,
+               prefill_ms=ms["median"], prefill_ms_min=ms["min"], prefill_ms_max=ms["max"],
+               prefill_tokens_per_s=B * S / ms["median"] * 1e3,
+               prefill_tokens_per_s_min=B * S / ms["max"] * 1e3,
+               prefill_tokens_per_s_max=B * S / ms["min"] * 1e3, prefill_peak_gb=peak_gb)
+    log(f"[10] {label} prefill {B} x {S} ({spec['prefills']} timed): {fmt(out)}")
+    trace = profile_prefill(bundle, model, batch, _build.build_dir() / "traces", ms["median"],
+                            label=label, blocks=BLOCK_RANGES, tag="10", max_len=max_len)
+    split = trace["ms_by_block_and_kind"]
+    trace["attention_ms"] = sum(v for k, v in split.items() if k.startswith("attention/"))
+    trace["gemm_ms_outside_attention"] = sum(v for k, v in split.items()
+                                             if k.endswith("/matmul")
+                                             and not k.startswith("attention/"))
+    trace["other_ms"] = trace["device_busy_ms"] - trace["attention_ms"] \
+        - trace["gemm_ms_outside_attention"]
+    log(f"[10p] {label} prefill by kind: attention {trace['attention_ms']:.6g} ms, bf16 GEMMs "
+        f"outside it {trace['gemm_ms_outside_attention']:.6g} ms, "
+        f"the rest {trace['other_ms']:.6g} ms")
+    out["prefill_trace"] = trace
+
+    first = logits[:, -1].argmax(dim=-1, keepdim=True)  # (B, 1) greedy tokens
+    for pos in range(S, S + 2):
+        bundle.decode(model, first, warm_caches, pos)
+
+    def traced_steps():
+        for pos in range(S + 2, S + 2 + DECODE_TRACED):
+            bundle.decode(model, first, warm_caches, pos)
+
+    step_ms = []
+    token = first
+    for pos in range(S, S + steps):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        step_logits, caches = bundle.decode(model, token, caches, pos)
+        token = step_logits[:, -1].argmax(dim=-1, keepdim=True)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+    if step_logits.shape != (B, 1, cfg.padded_vocab) or not bool(torch.isfinite(step_logits).all()):
+        raise SystemExit(f"{label} decode: logits {tuple(step_logits.shape)} or not finite")
+    ms = spread(step_ms)
+    events, wall_ms = traced(traced_steps, _build.build_dir() / "traces"
+                             / f"trace_{label}_decode.json")
+    out["decode_trace"] = report_trace(f"{label} decode", events, wall_ms, DECODE_TRACED, "step",
+                                       ms["median"])
+    out.update(decode_steps=steps, decode_ms_per_step=ms["median"],
+               decode_ms_per_step_min=ms["min"], decode_ms_per_step_max=ms["max"],
+               decode_tokens_per_s=B / ms["median"] * 1e3,
+               decode_tokens_per_s_min=B / ms["max"] * 1e3,
+               decode_tokens_per_s_max=B / ms["min"] * 1e3)
+    log(f"[10] {label} decode {B} x {steps} greedy steps from position {S}: "
+        f"{fmt({k: v for k, v in out.items() if k.startswith('decode') and k != 'decode_trace'})}")
+    del warm_caches
+    if cfg.moe is not None:
+        with _RoutingProbe() as probe:
+            _, caches = bundle.prefill(model, batch, max_len=S + 8)
+        out["prefill_capacity"] = probe.kept_share(cfg.num_layers)
+        token = first
+        with _RoutingProbe() as probe:
+            for pos in range(S, S + 8):
+                step_logits, caches = bundle.decode(model, token, caches, pos)
+                token = step_logits[:, -1].argmax(dim=-1, keepdim=True)
+        out["decode_capacity"] = probe.kept_share(cfg.num_layers)
+        log(f"[10] {label} (token, choice) pairs capacity kept: prefill "
+            f"{fmt(out['prefill_capacity'])}; decode (8 steps) {fmt(out['decode_capacity'])}")
+    del model, bundle, caches, logits, step_logits, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _rel_max(got, want) -> float:
+    return float((got.double() - want.to(got.device).double()).abs().max()) / max(
+        1.0, float(want.abs().max()))
+
+
+def family_gates(dev) -> dict:
+    """Phase 10 (f), each route against its own twin, float32 at full width
+    cut to ``FAMILY_GATE["num_layers"]`` layers, TF32 off: llama3.2-1b's
+    prefill of 2 x 256 tokens against the same tokens fed one at a time
+    through decode (``MODEL_TOL``, phase 6's bound); its attention at S =
+    4096 with ``CHUNKED_ATTN_THRESHOLD`` lowered to 1024 against the dense
+    path (``tests/test_perf_levers.py``'s rtol and atol); a prefill and 8
+    decode steps through the ``REPEAT_KV_IN_CACHE`` layout against the
+    compact one (1e-5); granite-moe-3b-a800m's prefill on the card against
+    the same weights on the CPU (1e-5), every MoE layer's chosen experts and
+    kept mask equal. No kernel of ours runs here."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models.registry import build_model
+
+    g = FAMILY_GATE
+    cfg = dataclasses.replace(get_config("llama3.2-1b"), num_layers=g["num_layers"],
+                              dtype="float32")
+    bundle = build_model(cfg, device=dev)
+    model = bundle.init(SERVE_TRAFFIC["seed"])
+    gen = torch.Generator(device=dev).manual_seed(7)
+    B, S = g["batch"], g["tokens"]
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device=dev)
+    prefill, _ = bundle.prefill(model, {"tokens": tokens})
+    caches = bundle.init_cache(model, B, S)
+    for pos in range(S):
+        step, caches = bundle.decode(model, tokens[:, pos:pos + 1], caches, pos)
+    out = dict(layers=cfg.num_layers, batch=B, tokens=S,
+               llama_prefill_vs_decode=_rel_max(step, prefill),
+               max_abs_logit=float(prefill.abs().max()))
+    del caches
+
+    c = CHUNKED_GATE
+    x = torch.randn((c["batch"], c["tokens"], cfg.d_model), generator=gen, device=dev)
+    attn = model.layers[0].attn
+    before = attn_mod.CHUNKED_ATTN_THRESHOLD
+    with torch.inference_mode():
+        attn_mod.CHUNKED_ATTN_THRESHOLD = 10**9
+        dense, _ = attn_mod.attention(attn, x, cfg)
+        attn_mod.CHUNKED_ATTN_THRESHOLD = c["threshold"]
+        try:
+            chunked, _ = attn_mod.attention(attn, x, cfg)
+        finally:
+            attn_mod.CHUNKED_ATTN_THRESHOLD = before
+    excess = float(((chunked - dense).abs() - c["atol"] - c["rtol"] * dense.abs()).max())
+    out.update(chunked_vs_dense_max_abs=float((chunked - dense).abs().max()),
+               chunked_vs_dense_excess=excess, chunked_tokens=c["tokens"])
+    del x, dense, chunked
+
+    n = g["repeat_kv_steps"]
+    runs = []
+    for flag in (False, True):
+        attn_mod.set_repeat_kv_cache(flag)
+        try:
+            logits, caches = bundle.prefill(model, {"tokens": tokens}, max_len=S + n)
+            outs, token = [logits], logits[:, -1].argmax(dim=-1, keepdim=True)
+            for pos in range(S, S + n):
+                logits, caches = bundle.decode(model, token, caches, pos)
+                outs.append(logits)
+                token = logits[:, -1].argmax(dim=-1, keepdim=True)
+            runs.append((caches[0]["k"].shape[2], torch.cat(outs, dim=1)))
+        finally:
+            attn_mod.set_repeat_kv_cache(False)
+    out.update(repeat_kv_heads=runs[1][0], compact_heads=runs[0][0],
+               repeat_kv_vs_compact=_rel_max(runs[1][1], runs[0][1]))
+    del model, bundle, caches, runs
+
+    mcfg = dataclasses.replace(get_config("granite-moe-3b-a800m"), num_layers=g["num_layers"],
+                               dtype="float32")
+    card = build_model(mcfg, device=dev)
+    on_cpu = build_model(mcfg, device="cpu")
+    model = card.init(SERVE_TRAFFIC["seed"])
+    model_cpu = type(model)(mcfg, device="cpu")
+    model_cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    tokens = torch.randint(0, mcfg.vocab_size, (B, S), generator=gen, device=dev)
+    with _RoutingProbe() as on_card:
+        got, _ = card.prefill(model, {"tokens": tokens})
+    with _RoutingProbe() as cpu_probe:
+        want, _ = on_cpu.prefill(model_cpu, {"tokens": tokens.cpu()})
+    same_routes = len(on_card.calls) == len(cpu_probe.calls) == mcfg.num_layers and all(
+        torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+        for a, b in zip(on_card.calls, cpu_probe.calls))
+    out.update(moe_card_vs_cpu=_rel_max(got, want), moe_routing_equal=same_routes,
+               moe_kept_share=on_card.kept_share(mcfg.num_layers)["kept_share"])
+    log(f"[10] float32 routes at full width, {g['num_layers']} layers: {fmt(out)} (tol "
+        f"prefill/decode {MODEL_TOL:.0e}, chunked rtol {c['rtol']:.0e} atol {c['atol']:.0e}, "
+        f"repeat KV {REPEAT_KV_TOL:.0e}, MoE card/CPU {MOE_CPU_TOL:.0e})")
+    if not (out["llama_prefill_vs_decode"] <= MODEL_TOL and excess <= 0.0
+            and out["repeat_kv_heads"] == cfg.num_heads
+            and out["compact_heads"] == cfg.num_kv_heads
+            and out["repeat_kv_vs_compact"] <= REPEAT_KV_TOL
+            and out["moe_card_vs_cpu"] <= MOE_CPU_TOL and same_routes
+            and all(bool(torch.isfinite(t).all()) for t in (prefill, step, got))):
+        raise SystemExit(f"phase 10 float32 routes failed: {out}")
+    del model, model_cpu, card, on_cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def transformer_families(dev, launches: dict, card: str) -> dict:
+    """Phase 10: the transformer families on the card, through the entry
+    points a user calls (``build_model``, ``core.spmd.make_train_step``):
+    (a) llama3.2-1b served at its full config; (b) its P2P-DP training
+    round, 4 agents at full width and depth (:func:`p2p_train`, phase 9's
+    traffic and gates, its float32 routes on 2 layers and the reduced
+    rounds); (c) granite-moe-3b-a800m, (d) chameleon-34b at full width and
+    4 of its 48 layers, and (e) seamless-m4t-medium served
+    (:func:`family_serve`); (f) the float32 routes (:func:`family_gates`);
+    (g) no kernel of ours launches anywhere in the phase, as in the
+    reference, where these families reach no Pallas kernel (counts reset
+    at the start and read at the end)."""
+    from repro_torch.kernels import ops
+
+    ops.reset_launch_counts()
+    out = {}
+    for spec in FAMILY_SERVE:
+        out[f"serve_{spec['arch']}"] = family_serve(spec, dev)
+        memory(f"after serving {spec['arch']}")
+        if spec["arch"] == "llama3.2-1b":
+            out["train_llama3.2-1b"] = p2p_train(LLAMA_TRAIN, LLAMA_ROUTES, dev, launches, card,
+                                                 {}, "10")
+    out["routes"] = family_gates(dev)
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    out["kernel_launches"] = counts
+    log(f"[10] kernel launches across phase 10: {counts} (none may launch)")
+    if counts:
+        raise SystemExit(f"phase 10 launched kernels of ours: {counts}")
     return out
 
 
@@ -3440,7 +3838,15 @@ def main() -> int:
     train = zamba2_train(dev, launches, smi, results["ssm_chunk_train"])
     mark("9 zamba2 P2P training")
 
-    # [10] the kernel table and the result
+    # [10] the transformer families, phase 9's memory released: llama3.2-1b
+    # served and trained, granite-moe, chameleon (4 layers) and seamless
+    # served, the float32 routes; no kernel of ours may launch
+    gc.collect()
+    torch.cuda.empty_cache()
+    families = transformer_families(dev, launches, smi)
+    mark("10 transformer families")
+
+    # [11] the kernel table and the result
     src = {"sparse_mix": "src/repro/kernels/sparse_mix.py:60",
            "fused_row_update": "src/repro/kernels/fused_row_update.py:133",
            "graph_mix": "src/repro/kernels/graph_mix.py:38",
@@ -3470,6 +3876,7 @@ def main() -> int:
     log(json.dumps({"paper_benches": benches}))
     log(json.dumps({"engine_benches": engine}, default=str))
     log(json.dumps({"zamba2_train": train, "ssm_chunk_train": results["ssm_chunk_train"]}))
+    log(json.dumps({"transformer_families": families}))
     log(json.dumps({"phase_seconds": phase_s, "total_s": sum(phase_s.values())}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

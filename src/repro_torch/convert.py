@@ -27,11 +27,14 @@ build the port's, or give the port's back as numpy:
   engine);
 * :func:`load_reference_params` — a model parameter tree (nested dicts of
   arrays) into an ``nn.Module`` whose ``state_dict`` names follow it;
-* :func:`hybrid_params_from_reference` — the zamba2 hybrid's
-  ``init_params`` tree as a :class:`~repro_torch.models.hybrid.HybridLM`;
+* :func:`hybrid_params_from_reference`, :func:`transformer_params_from_reference`
+  and :func:`encdec_params_from_reference` — a family's ``init_params``
+  tree as its model (:class:`~repro_torch.models.hybrid.HybridLM`,
+  :class:`~repro_torch.models.transformer.TransformerLM`,
+  :class:`~repro_torch.models.encdec.EncDecLM`);
 * :func:`agent_params_from_reference` — the stacked agents of the P2P
   layer, ``jax.vmap(bundle.init)``'s tree (a leading agent axis on every
-  leaf), as the same tree of tensors.
+  leaf), as the same tree of tensors, checked against the family's model.
 """
 
 from __future__ import annotations
@@ -43,7 +46,11 @@ from repro_torch.core.dp_cd import DPConfig
 from repro_torch.core.graph import AgentGraph, CSRGraph, TopologyState
 from repro_torch.core.objective import AgentData, Objective, make_objective
 from repro_torch.device import resolve_device
+from repro_torch.models.encdec import STACKED as ENCDEC_STACKED
+from repro_torch.models.encdec import EncDecLM
 from repro_torch.models.hybrid import HybridLM
+from repro_torch.models.registry import model_class
+from repro_torch.models.transformer import TransformerLM
 from repro_torch.sim.engine import ShardedSimState, SimState
 from repro_torch.sim.updates import DPCDUpdate
 
@@ -302,14 +309,17 @@ def agent_params_from_reference(tree, cfg, device="cuda") -> dict:
     with a leading agent axis A, the ``layers`` axis under it. Returns the
     same nested dict of tensors on ``device``, the layout
     :mod:`repro_torch.core.spmd` trains (``ModelBundle.init_agents``'s).
-    The agents' slices must load into the model: names, shapes and types
-    are checked by :func:`load_reference_params` (agent 0's slice, on a
-    ``HybridLM`` that holds no storage), and the agent axes must agree."""
+    The agents' slices must load into the family's model: names, shapes
+    and types are checked by :func:`load_reference_params` (agent 0's
+    slice, on a model of ``cfg``'s family that holds no storage), and the
+    agent axes must agree."""
     dev = resolve_device(device)
     counts = {np.asarray(leaf).shape[0] for _, leaf in _flatten(tree)}
     if len(counts) != 1:
         raise ValueError(f"the leaves' leading agent axes differ: {sorted(counts)}")
-    load_reference_params(HybridLM(cfg, device="meta"), _agent(tree, 0), stacked=("layers",))
+    cls = model_class(cfg)
+    load_reference_params(cls(cfg, device="meta"), _agent(tree, 0),
+                          stacked=ENCDEC_STACKED if cls is EncDecLM else ("layers",))
 
     def build(node):
         return {k: build(v) if isinstance(v, dict) else _tensor_of(v).to(dev)
@@ -322,6 +332,18 @@ def hybrid_params_from_reference(tree, cfg, device="cuda"):
     """The reference hybrid's ``init_params(key, cfg)`` tree (its leaves as
     numpy, the ``layers`` axis stacked) -> a :class:`HybridLM` on ``device``."""
     return load_reference_params(HybridLM(cfg, device=device), tree, stacked=("layers",))
+
+
+def transformer_params_from_reference(tree, cfg, device="cuda"):
+    """The reference transformer's ``init_params(key, cfg)`` tree (dense,
+    MoE or VLM; the ``layers`` axis stacked) -> a :class:`TransformerLM`."""
+    return load_reference_params(TransformerLM(cfg, device=device), tree, stacked=("layers",))
+
+
+def encdec_params_from_reference(tree, cfg, device="cuda"):
+    """The reference enc-dec's ``init_params(key, cfg)`` tree (``encoder``
+    and ``decoder`` stacked) -> an :class:`EncDecLM`."""
+    return load_reference_params(EncDecLM(cfg, device=device), tree, stacked=ENCDEC_STACKED)
 
 
 def topology_state_from_numpy(nbr, w, valid, version, *, device="cuda") -> TopologyState:

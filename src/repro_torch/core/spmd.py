@@ -263,7 +263,7 @@ def agent_losses_and_grads(bundle, params, batch):
         model = bundle.bind(tree_map(lambda x: x[a], params))
         with record_function("agent_forward"):
             loss = bundle.loss(model, {k: v[a] for k, v in batch.items()})
-        dsts = module_views(tree_map(lambda g: g[a], grads))
+        dsts = module_views(tree_map(lambda g: g[a], grads), bundle.stacked)
         with record_function("agent_backward"):
             got = torch.autograd.grad(loss, [model.get_parameter(n) for n, _ in dsts],
                                       allow_unused=True)

@@ -6,7 +6,8 @@ reference example's flags (``--smoke``, ``--full`` and the others) plus
 returns what it printed as a dict: ``quickstart``,
 ``p2p_linear_classification``, ``sparse_p2p_scale``,
 ``async_p2p_simulation``, ``sharded_async_simulation`` (S shards stacked
-on one device), ``movielens_recommendation`` and ``serve_batched``. The
-two that call the reference's benches call the port's runners in
-:mod:`repro_torch.bench`. ``decentralized_lm`` waits for ROADMAP A15d.
+on one device), ``movielens_recommendation``, ``serve_batched`` and
+``decentralized_lm`` (the P2P-DP training launcher on a small
+llama3.2-1b-family transformer). The two that call the reference's
+benches call the port's runners in :mod:`repro_torch.bench`.
 """

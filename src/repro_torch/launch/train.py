@@ -3,11 +3,15 @@
 Port of ``repro/launch/train.py``: personal models per agent, per-round DP
 perturbation, ring or dense gossip, periodic checkpoints. The A agents
 are stacked on one device (the card unless ``--device cpu``); A is
-``--agents``, else the mesh's data axis. Only the ``hybrid`` family
-(zamba2) is ported; other families raise naming ROADMAP A15c.
+``--agents``, else the mesh's data axis, and a model axis in ``--mesh``
+raises naming ROADMAP A15d. Every family built on attention trains: the
+decoder-only transformer (the default ``--arch llama3.2-1b``; MoE, VLM),
+the enc-dec transformer (its frame embeddings drawn each step, as the
+reference draws them) and the zamba2 hybrid; the xLSTM family raises
+naming ROADMAP A15c-ii.
 
-    PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-1.2b \\
-        --preset tiny --steps 50 --batch 4 --seq 129 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --preset tiny --steps 50 \\
+        --batch 4 --seq 129 --device cpu
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ from repro_torch.configs.base import P2PConfig
 from repro_torch.core import spmd
 from repro_torch.data.synthetic import token_stream
 from repro_torch.models import build_model
+from repro_torch.models.encdec import enc_len
 
 
 def parse_args(argv=None):
@@ -109,6 +114,13 @@ def main(argv=None):
     for step in range(start_step, args.steps):
         toks = next(stream).reshape(A, args.batch, args.seq)
         batch = {"tokens": torch.as_tensor(toks, device=bundle.device)}
+        if cfg.is_encdec:
+            # The stubbed frontend's frame embeddings, a draw of their own
+            # each step (the reference folds the step into its key).
+            seed = np.random.SeedSequence([args.seed, step]).generate_state(1)[0]
+            batch["embeds"] = torch.randn(
+                (A, args.batch, enc_len(args.seq), cfg.d_model), device=bundle.device,
+                generator=torch.Generator(device=bundle.device).manual_seed(int(seed)))
         params, metrics = step_fn(params, batch, generator)
         if step % args.log_every == 0 or step == args.steps - 1:
             loss = float(metrics["loss"])

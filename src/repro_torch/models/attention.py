@@ -1,17 +1,24 @@
 """GQA self-attention with RoPE, optional QKV bias, sliding window, logit
 soft-capping, and a KV-cache decode path (ring buffer for windowed attention).
 
-Port of ``repro/models/attention.py``: the causal self-attention of the
-decoder families. The reference writes it in plain ``jnp`` (no Pallas
-kernel), so plain PyTorch (``einsum``, ``softmax``) ports it as it is,
-with the same cast points: scores in float32, softmax weights cast back
-to the model type. Cross-attention (``kv_memory``, ``decode_cross_attention``)
-and ``prefill_into_cache`` come with the enc-dec family.
+Port of ``repro/models/attention.py``, the attention of every family
+built on it: zamba2's shared block (``hybrid``), the decoder-only
+transformer (dense, MoE, VLM: ``transformer``) and the enc-dec
+transformer (``encdec``: the bidirectional encoder, ``causal=False``, and
+cross-attention, ``kv_memory`` and :func:`decode_cross_attention`). The
+reference writes it in plain ``jnp`` (no Pallas kernel), so plain PyTorch
+(``einsum``, ``softmax``) ports it as it is, with the same cast points:
+scores in float32, softmax weights cast back to the model type.
 
 Decode assumption, as in the reference: batched aligned decode, every
 sequence of the batch at the same absolute position ``pos``. The port
-writes the new key and value into the cache tensors in place (one row per
-step) and returns the same cache.
+writes the prefill's keys and values (:func:`prefill_into_cache`) and
+each decode step's into the cache tensors in place and returns the same
+cache; a position past the end of a full (not windowed) cache raises.
+
+``REPEAT_KV_IN_CACHE`` (:func:`set_repeat_kv_cache`) stores the cache
+pre-repeated to the query-head count, as the reference's lever does; the
+prefill's compact keys and values are repeated as they are written.
 """
 
 from __future__ import annotations
@@ -25,6 +32,15 @@ from repro_torch.models.layers import Dense, apply_rope, dense
 
 NEG_INF = -1e30
 CHUNKED_ATTN_THRESHOLD = 16384  # above this S, q-block chunking (flash-style)
+
+# The decode lever of the reference: store the KV cache pre-repeated to the
+# full query-head count (H // KV times the memory of the compact cache).
+REPEAT_KV_IN_CACHE = False
+
+
+def set_repeat_kv_cache(flag: bool):
+    global REPEAT_KV_IN_CACHE
+    REPEAT_KV_IN_CACHE = flag
 
 
 class Attention(nn.Module):
@@ -79,49 +95,84 @@ def _chunked_causal_attention(q, kr, vr, positions, cfg, window, q_chunk=1024):
     return torch.cat(out, dim=1)
 
 
-def attention(params: Attention, x, cfg, positions=None, window=None):
-    """Causal self-attention over the whole sequence (prefill).
+def attention(params: Attention, x, cfg, positions=None, causal=True, window=None,
+              kv_memory=None):
+    """Full-sequence attention (train, prefill, encoder).
 
-    x: (B, S, d) -> (y (B, S, d), (k, v)), the cached K/V in
-    (B, S, KV, hd) layout with RoPE applied.
+    x: (B, S, d). ``kv_memory``: an optional (B, S_kv, d) for
+    cross-attention (then ``causal`` and ``window`` are ignored and no RoPE
+    is applied). Returns ``(y (B, S, d), (k, v))``, the cached K/V in
+    (B, S_kv, KV, hd) layout (RoPE applied to self-attention keys).
     """
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     H, KV = cfg.num_heads, cfg.num_kv_heads
+    src = kv_memory if kv_memory is not None else x
     q = _split_heads(dense(params.q, x), H, hd)
-    k = _split_heads(dense(params.k, x), KV, hd)
-    v = _split_heads(dense(params.v, x), KV, hd)
-    if positions is None:
-        positions = torch.arange(S, device=x.device)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    k = _split_heads(dense(params.k, src), KV, hd)
+    v = _split_heads(dense(params.v, src), KV, hd)
+    if kv_memory is None:
+        if positions is None:
+            positions = torch.arange(S, device=x.device)
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     kr = _repeat_kv(k, H // KV)
     vr = _repeat_kv(v, H // KV)
-    if S >= CHUNKED_ATTN_THRESHOLD and S % 1024 == 0:
+    if kv_memory is None and causal and S >= CHUNKED_ATTN_THRESHOLD and S % 1024 == 0:
         y = _chunked_causal_attention(q, kr, vr, positions, cfg, window)
         return dense(params.o, y.reshape(B, S, H * hd)), (k, v)
     scores = _softcap(_scores(q, kr, hd), cfg.logit_softcap)
-    qi = positions[:, None]
-    ki = positions[None, :]
-    mask = ki <= qi
-    if window is not None:
-        mask = mask & (qi - ki < window)
-    bias = torch.where(mask, 0.0, NEG_INF).to(torch.float32)
-    w = torch.softmax(scores + bias[None, None], dim=-1).to(x.dtype)
+    if kv_memory is None and causal:
+        qi = positions[:, None]
+        ki = positions[None, :]
+        mask = ki <= qi
+        if window is not None:
+            mask = mask & (qi - ki < window)
+        bias = torch.where(mask, 0.0, NEG_INF).to(torch.float32)
+        scores = scores + bias[None, None]
+    w = torch.softmax(scores, dim=-1).to(x.dtype)
     y = torch.einsum("bhqk,bkhd->bqhd", w, vr).reshape(B, S, H * hd)
     return dense(params.o, y), (k, v)
 
 
 def init_cache(cfg, batch, max_len, dtype, device):
-    """KV cache. For windowed attention the buffer is the window (ring)."""
+    """KV cache. For windowed attention the buffer is the window (ring);
+    with ``REPEAT_KV_IN_CACHE`` it holds every query head."""
     hd = cfg.resolved_head_dim
     size = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
-    shape = (batch, size, cfg.num_kv_heads, hd)
+    heads = cfg.num_heads if REPEAT_KV_IN_CACHE else cfg.num_kv_heads
+    shape = (batch, size, heads, hd)
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
         "slot_pos": torch.full((size,), -1, dtype=torch.int32, device=device),  # absolute pos per slot
     }
+
+
+def prefill_into_cache(cfg, cache, k, v, seq_len: int):
+    """Write the prefill's K/V (B, seq_len, KV, hd), RoPE applied, into
+    ``cache`` in place and return it. A windowed cache shorter than the
+    prompt keeps the last ``size`` positions, each at its ring slot
+    ``pos % size``; a full cache shorter than the prompt raises."""
+    size = cache["k"].shape[1]
+    rep = cache["k"].shape[2] // k.shape[2]
+    k, v = _repeat_kv(k, rep), _repeat_kv(v, rep)
+    if seq_len <= size:
+        cache["k"][:, :seq_len] = k
+        cache["v"][:, :seq_len] = v
+        cache["slot_pos"][:seq_len] = torch.arange(seq_len, dtype=torch.int32,
+                                                   device=k.device)
+        return cache
+    if not cfg.sliding_window:
+        raise ValueError(f"a prompt of {seq_len} positions does not fit the cache of {size}")
+    # Windowed: keep the last `size` positions, ring-aligned.
+    start = seq_len - size
+    pos = torch.arange(start, seq_len, device=k.device)
+    slots = pos % size
+    cache["k"][:, slots] = k[:, start:]
+    cache["v"][:, slots] = v[:, start:]
+    cache["slot_pos"][slots] = pos.to(torch.int32)
+    return cache
 
 
 def decode_attention(params: Attention, x, cfg, cache, pos: int):
@@ -139,6 +190,10 @@ def decode_attention(params: Attention, x, cfg, cache, pos: int):
     posv = torch.full((1,), pos, dtype=torch.int32, device=x.device)
     q = apply_rope(q, posv, cfg.rope_theta)
     k = apply_rope(k, posv, cfg.rope_theta)
+    # The cache's layout (compact, or repeated: ``REPEAT_KV_IN_CACHE`` when
+    # it was made) decides how the new row is written and read.
+    heads = cache["k"].shape[2]
+    k, v = _repeat_kv(k, heads // KV), _repeat_kv(v, heads // KV)
 
     size = cache["k"].shape[1]
     if cfg.sliding_window:
@@ -151,8 +206,8 @@ def decode_attention(params: Attention, x, cfg, cache, pos: int):
     cache["v"][:, slot] = v[:, 0]
     cache["slot_pos"][slot] = pos
 
-    kr = _repeat_kv(cache["k"], H // KV)
-    vr = _repeat_kv(cache["v"], H // KV)
+    kr = _repeat_kv(cache["k"], H // heads)
+    vr = _repeat_kv(cache["v"], H // heads)
     scores = _softcap(_scores(q, kr, hd), cfg.logit_softcap)
     slot_pos = cache["slot_pos"]
     valid = (slot_pos >= 0) & (slot_pos <= pos)
@@ -160,3 +215,17 @@ def decode_attention(params: Attention, x, cfg, cache, pos: int):
     w = torch.softmax(scores, dim=-1).to(x.dtype)
     y = torch.einsum("bhqk,bkhd->bqhd", w, vr).reshape(B, 1, H * hd)
     return dense(params.o, y), cache
+
+
+def decode_cross_attention(params: Attention, x, cfg, mem_k, mem_v):
+    """Cross-attention of one decode token against a fixed encoder memory:
+    x (B, 1, d); ``mem_k``/``mem_v`` (B, S_enc, KV, hd), no RoPE."""
+    B = x.shape[0]
+    hd = cfg.resolved_head_dim
+    H, KV = cfg.num_heads, cfg.num_kv_heads
+    q = _split_heads(dense(params.q, x), H, hd)
+    kr = _repeat_kv(mem_k, H // KV)
+    vr = _repeat_kv(mem_v, H // KV)
+    w = torch.softmax(_scores(q, kr, hd), dim=-1).to(x.dtype)
+    y = torch.einsum("bhqk,bkhd->bqhd", w, vr).reshape(B, 1, H * hd)
+    return dense(params.o, y)

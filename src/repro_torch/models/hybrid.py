@@ -41,7 +41,7 @@ from repro_torch.models.layers import (
     swiglu,
     unembed,
 )
-from repro_torch.utils.tree import module_views
+from repro_torch.utils.tree import bind_module, module_tree
 
 
 class HybridLayer(nn.Module):
@@ -162,25 +162,7 @@ def param_tree(params: HybridLM) -> dict:
     """The reference's ``init_params`` tree of a model: nested dicts of
     tensors by the reference's names, each ``layers`` leaf the stack of the
     layers' tensors (a copy)."""
-    tree: dict = {}
-    per_layer: dict = {}
-    for name, t in params.named_parameters():
-        head, _, rest = name.partition(".")
-        if head == "layers":
-            i, _, rest = rest.partition(".")
-            per_layer.setdefault(rest, []).append(t.detach())
-            continue
-        _insert(tree, name, t.detach())
-    for rest, ts in per_layer.items():
-        _insert(tree, f"layers.{rest}", torch.stack(ts))
-    return tree
-
-
-def _insert(tree: dict, name: str, leaf) -> None:
-    *path, last = name.split(".")
-    for k in path:
-        tree = tree.setdefault(k, {})
-    tree[last] = leaf
+    return module_tree(params)
 
 
 def bind(cfg, tree) -> HybridLM:
@@ -188,14 +170,7 @@ def bind(cfg, tree) -> HybridLM:
     tree (``layers`` stacked): leaf ``layers.mamba.in_proj.w[i]`` becomes
     ``layers.<i>.mamba.in_proj.w``, sharing storage, so the module computes
     with the tree's values and autograd gives each view its own gradient."""
-    lm = HybridLM(cfg, device="meta")
-    for name, view in module_views(tree):
-        owner, _, leaf = name.rpartition(".")
-        lm.get_submodule(owner).register_parameter(leaf, nn.Parameter(view))
-    left = [n for n, p in lm.named_parameters() if p.is_meta]
-    if left:
-        raise KeyError(f"{cfg.name}: the tree has no leaves for {left}")
-    return lm
+    return bind_module(HybridLM(cfg, device="meta"), tree)
 
 
 def init_cache(params: HybridLM, cfg, batch, max_len):

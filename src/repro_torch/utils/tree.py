@@ -9,8 +9,10 @@ which ``core.spmd.clip_and_noise`` names their noise.
 
 Beyond the reference's names: :func:`tree_map`, :func:`tree_leaves`,
 :func:`tree_flatten_with_path` and :func:`tree_map_with_path` (dotted
-paths such as ``layers.mamba.in_proj.w``) and :func:`module_views`, which names one
-model's leaves as its ``nn.Module`` does.
+paths such as ``layers.mamba.in_proj.w``); :func:`module_views`, which names one
+model's leaves as its ``nn.Module`` does, and its two inverses over a
+model: :func:`module_tree` (a model's reference tree, stacked) and
+:func:`bind_module` (a model laid over a tree's storage).
 """
 
 from __future__ import annotations
@@ -102,3 +104,42 @@ def module_views(tree, stacked=("layers",)) -> list:
         else:
             out.append((name, leaf))
     return out
+
+
+def _insert(tree: dict, name: str, leaf) -> None:
+    *path, last = name.split(".")
+    for k in path:
+        tree = tree.setdefault(k, {})
+    tree[last] = leaf
+
+
+def module_tree(module, stacked=("layers",)) -> dict:
+    """The reference's parameter tree of ``module``: nested dicts of its
+    (detached) parameters by name, the layers of a ``ModuleList`` under a
+    top-level key in ``stacked`` stacked on a leading axis (a copy)."""
+    tree: dict = {}
+    per_layer: dict = {}
+    for name, t in module.named_parameters():
+        head, _, rest = name.partition(".")
+        if head in stacked:
+            _, _, rest = rest.partition(".")
+            per_layer.setdefault(f"{head}.{rest}", []).append(t.detach())
+            continue
+        _insert(tree, name, t.detach())
+    for name, ts in per_layer.items():
+        _insert(tree, name, torch.stack(ts))
+    return tree
+
+
+def bind_module(module, tree, stacked=("layers",)):
+    """``module`` (built on the meta device) with its parameters replaced by
+    views of ``tree``'s leaves (:func:`module_views`), sharing their
+    storage: it computes with the tree's values, and autograd gives each
+    view its own gradient. Raises if the tree leaves a parameter unbound."""
+    for name, view in module_views(tree, stacked):
+        owner, _, leaf = name.rpartition(".")
+        module.get_submodule(owner).register_parameter(leaf, torch.nn.Parameter(view))
+    left = [n for n, p in module.named_parameters() if p.is_meta]
+    if left:
+        raise KeyError(f"the tree has no leaves for {left}")
+    return module

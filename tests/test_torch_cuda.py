@@ -9,9 +9,13 @@ Then checkpoints and serving on the card: resume through the captured
 chunk (into a fresh engine and into the same one), dynamic resume across
 a refresh and an admission, snapshots isolated from later replays,
 ``predict`` on a second thread while the engine trains, and checkpoint
-serving on the card and the CPU. Last, the phase programs captured on the
+serving on the card and the CPU. Then the phase programs captured on the
 card (equal to the eager slot, leaving the state and its generator as they
-were) and the reference kernel bench's shapes.
+were), the reference kernel bench's shapes, the training round, and last
+the transformer families (dense, MoE, enc-dec: a bf16 forward against
+float32, the MoE prefill and its routing against the CPU, an enc-dec
+prefill against its decode loop, a reduced round of each against the
+CPU), which launch no kernel of ours.
 
 Marked ``cuda``: every test skips where there is no CUDA device. Run on a
 GPU machine with ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``
@@ -1423,3 +1427,111 @@ def test_training_round_launches_ssm_chunk_twice_a_layer_and_agent(dev, remat):
     torch.cuda.synchronize()
     L = bundle.cfg.num_layers
     assert ops.launch_counts()["ssm_chunk"] - before == (2 if remat else 1) * L * 4
+
+
+# The transformer families (dense, MoE, VLM, enc-dec): plain PyTorch on the
+# card, no kernel of ours, as in the JAX package.
+
+BF16_TOL = 3e-2  # bf16 keeps about 3 significant digits (tests/test_torch_hybrid.py)
+
+
+def _family_full_width(arch, num_layers, dtype="float32", **kw):
+    return dataclasses.replace(get_config(arch), num_layers=num_layers, dtype=dtype, **kw)
+
+
+def test_llama_bf16_forward_matches_float32_on_the_card(dev):
+    """llama3.2-1b at full width cut to 2 layers: the bf16 model (the
+    float32 weights rounded) against the float32 one, 2 x 128 tokens."""
+    from repro_torch.models import transformer
+
+    f32 = build_model(_family_full_width("llama3.2-1b", 2), device=dev)
+    model = f32.init(0)
+    cfg16 = _family_full_width("llama3.2-1b", 2, dtype="bfloat16")
+    model16 = transformer.TransformerLM(cfg16, device=dev)
+    model16.load_state_dict({k: v.to(torch.bfloat16) for k, v in model.state_dict().items()})
+    tokens = torch.randint(0, cfg16.vocab_size, (2, 128),
+                           generator=torch.Generator(device=dev).manual_seed(3), device=dev)
+    before = ops.launch_counts()
+    with torch.inference_mode():
+        want, _ = transformer.forward(model, tokens, f32.cfg)
+        got, _ = transformer.forward(model16, tokens, cfg16)
+    assert ops.launch_counts() == before
+    assert got.dtype == torch.bfloat16 and bool(torch.isfinite(got).all())
+    _close(got.float(), want, BF16_TOL)
+
+
+@pytest.mark.parametrize("cf", [1.25, 0.5])
+def test_moe_prefill_on_the_card_matches_the_cpu(dev, cf):
+    """granite-moe-3b-a800m at full width, one layer, float32: the prefill
+    of 2 x 256 tokens on the card against the same weights on the CPU
+    (1e-5), and the layer's chosen experts and kept mask equal."""
+    from repro_torch.models import moe
+
+    cfg = _family_full_width("granite-moe-3b-a800m", 1)
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=cf))
+    card, cpu = build_model(cfg, device=dev), build_model(cfg, device="cpu")
+    model = card.init(0)
+    model_cpu = type(model)(cfg, device="cpu")
+    model_cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    tokens = torch.randint(0, cfg.vocab_size, (2, 256),
+                           generator=torch.Generator(device=dev).manual_seed(4), device=dev)
+    got, _ = card.prefill(model, {"tokens": tokens})
+    want, _ = cpu.prefill(model_cpu, {"tokens": tokens.cpu()})
+    _close(got.cpu(), want)
+    x = torch.randn((2, 256, cfg.d_model), generator=torch.Generator(device=dev).manual_seed(5),
+                    device=dev)
+    with torch.inference_mode():
+        r = moe.route(model.layers[0].ffn, moe._groups(x, cfg.moe.group_size)[0], cfg)
+        r_cpu = moe.route(model_cpu.layers[0].ffn, moe._groups(x.cpu(), cfg.moe.group_size)[0],
+                          cfg)
+    assert torch.equal(r.top_idx.cpu(), r_cpu.top_idx) and torch.equal(r.keep.cpu(), r_cpu.keep)
+    if cf == 0.5:  # C = 26 slots an expert for 2,048 choices over 40 experts
+        assert not bool(r.keep.all())
+
+
+def test_encdec_prefill_matches_its_decode_loop_on_the_card(dev):
+    """seamless-m4t-medium at full width cut to 2 + 2 layers, float32: the
+    prefill's last logits against the decode loop over the same 64 tokens
+    (the memory's cross K/V from a prefill of the first token)."""
+    cfg = _family_full_width("seamless-m4t-medium", 2, encoder_layers=2)
+    bundle = build_model(cfg, device=dev)
+    model = bundle.init(0)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 64), generator=gen, device=dev)
+    embeds = torch.randn((2, 16, cfg.d_model), generator=gen, device=dev)
+    logits, _ = bundle.prefill(model, {"tokens": tokens, "embeds": embeds})
+    _, caches = bundle.prefill(model, {"tokens": tokens[:, :1], "embeds": embeds}, max_len=64)
+    for pos in range(1, 64):
+        step, caches = bundle.decode(model, tokens[:, pos:pos + 1], caches, pos)
+    assert bool(torch.isfinite(logits).all())
+    _close(step, logits, MODEL_TOL)
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "granite-moe-3b-a800m", "seamless-m4t-medium"])
+def test_family_training_round_on_the_card_matches_the_cpu(dev, arch):
+    """One reduced float32 DP-off round of each family on the card against
+    the CPU: every agent's parameters and both metrics within 1e-5."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.configs.base import P2PConfig
+    from repro_torch.core import spmd
+    from repro_torch.utils.tree import tree_flatten_with_path, tree_map
+
+    cfg = get_reduced(arch, dtype="float32")
+    p2p = P2PConfig(dp_enabled=False, mu=0.2, neighbor_offsets=(1,), gossip_dtype=None)
+    rng = np.random.default_rng(7)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (4, 2, 17)).astype(np.int32)}
+    if cfg.is_encdec:
+        batch["embeds"] = rng.normal(size=(4, 2, 4, cfg.d_model)).astype(np.float32)
+    on_cpu = build_model(cfg, device="cpu")
+    start = on_cpu.init_agents(4, 0)
+    outs = []
+    for device, params in ((dev, tree_map(lambda x: x.to(dev, copy=True), start)),
+                           ("cpu", start)):
+        bundle = build_model(cfg, device=device)
+        step, _, _ = spmd.make_train_step(bundle, p2p, 4, 2, alpha=0.5)
+        outs.append(step(params, {k: torch.as_tensor(v, device=device) for k, v in batch.items()}))
+    (got, got_m), (want, want_m) = outs
+    for (name, a), (_, b) in zip(tree_flatten_with_path(got), tree_flatten_with_path(want)):
+        _close(a.cpu(), b)
+    for k in ("loss", "grad_norm"):
+        _close(got_m[k].cpu(), want_m[k])

@@ -20,7 +20,9 @@ inside it) and a version lag at the requests' start within
 ``snapshot_every``. The MovieLens
 example is the Table 1 runner, already held against the reference in
 ``tests/test_torch_movielens.py``; here its flags are checked to reach
-the runner.
+the runner. ``decentralized_lm`` trains through the launcher (held
+against the reference in ``tests/test_torch_train.py``) and reports its
+losses.
 """
 
 import importlib.util
@@ -31,9 +33,10 @@ from pathlib import Path
 
 import numpy as np
 
-from repro_torch.examples import (async_p2p_simulation, movielens_recommendation,
-                                  p2p_linear_classification, quickstart, serve_batched,
-                                  sharded_async_simulation, sparse_p2p_scale)
+from repro_torch.examples import (async_p2p_simulation, decentralized_lm,
+                                  movielens_recommendation, p2p_linear_classification,
+                                  quickstart, serve_batched, sharded_async_simulation,
+                                  sparse_p2p_scale)
 
 ROOT = Path(__file__).resolve().parents[1]
 SRC = ROOT / "src"
@@ -168,3 +171,18 @@ def test_movielens_recommendation_reaches_the_runner(monkeypatch):
     assert movielens_recommendation.main(CPU) == {"ok": True}
     assert movielens_recommendation.main(["--full"] + CPU) == {"ok": True}
     assert calls == [dict(fast=True, device="cpu"), dict(fast=False, device="cpu")]
+
+
+def test_decentralized_lm_trains_and_reports_its_losses(tmp_path, monkeypatch, capsys):
+    """Three rounds of the reference example's default (the launcher's
+    ``small`` llama3.2-1b preset, one agent, 2 x 129 tokens, mu 0.5, alpha
+    0.9), DP on, its checkpoint under the working directory."""
+    monkeypatch.chdir(tmp_path)
+    got = decentralized_lm.main(["--steps", "3", "--eps", "1.0"] + CPU)
+    assert got["steps"] == 3 and [r["step"] for r in got["history"]] == [0, 2]
+    assert np.isfinite(got["first_loss"]) and np.isfinite(got["last_loss"])
+    assert got["improved"] == (got["last_loss"] < got["first_loss"])
+    out = capsys.readouterr().out
+    assert f"loss {got['first_loss']:.3f} -> {got['last_loss']:.3f}" in out
+    assert "composed eps over run" in out
+    assert (tmp_path / "results" / "decentralized_lm_ckpt").is_dir()

@@ -50,7 +50,9 @@ def test_every_module_imports_without_jax_or_reference():
             "repro_torch.examples.movielens_recommendation",
             "repro_torch.examples.serve_batched", "repro_torch.utils", "repro_torch.utils.tree",
             "repro_torch.optim", "repro_torch.optim.optimizers", "repro_torch.core.spmd",
-            "repro_torch.launch", "repro_torch.launch.train"} <= set(mods)
+            "repro_torch.launch", "repro_torch.launch.train", "repro_torch.launch.serve",
+            "repro_torch.models.transformer", "repro_torch.models.moe",
+            "repro_torch.models.encdec", "repro_torch.examples.decentralized_lm"} <= set(mods)
     code = textwrap.dedent(
         f"""
         import importlib, sys
@@ -250,6 +252,18 @@ RECORDED_ABSENT = {
     "sim.SimState.key": "`.generator` in place of `.key` / `keys`",
     "sim.ShardedSimState.keys": "`.generator` in place of `.key` / `keys`",
 }
+# The ``init_*`` functions of ``repro.models`` whose port is a module class
+# drawing from a generator, with their deviation's text.
+MODELS_ABSENT = {f"models.{k}": "`init_*` functions are module constructors" for k in (
+    "attention.init_attention", "layers.init_dense", "layers.init_rmsnorm", "layers.init_swiglu",
+    "layers.init_embedding", "moe.init_moe", "ssm.init_mamba2")}
+# The modules of ``repro.models`` and ``repro.launch`` not ported yet, each
+# with the text of the DEVIATIONS.md row naming its ROADMAP item.
+_XLSTM = "`models/xlstm.py` and `models/xlstm_stack.py` wait for ROADMAP A15c-ii"
+_MESH = "`models/sharding.py` and `launch/{dryrun,hillclimb,mesh}.py` wait for ROADMAP A15d"
+MODULES_WAITING = {"models.xlstm": _XLSTM, "models.xlstm_stack": _XLSTM,
+                   "models.sharding": _MESH, "launch.dryrun": _MESH,
+                   "launch.hillclimb": _MESH, "launch.mesh": _MESH}
 # The functions and classes ``repro.core.spmd`` defines that the port's
 # ``core/spmd.py`` leaves out, with their deviation's text.
 SPMD_ABSENT = {
@@ -291,6 +305,31 @@ def test_every_public_name_of_a_done_reference_package_is_ported_or_recorded():
                         (ShardedAsyncEngine, "phase_program"),
                         (ShardedAsyncEngine, "phase_names")):
         assert hasattr(cls, member)
+    # The modules of repro.models and repro.launch: each function and class
+    # a ported module defines is in its port, or recorded; each module not
+    # ported yet waits for its ROADMAP item.
+    import repro.launch
+    import repro.models
+
+    text = (SRC / "DEVIATIONS.md").read_text()
+    for pkg, ref_pkg in (("models", repro.models), ("launch", repro.launch)):
+        for info in pkgutil.iter_modules(ref_pkg.__path__):
+            name = f"{pkg}.{info.name}"
+            if name in MODULES_WAITING:
+                assert not (SRC / pkg / f"{info.name}.py").exists(), name
+                assert MODULES_WAITING[name] in text, name
+                continue
+            ref = importlib.import_module(f"repro.{name}")
+            port = importlib.import_module(f"repro_torch.{name}")
+            defined = {k for k, v in vars(ref).items() if not k.startswith("_")
+                       and (inspect.isfunction(v) or inspect.isclass(v))
+                       and v.__module__ == ref.__name__}
+            missing = {f"{name}.{k}" for k in defined if not hasattr(port, k)}
+            assert missing <= set(MODELS_ABSENT), missing
+            for why in (MODELS_ABSENT[k] for k in missing):
+                assert why in text
+    assert set(MODULES_WAITING) == {"models.xlstm", "models.xlstm_stack", "models.sharding",
+                                    "launch.dryrun", "launch.hillclimb", "launch.mesh"}
 
 
 def test_every_function_of_the_reference_spmd_is_ported_or_recorded():
