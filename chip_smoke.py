@@ -57,7 +57,7 @@ Phases, one line each (any failure ends the run with a non-zero code):
    chunk (a CUDA graph of 16 slots and one of 1 slot); each engine leg is
    also run eagerly, slot by slot (``_eager_slots``), on a state of its
    own from the same start, as a leg of its own. After a warm-up (which
-   captures both graphs) the sixteen legs take turns over 7 timed windows of
+   captures both graphs) the sixteen legs take turns over 5 timed windows of
    200 slots (rounds) each; each rate is the median window's, printed with
    the slowest and fastest, and the fused/unfused and captured/eager
    ratios are taken window by window. Launch counts are reset before and
@@ -98,7 +98,7 @@ Phases, one line each (any failure ends the run with a non-zero code):
 4d. dynamic topology on the same problem, uncut and unfused by the rule:
    ``GraphUpdate(every=400, k=10, candidates=4, gamma=4.0)`` (the refresh
    of ``benchmarks/bench_dynamic_topology.py``: one interior refresh in 800
-   slots) and 1,000 arrivals at slots 100 and 500 from a seeded draw
+   slots) and 1,000 arrivals at slot 100 from a seeded draw
    (``attach_k=4``, a 2-round Eq. 16 warm start), in three legs of 800
    slots through the segment driver ``_drive_dynamic``: ``dynamic``
    (captured), ``dynamic_eager`` (a second engine, eager) and
@@ -137,7 +137,7 @@ Phases, one line each (any failure ends the run with a non-zero code):
    served on the card and on the CPU (predictions within 1e-5);
 6. zamba2-1.2b serving at its full width and depth (38 layers, d_model
    2048, bfloat16, random weights from a seeded generator on the card):
-   4 prompts of 2048 tokens through ``bundle.prefill`` (a warm-up, then 5
+   4 prompts of 2048 tokens through ``bundle.prefill`` (a warm-up, then 3
    timed prefills, each of which must launch ``ssm_chunk`` once per layer,
    38 times; one more traced with torch.profiler: device time by block
    and kernel kind, device idle share), then 64 greedy ``bundle.decode``
@@ -150,7 +150,8 @@ Phases, one line each (any failure ends the run with a non-zero code):
    against gossip ADMM at the reference bench's size (n = p = 100,
    logistic, mu = 0.3, T_cd = 3000, T_admm = 300, seed 0), and Table 1 on
    the MovieLens twin at the size of ``BENCH_summary.json``'s row (150
-   users, 400 items, p = 20, 40 ticks a user, eps 1, 0.5, 0.1). Each
+   users, 400 items, p = 20, 40 ticks a user, eps 1, 0.5, 0.1), through
+   ``python -m repro_torch.examples.movielens_recommendation``'s ``main``. Each
    derived quantity is printed beside the reference's CPU row, with the
    seconds each bench took; the run fails unless CD beats ADMM per
    message, CD beats the local models on accuracy and on RMSE, and every
@@ -184,7 +185,7 @@ Phases, one line each (any failure ends the run with a non-zero code):
    (``RUNNER_KERNELS``); the obs engine's sum of phases over the captured
    chunk's time a slot must lie in [0.85, 1.15], the exported trace
    validate, and the profiled engine equal an unprofiled twin bit for bit
-   after the profile and after 37 more slots. Then every example of
+   after the profile and after 37 more slots. Then every other example of
    ``repro_torch.examples`` at its ``--smoke`` size (else its default),
    with its launches;
 9. the paper's P2P-DP training round (``repro_torch.core.spmd``) on
@@ -198,7 +199,7 @@ Phases, one line each (any failure ends the run with a non-zero code):
    and at the reference launcher's one sequence, m_i = 2, this traffic
    diverges). A warm-up round (every agent's every leaf must
    change; its noise, replayed from the generator, read from its update:
-   the mean |noise| of every agent within 1% of its scale), 4 timed
+   the mean |noise| of every agent within 1% of its scale), 2 timed
    rounds (ms a round, training tokens/s, peak memory),
    each required to launch ``ssm_chunk`` 2 x 38 x 4 = 304 times and to
    give a finite loss and grad_norm; ``eps_step`` and ``noise_scale`` must
@@ -223,12 +224,12 @@ Phases, one line each (any failure ends the run with a non-zero code):
    (a) llama3.2-1b served at its full config (16 layers, d_model 2048,
    32 / 8 heads of 64, d_ff 8192, vocab 128,256 tied): 4 prompts of 2048
    tokens through ``bundle.prefill`` into caches of 2048 + 64 positions (a
-   warm-up, 5 timed, one traced: device ms by block, "attention" and
+   warm-up, 3 timed, one traced: device ms by block, "attention" and
    "ffn", and by kind, the idle share), then 64 greedy decode steps
    continuing the caches (2 more traced); (b) its P2P-DP training round at
    full width and depth with phase 9's traffic and gates (4 agents, 2 x
    2049 tokens each, ring of rolls, alpha 0.9, mu 0.5, remat, DP noise of
-   eps_bar 1 over 6 rounds, m_i = 4096; the noise read from the warm-up
+   eps_bar 1 over 4 rounds, m_i = 4096; the noise read from the warm-up
    round's update, peak memory under 80 GB), a traced round's device ms by
    range, its float32 routes on 2 layers (remat on equal to off, dense and
    sparse gossip against the roll, the DP clip read) and the reduced
@@ -241,7 +242,27 @@ Phases, one line each (any failure ends the run with a non-zero code):
    decode loop (1e-4), its attention chunked at S = 4096 against dense,
    the repeated KV cache against the compact one (1e-5), granite-moe on
    the card against the CPU (1e-5, routing equal);
-11. a JSON line of every ported kernel (launches, error, times, bound),
+11. the recurrent xLSTM family (``models/xlstm.py``, ``xlstm_stack.py``),
+   bfloat16, random weights from seeded generators, no kernel of ours on
+   its path (the launch counts must stay 0 across the phase): (a)
+   xlstm-1.3b served at its full config (48 blocks, 42 mLSTM and 6
+   sLSTM, d_model 2048, 4 heads, mLSTM heads of 1024, 3,426,883,584
+   parameters, checked): 4 prompts of 2048 tokens through
+   ``bundle.prefill`` (a warm-up, 2 timed: the sLSTM's time loop is
+   host-bound), the aten operations of one sLSTM step and of one decode
+   step, one prefill cut to 4 x 512 tokens traced (device ms in "mlstm"
+   and "slstm" by kind, the idle share), then 64 greedy decode steps from
+   ``init_cache`` timed one by one (2 more traced); (b) its P2P-DP
+   training round at full width and depth with phase 9's gates, 2 agents
+   (4 do not fit the card), 2 x 257 tokens each (two mLSTM chunks after
+   the shift), m_i = 512, a traced round's device ms by range and block,
+   the float32 routes on 2 blocks with ``slstm_every=2`` (remat on equal
+   to off, dense and sparse gossip against the roll, the DP clip read) and
+   the reduced rounds; (c) float32 at full width, 2 blocks: the prefill
+   of 2 x 256 tokens (the chunkwise mLSTM) against its own decode loop
+   (the recurrent form, 1e-4), the reduced config on the card against the
+   CPU (1e-5);
+12. a JSON line of every ported kernel (launches, error, times, bound),
    the phases' command seconds (each also printed as a ``[time]`` line
    when its phase ends), then the last line
    ``{"ok": true, "device": {...}}``.
@@ -289,10 +310,10 @@ PROFILE_SLOTS = 16
 # WINDOW_STEPS slots (dense: rounds), the legs taking turns; rates are the
 # median window's, with the slowest and fastest beside it.
 WARM_STEPS = 18  # an eager slot, then a chunk of 16 and a tail slot: both graphs captured
-WINDOWS = 7
+WINDOWS = 5
 WINDOW_STEPS = 200
 # Phase 6: zamba2-1.2b serving (see PERF.md, "Cells").
-ZAMBA = dict(arch="zamba2-1.2b", seed=0, batch=4, prompt=2048, prefills=5, decode_steps=64)
+ZAMBA = dict(arch="zamba2-1.2b", seed=0, batch=4, prompt=2048, prefills=3, decode_steps=64)
 ZAMBA_GATE = dict(batch=2, tokens=256)  # two chunks of 128: the inter-chunk recurrence runs
 DECODE_TRACED = 2  # decode steps traced with torch.profiler
 # max |a - b| of the float32 gates, relative to max(1, max |logit|): 38
@@ -311,7 +332,7 @@ MODEL_TOL = 1e-4
 # the first round turns the weights into noise and the next round's
 # gradient is NaN (PERF.md, Findings).
 TRAIN = dict(arch="zamba2-1.2b", seed=0, agents=4, batch=2, seq=2049, alpha=0.9, mu=0.5,
-             offsets=(1,), gossip="ppermute", eps_bar=1.0, clip=1.0, warmup=1, rounds=4)
+             offsets=(1,), gossip="ppermute", eps_bar=1.0, clip=1.0, warmup=1, rounds=2)
 # Its float32 routes at full width cut to 6 layers (one attention site).
 TRAIN_ROUTES = dict(num_layers=6, agents=4, batch=2, tokens=257)
 # Relative to max(1, max |.|): the kernel route against the einsum route
@@ -332,10 +353,10 @@ CARD_GB = 80.0  # the H100's device memory: a training round's peak must fit it
 # decode steps; chameleon-34b at full width with its depth cut to 4 of 48
 # layers (34 B bf16 parameters leave no room for activations on one card).
 FAMILY_SERVE = (
-    dict(arch="llama3.2-1b", num_layers=None, prefills=5, decode_steps=64),
-    dict(arch="granite-moe-3b-a800m", num_layers=None, prefills=5, decode_steps=64),
+    dict(arch="llama3.2-1b", num_layers=None, prefills=3, decode_steps=64),
+    dict(arch="granite-moe-3b-a800m", num_layers=None, prefills=3, decode_steps=64),
     dict(arch="chameleon-34b", num_layers=4, prefills=1, decode_steps=16),
-    dict(arch="seamless-m4t-medium", num_layers=None, prefills=5, decode_steps=64),
+    dict(arch="seamless-m4t-medium", num_layers=None, prefills=3, decode_steps=64),
 )
 SERVE_TRAFFIC = dict(seed=0, batch=4, prompt=2048)
 # llama3.2-1b's P2P-DP round: phase 9's traffic, agents and constants.
@@ -348,10 +369,26 @@ REPEAT_KV_TOL = 1e-5
 MOE_CPU_TOL = 1e-5
 # The profiler ranges of a transformer's blocks (models/transformer.py).
 BLOCK_RANGES = ("attention", "ffn")
+# Phase 11: the xLSTM family (see PERF.md, "Cells"). Serving: phase 6's 4
+# prompts of 2048 tokens (a warm-up, then `prefills` timed: the sLSTM's time
+# loop is host-bound), one traced prefill cut to `traced_prompt` tokens, and
+# greedy decode steps from init_cache. Training: phase 9's constants with 2
+# agents (4 full-width agents need about 88 GB) of 2 x 257 tokens (two
+# mLSTM chunks after the shift; cut from 2 x 2049 by the sLSTM loop's host
+# time), m_i = 512. Routes and gates: float32 at full width cut to 2 blocks
+# with slstm_every = 2 (one mLSTM, one sLSTM).
+XLSTM_SERVE = dict(arch="xlstm-1.3b", seed=0, batch=4, prompt=2048, prefills=2,
+                   traced_prompt=512, decode_steps=64, params=3_426_883_584)
+XLSTM_TRAIN = dict(TRAIN, arch="xlstm-1.3b", agents=2, seq=257)
+XLSTM_CUT = dict(num_layers=2, slstm_every=2)
+XLSTM_ROUTES = dict(TRAIN_ROUTES, **XLSTM_CUT, agents=2)
+XLSTM_GATE = dict(XLSTM_CUT, batch=2, tokens=256, cpu_tokens=32)
+XLSTM_CPU_TOL = 1e-5
+# The profiler ranges of the xLSTM's blocks (models/xlstm_stack.py).
+XLSTM_RANGES = ("mlstm", "slstm")
 # Phase 7: the paper benches, at the reference's sizes, and the reference's
 # CPU rows (BENCH_summary.json) printed beside the card's.
 FIG1 = dict(n=100, p=100, mu=0.3, T_cd=3000, T_admm=300, seed=0)
-TABLE1 = dict(fast=True, seed=0)  # 150 users, 400 items, p = 20, 40 ticks a user
 REFERENCE_ROWS = {"fig1_cd_vs_admm": "cd_beats_admm_per_message=True",
                   "table1_movielens": "rmse_local=1.490,rmse_cd=1.345",
                   "fig2_privacy_utility": "acc_local=0.791,acc_nonpriv=0.868",
@@ -751,10 +788,17 @@ def ssm_chunk_checks(dev, results) -> None:
     results["ssm_chunk"] = results["ssm_chunk_prefill"]  # the main path's shape
 
 
+# A Chrome trace file is written beside a trace's analysis only up to this
+# many profiler events: writing and parsing one of 10^6 events (a training
+# round of the xLSTM's time loops, 2.7 M) takes tens of seconds, so larger
+# traces are read from the profiler's results alone.
+TRACE_FILE_EVENTS = 200_000
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
 def _device_events(events) -> list:
-    """The device's events of a Chrome trace: kernels, copies and fills."""
-    return [e for e in events
-            if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    """The device's events of a trace: kernels, copies and fills."""
+    return [e for e in events if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS]
 
 
 # The __global__ functions of src/repro_torch/csrc, as the trace names them.
@@ -858,6 +902,47 @@ def timed_windows(legs: dict, launches: dict) -> dict:
 def spread(values) -> dict:
     """The median of ``values`` with its smallest and largest."""
     return dict(median=statistics.median(values), min=min(values), max=max(values))
+
+
+def rates(ms_key: str, rate_key: str, times, tokens: int) -> dict:
+    """The median, fastest and slowest of ``times`` (ms) under ``ms_key``,
+    and the tokens/s each gives at ``tokens`` a call under ``rate_key``."""
+    ms = spread(times)
+    return {ms_key: ms["median"], f"{ms_key}_min": ms["min"], f"{ms_key}_max": ms["max"],
+            rate_key: tokens / ms["median"] * 1e3, f"{rate_key}_min": tokens / ms["max"] * 1e3,
+            f"{rate_key}_max": tokens / ms["min"] * 1e3}
+
+
+def timed_calls(fn, n: int):
+    """``n`` calls of ``fn()``, each timed alone (host clock around a
+    synchronized call): the last result and each call's milliseconds."""
+    import torch
+
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return out, times
+
+
+def greedy_decode(bundle, model, token, caches, positions):
+    """Greedy decode steps from ``token`` (B, 1) at ``positions``, each
+    timed alone (host clock around a synchronized step): the last step's
+    logits and each step's milliseconds."""
+    import torch
+
+    step_ms = []
+    for pos in positions:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = bundle.decode(model, token, caches, pos)
+        token = logits[:, -1].argmax(dim=-1, keepdim=True)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    return logits, step_ms
 
 
 # The kernel each path of phase 4 must launch in every window (dp_clip_noise
@@ -1103,9 +1188,10 @@ def dp_clip_noise_leg(dev, launches: dict) -> dict:
 # The dynamic legs (see PERF.md, "Cells"): the 500k problem with the
 # refresh parameters of benchmarks/bench_dynamic_topology.py every 400
 # slots (one interior refresh in 800: the end never refreshes) and 1,000
-# arrivals at slots 100 and 500 from a seeded draw.
+# arrivals at slot 100 from a seeded draw (one admission: a second one
+# would repeat the admission's timed leg).
 DYN_GU = dict(every=400, k=10, candidates=4, gamma=4.0, seed=0)
-DYN_ARRIVALS = dict(slots=(100, 500), per_slot=1000, attach_k=4, warm_rounds=2, seed=0)
+DYN_ARRIVALS = dict(slots=(100,), per_slot=1000, attach_k=4, warm_rounds=2, seed=0)
 DYN_SLOTS = 800
 DYN_WINDOW = 100
 DYN_LEGS = ("dynamic", "dynamic_eager", "sharded_dynamic")
@@ -1865,9 +1951,54 @@ def _kernel_kind(name: str) -> str:
     return "softmax" if "softmax" in low else "other"
 
 
+def _device_cat(e):
+    """A device event's Chrome category (None for the device side of a
+    ``record_function`` range, which is no work of the card's)."""
+    if hasattr(e, "activity_type"):
+        cat = e.activity_type()
+        return cat if cat in DEVICE_CATS else None
+    if e.is_user_annotation():
+        return None
+    name = e.name()
+    return "gpu_memcpy" if name.startswith("Memcpy") else (
+        "gpu_memset" if name.startswith("Memset") else "kernel")
+
+
+def profile_events(raw) -> list:
+    """The events the reports read of a finished profile's kineto events
+    ``raw``, as dicts with a Chrome trace's fields (``ts`` and ``dur`` in us):
+    the device's kernels, copies and fills, the host's launches of them
+    (``cat`` "cuda_runtime"), each with ``args.correlation`` naming the
+    host operation that launched it, and the ``record_function`` ranges
+    (``cat`` "user_annotation"), read from the profiler's own results."""
+    from torch.autograd import DeviceType
+
+    base = min((e.start_ns() for e in raw), default=0)
+    out = []
+    for e in raw:
+        if e.device_type() == DeviceType.CPU:
+            link = e.linked_correlation_id()
+            if link > 0:
+                cat, args = "cuda_runtime", {"correlation": link}
+            elif e.is_user_annotation():
+                cat, args = "user_annotation", {}
+            else:
+                continue
+        else:
+            cat = _device_cat(e)
+            if cat is None:
+                continue
+            args = {"correlation": e.linked_correlation_id()}
+        out.append({"ph": "X", "cat": cat, "name": e.name(), "ts": (e.start_ns() - base) / 1e3,
+                    "dur": e.duration_ns() / 1e3, "args": args})
+    return out
+
+
 def traced(fn, trace: Path):
-    """Run ``fn()`` under torch.profiler (host and device), write the Chrome
-    trace to ``trace``; return its events and the wall milliseconds."""
+    """Run ``fn()`` under torch.profiler (host and device); return its
+    events (:func:`profile_events`) and the wall milliseconds. The Chrome
+    trace is written to ``trace`` when the profile holds at most
+    ``TRACE_FILE_EVENTS`` events."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1876,10 +2007,18 @@ def traced(fn, trace: Path):
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    trace.parent.mkdir(parents=True, exist_ok=True)
-    prof.export_chrome_trace(str(trace))
-    return json.loads(trace.read_text()).get("traceEvents", []), wall_ms
+        t1 = time.perf_counter()
+    t2 = time.perf_counter()
+    raw = prof.profiler.kineto_results.events()
+    events = profile_events(raw)
+    t3 = time.perf_counter()
+    if len(raw) <= TRACE_FILE_EVENTS:
+        trace.parent.mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(str(trace))
+    else:
+        log(f"[trace] {len(raw)} profiler events, {trace.name} not written: the profiler's "
+            f"stop {t2 - t1:.1f} s, reading its events {t3 - t2:.1f} s")
+    return events, (t1 - t0) * 1e3
 
 
 def profile_prefill(bundle, model, batch, out_dir: Path, ms_untraced: float, label="zamba2",
@@ -1979,16 +2118,12 @@ def zamba2_serve(dev, launches: dict) -> dict:
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     if logits.shape != (B, 1, cfg.padded_vocab) or not bool(torch.isfinite(logits).all()):
         raise SystemExit(f"zamba2 prefill: logits {tuple(logits.shape)} or not finite")
-    ms = spread(times)
-    out = dict(params=n_params, batch=B, prompt=S, prefill_ms=ms["median"],
-               prefill_ms_min=ms["min"], prefill_ms_max=ms["max"],
-               prefill_tokens_per_s=B * S / ms["median"] * 1e3,
-               prefill_tokens_per_s_min=B * S / ms["max"] * 1e3,
-               prefill_tokens_per_s_max=B * S / ms["min"] * 1e3,
+    out = dict(params=n_params, batch=B, prompt=S,
+               **rates("prefill_ms", "prefill_tokens_per_s", times, B * S),
                ssm_chunk_launches_per_prefill=cfg.num_layers, prefill_peak_gb=peak_gb)
     log(f"[6] {cfg.name} prefill {B} x {S}: {fmt(out)}")
     out["prefill_trace"] = profile_prefill(bundle, model, batch, _build.build_dir() / "traces",
-                                           ms["median"])
+                                           out["prefill_ms"])
 
     first = logits[:, -1].argmax(dim=-1, keepdim=True)  # (B, 1) greedy tokens
     # Warm-up and traced steps on a cache of their own: 2 warm-up steps,
@@ -2010,31 +2145,20 @@ def zamba2_serve(dev, launches: dict) -> dict:
                         device_ops_per_step=len(dev_events) / DECODE_TRACED)
     del warm
     steps = z["decode_steps"]
-    caches = bundle.init_cache(model, B, steps + 1)
-    token, step_ms = first, []
-    for pos in range(steps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        step_logits, caches = bundle.decode(model, token, caches, pos)
-        token = step_logits[:, -1].argmax(dim=-1, keepdim=True)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
+    step_logits, step_ms = greedy_decode(bundle, model, first,
+                                         bundle.init_cache(model, B, steps + 1), range(steps))
     if not bool(torch.isfinite(step_logits).all()):
         raise SystemExit("zamba2 decode: logits not finite")
-    ms = spread(step_ms)
+    out.update(decode_steps=steps, **rates("decode_ms_per_step", "decode_tokens_per_s", step_ms, B))
     decode_trace["idle_share_traced"] = (1.0 - decode_trace["device_busy_ms_per_step"]
                                          / decode_trace["traced_ms_per_step"])
-    decode_trace["idle_share_untraced"] = 1.0 - decode_trace["device_busy_ms_per_step"] / ms["median"]
-    out.update(decode_steps=steps, decode_ms_per_step=ms["median"],
-               decode_ms_per_step_min=ms["min"], decode_ms_per_step_max=ms["max"],
-               decode_tokens_per_s=B / ms["median"] * 1e3,
-               decode_tokens_per_s_min=B / ms["max"] * 1e3,
-               decode_tokens_per_s_max=B / ms["min"] * 1e3)
+    decode_trace["idle_share_untraced"] = (1.0 - decode_trace["device_busy_ms_per_step"]
+                                           / out["decode_ms_per_step"])
     log(f"[6] {cfg.name} decode {B} x {steps} greedy steps: "
         f"{fmt({k: v for k, v in out.items() if k.startswith('decode')})}")
     log(f"[6p] zamba2 decode, {DECODE_TRACED} traced steps: {fmt(decode_trace)}")
     out["decode_trace"] = decode_trace
-    del model, bundle, caches, logits, step_logits
+    del model, bundle, logits, step_logits
     torch.cuda.empty_cache()
     out["gates"] = zamba2_gates(cfg, dev, gen)
     return out
@@ -2083,7 +2207,8 @@ def paper_benches(dev) -> dict:
     kernels. Fails unless CD beats ADMM per message, CD beats the local
     models (accuracy, RMSE), every private RMSE is finite, and the gates of
     :func:`privacy_benches` hold."""
-    from repro_torch.bench import cd_vs_admm, movielens
+    from repro_torch.bench import cd_vs_admm
+    from repro_torch.examples import movielens_recommendation
     from repro_torch.kernels import ops
 
     ops.reset_launch_counts()
@@ -2094,7 +2219,10 @@ def paper_benches(dev) -> dict:
                                 "elapsed_s")}
     log(f"[7] fig1_cd_vs_admm on the card: {fmt(fig1)}; "
         f"reference CPU row: {REFERENCE_ROWS['fig1_cd_vs_admm']}")
-    tab = movielens.run(verbose=False, device=dev, **TABLE1)
+    # Table 1 through its example, whose default is the runner's fast size
+    # (150 users, 400 items, p = 20, 40 ticks a user, seed 0): phase 8 does
+    # not run the example a second time.
+    tab = movielens_recommendation.main(["--device", str(dev)])
     table1 = {k: v for k, v in tab.items() if k not in ("name", "device", "derived")}
     log(f"[7] table1_movielens on the card: {fmt(table1)}; "
         f"reference CPU row: {REFERENCE_ROWS['table1_movielens']} "
@@ -2594,9 +2722,10 @@ RUNNER_KERNELS = {"kernels": ("dp_clip_noise", "graph_mix", "ssm_chunk", "fused_
                   "async_engine": ("fused_row_update",), "sharded_engine": ("fused_row_update",),
                   "obs": ("fused_row_update",)}
 PATH_KERNEL.update({f"bench_{k}": v for k, v in RUNNER_KERNELS.items()})
+# Every example but movielens_recommendation, which is phase 7's Table 1 run.
 EXAMPLES = (("quickstart", ()), ("p2p_linear_classification", ()), ("sparse_p2p_scale", ()),
             ("async_p2p_simulation", ()), ("sharded_async_simulation", ("--smoke",)),
-            ("movielens_recommendation", ()), ("serve_batched", ("--smoke",)))
+            ("serve_batched", ("--smoke",)))
 PHASE_COVERAGE = (0.85, 1.15)  # obs_phase_total over the separately timed full slot
 TWIN_SLOTS = CAPTURE_PARITY_SLOTS  # slots both the profiled engine and its twin advance after
 
@@ -2809,30 +2938,46 @@ def _clone_tree(tree):
 
 
 def train_trace(step, params, batch, gen, ms_untraced: float, label="zamba2",
-                tag="9") -> dict:
+                tag="9", ranges=TRAIN_RANGES) -> dict:
     """Trace one training round with torch.profiler: the device idle share
     (traced, and against the untraced round ``ms_untraced``) and the device
-    ms of each kernel by the innermost of ``TRAIN_RANGES`` open when the
-    host launched it (the autograd thread's launches included), then the
-    round's split: ``ssm_chunk`` (the kernel: forward and remat recompute),
-    the backward's plain autograd of it, the GEMMs elsewhere, the DP
-    perturbation, gossip and update, the gradient copy, and the rest."""
+    ms of each kernel by the innermost of ``ranges`` (innermost first) open
+    when the host launched it (the autograd thread's launches included),
+    then the round's split: ``ssm_chunk`` (the kernel: forward and remat
+    recompute), the backward's plain autograd of it, the GEMMs elsewhere,
+    the DP perturbation, gossip and update, the gradient copy, and the
+    rest; and the seconds the profiler took to stop and to give its events
+    (``trace_stop_read_s``), and the analysis's."""
     from repro_torch.kernels import _build
 
     trace = _build.build_dir() / "traces" / f"trace_{label}_train_round.json"
+    t0 = time.perf_counter()
     events, wall_ms = traced(lambda: step(params, batch, gen), trace)
-    spans = {name: sorted((e["ts"], e["ts"] + e["dur"]) for e in events
-                          if e.get("cat") == "user_annotation" and e.get("name") == name)
-             for name in TRAIN_RANGES}
+    t1 = time.perf_counter()
+    # One pass over the trace (a round of the xLSTM's time loops is about
+    # 10^6 events): the ranges, the launches by correlation id, the
+    # device's events.
+    spans = {name: [] for name in ranges}
+    launched, device = {}, []
+    for e in events:
+        cat = e.get("cat", "")
+        if cat == "user_annotation":
+            if e.get("name") in spans:
+                spans[e["name"]].append((e["ts"], e["ts"] + e["dur"]))
+        elif cat in DEVICE_CATS:
+            if e.get("ph") == "X":
+                device.append(e)
+        elif cat.startswith("cuda_") and "correlation" in e.get("args", {}):
+            launched[e["args"]["correlation"]] = e["ts"]
+    for iv in spans.values():
+        iv.sort()
     starts = {name: [a for a, _ in iv] for name, iv in spans.items()}
-    launched = {e["args"]["correlation"]: e["ts"] for e in events
-                if e.get("cat", "").startswith("cuda_") and "correlation" in e.get("args", {})}
 
     def where(e) -> str:
         t = launched.get(e.get("args", {}).get("correlation"))
         if t is None:
             return "outside"
-        for name in TRAIN_RANGES:
+        for name in ranges:
             i = bisect.bisect_right(starts[name], t) - 1
             if i >= 0 and t <= spans[name][i][1]:
                 return name
@@ -2841,7 +2986,7 @@ def train_trace(step, params, batch, gen, ms_untraced: float, label="zamba2",
     by_key: dict = {}
     split = dict(ssm_chunk_ms=0.0, ssm_backward_plain_ms=0.0, gemm_ms=0.0,
                  dp_gossip_update_ms=0.0, grad_copy_ms=0.0, other_ms=0.0)
-    for e in _device_events(events):
+    for e in device:
         rng, kind, ms = where(e), _kernel_kind(e["name"]), float(e["dur"]) / 1e3
         by_key[f"{rng}/{kind}"] = by_key.get(f"{rng}/{kind}", 0.0) + ms
         if kind == "ssm_chunk":
@@ -2860,10 +3005,13 @@ def train_trace(step, params, batch, gen, ms_untraced: float, label="zamba2",
     if busy <= 0:
         raise SystemExit(f"{label} training round: the profiler saw no device time")
     out = dict(traced_ms=wall_ms, device_busy_ms=busy, idle_share_traced=1.0 - busy / wall_ms,
-               idle_share_untraced=1.0 - busy / ms_untraced, **split)
+               idle_share_untraced=1.0 - busy / ms_untraced,
+               device_ops=len(device), trace_events=len(events),
+               trace_stop_read_s=t1 - t0 - wall_ms / 1e3,
+               trace_analysis_s=time.perf_counter() - t1, **split)
     out["ms_by_range"] = {name: sum(ms for key, ms in by_key.items()
                                     if key.startswith(f"{name}/"))
-                          for name in TRAIN_RANGES + ("outside",)}
+                          for name in ranges + ("outside",)}
     log(f"[{tag}p] {label} training round traced: {fmt(out)} trace={trace}")
     log(f"[{tag}p]   device ms by range: {fmt(out['ms_by_range'])}")
     for key, ms in sorted(by_key.items(), key=lambda kv: -kv[1])[:14]:
@@ -3020,7 +3168,8 @@ def _launched_since(before: dict) -> dict:
     return {k: v - before.get(k, 0) for k, v in ops.launch_counts().items()}
 
 
-def p2p_train(t: dict, r: dict, dev, launches: dict, card: str, expect: dict, tag: str) -> dict:
+def p2p_train(t: dict, r: dict, dev, launches: dict, card: str, expect: dict, tag: str,
+              ranges=TRAIN_RANGES) -> dict:
     """The paper's P2P-DP training round on ``t["arch"]`` at its full width
     and depth, bfloat16, ``t["agents"]`` agents stacked on the card (random
     weights from seeded generators), through ``core.spmd.make_train_step``
@@ -3033,7 +3182,7 @@ def p2p_train(t: dict, r: dict, dev, launches: dict, card: str, expect: dict, ta
     times (``{}``: none). Every round's loss and grad_norm must be
     finite, every agent's every leaf must change in the warm-up round, and
     its noise is read from its update (:func:`train_noise_read`). Then one
-    traced round (:func:`train_trace`), the float32 routes with the DP clip
+    traced round (:func:`train_trace` over ``ranges``), the float32 routes with the DP clip
     read from a round (:func:`train_routes`) and the reduced rounds
     (:func:`train_reduced`). The headline numbers print once more beside
     ``card``, the name and power limit ``nvidia-smi`` gave."""
@@ -3132,7 +3281,7 @@ def p2p_train(t: dict, r: dict, dev, launches: dict, card: str, expect: dict, ta
         raise SystemExit(f"{cfg.name} training: peak memory {peak_gb:.3f} GB")
     b = batch()
     before = ops.launch_counts()
-    out["trace"] = train_trace(step, params, b, gen, ms["median"], label, tag)
+    out["trace"] = train_trace(step, params, b, gen, ms["median"], label, tag, ranges)
     counts = _launched_since(before)
     for k, v in counts.items():
         launches[k] = launches.get(k, 0) + v
@@ -3149,9 +3298,20 @@ def p2p_train(t: dict, r: dict, dev, launches: dict, card: str, expect: dict, ta
     return out
 
 
+def _cut(cfg, num_layers: int, slstm_every=None):
+    """A float32 copy of ``cfg`` cut to ``num_layers`` layers (an xLSTM's
+    sLSTM period set to ``slstm_every``, so the cut keeps a block of each
+    type)."""
+    cut = dataclasses.replace(cfg, num_layers=num_layers, dtype="float32")
+    if slstm_every is not None:
+        cut = dataclasses.replace(cut, xlstm=dataclasses.replace(cfg.xlstm,
+                                                                 slstm_every=slstm_every))
+    return cut
+
+
 def train_routes(cfg, dev, n_rounds: int, t=TRAIN, r=TRAIN_ROUTES, tag="9") -> dict:
     """The training round's float32 routes at full width cut to
-    ``r["num_layers"]`` layers, A agents, DP off, one round each from the
+    ``r["num_layers"]`` layers (:func:`_cut`), A agents, DP off, one round each from the
     same agents and tokens: for the hybrid, the kernel route
     (``use_kernel=None``) against the reference's einsum route
     (``use_kernel=False``): the loss within 1e-5 and every agent's new
@@ -3170,7 +3330,7 @@ def train_routes(cfg, dev, n_rounds: int, t=TRAIN, r=TRAIN_ROUTES, tag="9") -> d
     from repro_torch.models.registry import build_model
     from repro_torch.utils.tree import tree_flatten_with_path
 
-    cfg32 = dataclasses.replace(cfg, num_layers=r["num_layers"], dtype="float32")
+    cfg32 = _cut(cfg, r["num_layers"], r.get("slstm_every"))
     kernel = build_model(cfg32, device=dev)
     A, B = r["agents"], r["batch"]
     start = kernel.init_agents(A, t["seed"])
@@ -3358,24 +3518,15 @@ def family_serve(spec: dict, dev) -> dict:
     _, warm_caches = bundle.prefill(model, batch, max_len=max_len)  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    times = []
-    for _ in range(spec["prefills"]):
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        logits, caches = bundle.prefill(model, batch, max_len=max_len)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t1) * 1e3)
+    (logits, caches), times = timed_calls(
+        lambda: bundle.prefill(model, batch, max_len=max_len), spec["prefills"])
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     if logits.shape != (B, 1, cfg.padded_vocab) or not bool(torch.isfinite(logits).all()):
         raise SystemExit(f"{label} prefill: logits {tuple(logits.shape)} or not finite")
-    ms = spread(times)
     out = dict(params=n_params, layers=cfg.num_layers, batch=B, prompt=S, cache_positions=max_len,
-               prefill_ms=ms["median"], prefill_ms_min=ms["min"], prefill_ms_max=ms["max"],
-               prefill_tokens_per_s=B * S / ms["median"] * 1e3,
-               prefill_tokens_per_s_min=B * S / ms["max"] * 1e3,
-               prefill_tokens_per_s_max=B * S / ms["min"] * 1e3, prefill_peak_gb=peak_gb)
+               **rates("prefill_ms", "prefill_tokens_per_s", times, B * S), prefill_peak_gb=peak_gb)
     log(f"[10] {label} prefill {B} x {S} ({spec['prefills']} timed): {fmt(out)}")
-    trace = profile_prefill(bundle, model, batch, _build.build_dir() / "traces", ms["median"],
+    trace = profile_prefill(bundle, model, batch, _build.build_dir() / "traces", out["prefill_ms"],
                             label=label, blocks=BLOCK_RANGES, tag="10", max_len=max_len)
     split = trace["ms_by_block_and_kind"]
     trace["attention_ms"] = sum(v for k, v in split.items() if k.startswith("attention/"))
@@ -3397,27 +3548,14 @@ def family_serve(spec: dict, dev) -> dict:
         for pos in range(S + 2, S + 2 + DECODE_TRACED):
             bundle.decode(model, first, warm_caches, pos)
 
-    step_ms = []
-    token = first
-    for pos in range(S, S + steps):
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        step_logits, caches = bundle.decode(model, token, caches, pos)
-        token = step_logits[:, -1].argmax(dim=-1, keepdim=True)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t1) * 1e3)
+    step_logits, step_ms = greedy_decode(bundle, model, first, caches, range(S, S + steps))
     if step_logits.shape != (B, 1, cfg.padded_vocab) or not bool(torch.isfinite(step_logits).all()):
         raise SystemExit(f"{label} decode: logits {tuple(step_logits.shape)} or not finite")
-    ms = spread(step_ms)
+    out.update(decode_steps=steps, **rates("decode_ms_per_step", "decode_tokens_per_s", step_ms, B))
     events, wall_ms = traced(traced_steps, _build.build_dir() / "traces"
                              / f"trace_{label}_decode.json")
     out["decode_trace"] = report_trace(f"{label} decode", events, wall_ms, DECODE_TRACED, "step",
-                                       ms["median"])
-    out.update(decode_steps=steps, decode_ms_per_step=ms["median"],
-               decode_ms_per_step_min=ms["min"], decode_ms_per_step_max=ms["max"],
-               decode_tokens_per_s=B / ms["median"] * 1e3,
-               decode_tokens_per_s_min=B / ms["max"] * 1e3,
-               decode_tokens_per_s_max=B / ms["min"] * 1e3)
+                                       out["decode_ms_per_step"])
     log(f"[10] {label} decode {B} x {steps} greedy steps from position {S}: "
         f"{fmt({k: v for k, v in out.items() if k.startswith('decode') and k != 'decode_trace'})}")
     del warm_caches
@@ -3574,6 +3712,198 @@ def transformer_families(dev, launches: dict, card: str) -> dict:
     log(f"[10] kernel launches across phase 10: {counts} (none may launch)")
     if counts:
         raise SystemExit(f"phase 10 launched kernels of ours: {counts}")
+    return out
+
+
+def aten_ops(fn) -> dict:
+    """The aten operations ``fn()`` dispatches on the host: those called
+    from Python (``top``) and all, the nested ones included (a CPU-only
+    profile; the card's work is not waited for)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+    aten = [e for e in prof.events() if e.name.startswith("aten::")]
+    top = [e for e in aten if e.cpu_parent is None or not e.cpu_parent.name.startswith("aten::")]
+    return dict(top=len(top), all=len(aten))
+
+
+def xlstm_serve(dev) -> dict:
+    """Phase 11 (a): serve xlstm-1.3b at its full width and depth (48
+    blocks, 42 mLSTM and 6 sLSTM, d_model 2048), bfloat16, random weights
+    from a seeded generator on the card. ``XLSTM_SERVE``'s prompts through
+    ``bundle.prefill`` (the forward's last-token logits): a warm-up, then
+    ``prefills`` timed (host clock around a synchronized call). The aten
+    operations of one sLSTM time step and of one decode step. One prefill
+    cut to ``traced_prompt`` tokens, timed, then traced (device ms by
+    block, "mlstm" and "slstm", and kind; the idle share). Then greedy
+    decode steps from ``init_cache`` (the reference's recurrent serving):
+    2 warm-up and ``DECODE_TRACED`` traced on a cache of their own, then
+    ``decode_steps`` timed one by one. Fails on a parameter count, a
+    shape or a non-finite logit."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.models import xlstm
+    from repro_torch.models.registry import build_model
+
+    z = XLSTM_SERVE
+    cfg = get_config(z["arch"])
+    t0 = time.perf_counter()
+    bundle = build_model(cfg, device=dev)
+    model = bundle.init(z["seed"])
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[11] set-up {cfg.name}: blocks={cfg.num_layers} (mLSTM {len(model.mlstm)}, sLSTM "
+        f"{len(model.slstm)}: one every {cfg.xlstm.slstm_every}) d_model={cfg.d_model} "
+        f"heads={cfg.num_heads} proj_factor={cfg.xlstm.proj_factor} chunk={cfg.xlstm.chunk} "
+        f"vocab={cfg.padded_vocab} tied={cfg.tie_embeddings} dtype={cfg.dtype} params={n_params} "
+        f"in {time.perf_counter() - t0:.1f} s")
+    if n_params != z["params"]:
+        raise SystemExit(f"{cfg.name}: {n_params} parameters, not {z['params']}")
+    gen = torch.Generator(device=dev).manual_seed(z["seed"] + 1)
+    B, S = z["batch"], z["prompt"]
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device=dev)}
+    bundle.prefill(model, batch)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    (logits, _), times = timed_calls(lambda: bundle.prefill(model, batch), z["prefills"])
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    if logits.shape != (B, 1, cfg.padded_vocab) or not bool(torch.isfinite(logits).all()):
+        raise SystemExit(f"{cfg.name} prefill: logits {tuple(logits.shape)} or not finite")
+    out = dict(params=n_params, batch=B, prompt=S,
+               **rates("prefill_ms", "prefill_tokens_per_s", times, B * S),
+               slstm_steps_per_prefill=len(model.slstm) * S, prefill_peak_gb=peak_gb)
+    log(f"[11] {cfg.name} prefill {B} x {S} ({z['prefills']} timed): {fmt(out)}")
+
+    # The aten operations of one sLSTM time step (the loop's body, its
+    # inputs hoisted) and of one decode step.
+    block = model.slstm[0]
+    with torch.inference_mode():
+        r32, bias, one = xlstm._step_constants(block, dev)
+        xt = xlstm._heads_first(torch.zeros((B, 4 * cfg.d_model), device=dev), cfg)
+        state = xlstm._to_step(xlstm.init_slstm_cache(cfg, B, dev))
+        out["host_ops_slstm_step"] = aten_ops(lambda: xlstm._slstm_step(r32, bias, xt, state,
+                                                                         one))
+    first = logits[:, -1].argmax(dim=-1, keepdim=True)  # (B, 1) greedy tokens
+    warm = bundle.init_cache(model, B, 0)
+    out["host_ops_decode_step"] = aten_ops(lambda: bundle.decode(model, first, warm, 0))
+    torch.cuda.synchronize()
+    log(f"[11] host aten operations: one sLSTM time step {fmt(out['host_ops_slstm_step'])}, "
+        f"one decode step {fmt(out['host_ops_decode_step'])}")
+
+    short = {"tokens": batch["tokens"][:, :z["traced_prompt"]]}
+    _, (short_ms,) = timed_calls(lambda: bundle.prefill(model, short), 1)
+    trace = profile_prefill(bundle, model, short, _build.build_dir() / "traces", short_ms,
+                            label="xlstm", blocks=XLSTM_RANGES, tag="11")
+    trace.update(batch=B, prompt=z["traced_prompt"], untraced_ms=short_ms)
+    for name in XLSTM_RANGES:
+        trace[f"{name}_ms"] = sum(v for k, v in trace["ms_by_block_and_kind"].items()
+                                  if k.startswith(f"{name}/"))
+    log(f"[11p] xlstm prefill {B} x {z['traced_prompt']} untraced {short_ms:.6g} ms; device ms "
+        f"in mlstm {trace['mlstm_ms']:.6g}, in slstm {trace['slstm_ms']:.6g}")
+    out["prefill_trace"] = trace
+
+    for pos in range(1, 2):
+        _, warm = bundle.decode(model, first, warm, pos)
+
+    def traced_steps():
+        state = warm
+        for pos in range(2, 2 + DECODE_TRACED):
+            _, state = bundle.decode(model, first, state, pos)
+
+    steps = z["decode_steps"]
+    step_logits, step_ms = greedy_decode(bundle, model, first, bundle.init_cache(model, B, steps),
+                                         range(steps))
+    if step_logits.shape != (B, 1, cfg.padded_vocab) or not bool(torch.isfinite(step_logits).all()):
+        raise SystemExit(f"{cfg.name} decode: logits {tuple(step_logits.shape)} or not finite")
+    out.update(decode_steps=steps, **rates("decode_ms_per_step", "decode_tokens_per_s", step_ms, B))
+    events, wall_ms = traced(traced_steps,
+                             _build.build_dir() / "traces" / "trace_xlstm_decode.json")
+    out["decode_trace"] = report_trace(f"{cfg.name} decode", events, wall_ms, DECODE_TRACED,
+                                       "step", out["decode_ms_per_step"])
+    log(f"[11] {cfg.name} decode {B} x {steps} greedy steps from init_cache: "
+        f"{fmt({k: v for k, v in out.items() if k.startswith('decode') and k != 'decode_trace'})}")
+    del model, bundle, warm, logits, step_logits, batch, short, r32, bias, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def xlstm_gates(dev) -> dict:
+    """Phase 11 (c)'s serving routes, float32, TF32 off: xlstm-1.3b at full
+    width cut to 2 blocks with ``slstm_every=2`` (one mLSTM, one sLSTM):
+    the prefill of 2 x 256 tokens (two chunks: the chunkwise mLSTM with its
+    inter-chunk scan) against the same tokens fed one at a time through
+    decode (the recurrent form), ``MODEL_TOL``; the reduced config's
+    prefill on the card against the same weights on the CPU, 1e-5. Both
+    relative to max(1, max |logit|)."""
+    import torch
+
+    from repro_torch.configs import get_config, get_reduced
+    from repro_torch.models.registry import build_model
+
+    g = XLSTM_GATE
+    cfg = _cut(get_config(XLSTM_SERVE["arch"]), g["num_layers"], g["slstm_every"])
+    bundle = build_model(cfg, device=dev)
+    model = bundle.init(XLSTM_SERVE["seed"])
+    gen = torch.Generator(device=dev).manual_seed(11)
+    B, S = g["batch"], g["tokens"]
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device=dev)
+    prefill, _ = bundle.prefill(model, {"tokens": tokens})
+    caches = bundle.init_cache(model, B, S)
+    for pos in range(S):
+        step, caches = bundle.decode(model, tokens[:, pos:pos + 1], caches, pos)
+    out = dict(blocks=cfg.num_layers, mlstm=len(model.mlstm), slstm=len(model.slstm), batch=B,
+               tokens=S, prefill_vs_decode=_rel_max(step, prefill),
+               max_abs_logit=float(prefill.abs().max()))
+    del model, bundle, caches
+
+    small = get_reduced(XLSTM_SERVE["arch"], dtype="float32")
+    card, on_cpu = build_model(small, device=dev), build_model(small, device="cpu")
+    model = card.init(XLSTM_SERVE["seed"])
+    model_cpu = type(model)(small, device="cpu")
+    model_cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    tokens = torch.randint(0, small.vocab_size, (B, g["cpu_tokens"]), generator=gen, device=dev)
+    got, _ = card.prefill(model, {"tokens": tokens})
+    want, _ = on_cpu.prefill(model_cpu, {"tokens": tokens.cpu()})
+    out.update(reduced_card_vs_cpu=_rel_max(got, want), reduced_tokens=g["cpu_tokens"])
+    log(f"[11] float32 routes: {fmt(out)} (tol prefill/decode {MODEL_TOL:.0e}, card/CPU "
+        f"{XLSTM_CPU_TOL:.0e})")
+    if not (out["prefill_vs_decode"] <= MODEL_TOL and out["reduced_card_vs_cpu"] <= XLSTM_CPU_TOL
+            and all(bool(torch.isfinite(t).all()) for t in (prefill, step, got))):
+        raise SystemExit(f"phase 11 float32 routes failed: {out}")
+    del model, model_cpu, card, on_cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def xlstm_family(dev, launches: dict, card: str) -> dict:
+    """Phase 11: the recurrent xLSTM family on the card, through the entry
+    points a user calls (``build_model``, ``core.spmd.make_train_step``):
+    (a) xlstm-1.3b served at its full config (:func:`xlstm_serve`); (b) its
+    P2P-DP training round, 2 agents at full width and depth
+    (:func:`p2p_train` with ``XLSTM_TRAIN``: phase 9's gates, the traced
+    round by block, the float32 routes on 2 blocks and the reduced
+    rounds); (c) the serving routes (:func:`xlstm_gates`); (d) no kernel of
+    ours launches anywhere in the phase, as in the reference, where the
+    xLSTM reaches no Pallas kernel (counts reset at the start and read at
+    the end)."""
+    from repro_torch.kernels import ops
+
+    ops.reset_launch_counts()
+    out = {"serve": xlstm_serve(dev)}
+    memory("after serving xlstm-1.3b")
+    out["train"] = p2p_train(XLSTM_TRAIN, XLSTM_ROUTES, dev, launches, card, {}, "11",
+                             XLSTM_RANGES + TRAIN_RANGES)
+    out["routes"] = xlstm_gates(dev)
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    out["kernel_launches"] = counts
+    log(f"[11] kernel launches across phase 11: {counts} (none may launch)")
+    if counts:
+        raise SystemExit(f"phase 11 launched kernels of ours: {counts}")
     return out
 
 
@@ -3773,7 +4103,7 @@ def main() -> int:
 
     mark("4c checkpoints and serving")
 
-    # [4d] dynamic topology: a refresh and two admissions in 800 slots of
+    # [4d] dynamic topology: a refresh and an admission in 800 slots of
     # each dynamic leg, then 16 traced slots of each
     dyn_engines = dynamic_engines(obj, scenario.churn, dev)
     dyn, dyn_states = dynamic_legs(dyn_engines, launches)
@@ -3846,7 +4176,14 @@ def main() -> int:
     families = transformer_families(dev, launches, smi)
     mark("10 transformer families")
 
-    # [11] the kernel table and the result
+    # [11] the xLSTM family, phase 10's memory released: xlstm-1.3b served
+    # and trained, the float32 routes; no kernel of ours may launch
+    gc.collect()
+    torch.cuda.empty_cache()
+    xl = xlstm_family(dev, launches, smi)
+    mark("11 xLSTM family")
+
+    # [12] the kernel table and the result
     src = {"sparse_mix": "src/repro/kernels/sparse_mix.py:60",
            "fused_row_update": "src/repro/kernels/fused_row_update.py:133",
            "graph_mix": "src/repro/kernels/graph_mix.py:38",
@@ -3877,6 +4214,7 @@ def main() -> int:
     log(json.dumps({"engine_benches": engine}, default=str))
     log(json.dumps({"zamba2_train": train, "ssm_chunk_train": results["ssm_chunk_train"]}))
     log(json.dumps({"transformer_families": families}))
+    log(json.dumps({"xlstm": xl}))
     log(json.dumps({"phase_seconds": phase_s, "total_s": sum(phase_s.values())}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,8 +1,7 @@
 """Assigned architecture configs (+ the paper's native linear configs).
 
 The port's own copies of the ``repro/configs`` modules (pure data). Every
-family but ``ssm`` (xlstm-1.3b, ROADMAP A15c-ii) has a model in the port:
-``repro_torch.models.registry.build_model`` refuses that one.
+family has a model in the port (``repro_torch.models.registry.build_model``).
 
 Each module defines ``CONFIG`` with the exact assigned hyperparameters and
 cites its source. ``get_config(name)`` resolves by arch id.

@@ -27,11 +27,13 @@ build the port's, or give the port's back as numpy:
   engine);
 * :func:`load_reference_params` — a model parameter tree (nested dicts of
   arrays) into an ``nn.Module`` whose ``state_dict`` names follow it;
-* :func:`hybrid_params_from_reference`, :func:`transformer_params_from_reference`
-  and :func:`encdec_params_from_reference` — a family's ``init_params``
-  tree as its model (:class:`~repro_torch.models.hybrid.HybridLM`,
+* :func:`hybrid_params_from_reference`, :func:`transformer_params_from_reference`,
+  :func:`encdec_params_from_reference` and :func:`xlstm_params_from_reference`
+  — a family's ``init_params`` tree as its model
+  (:class:`~repro_torch.models.hybrid.HybridLM`,
   :class:`~repro_torch.models.transformer.TransformerLM`,
-  :class:`~repro_torch.models.encdec.EncDecLM`);
+  :class:`~repro_torch.models.encdec.EncDecLM`,
+  :class:`~repro_torch.models.xlstm_stack.XLSTMLM`);
 * :func:`agent_params_from_reference` — the stacked agents of the P2P
   layer, ``jax.vmap(bundle.init)``'s tree (a leading agent axis on every
   leaf), as the same tree of tensors, checked against the family's model.
@@ -51,6 +53,8 @@ from repro_torch.models.encdec import EncDecLM
 from repro_torch.models.hybrid import HybridLM
 from repro_torch.models.registry import model_class
 from repro_torch.models.transformer import TransformerLM
+from repro_torch.models.xlstm_stack import STACKED as XLSTM_STACKED
+from repro_torch.models.xlstm_stack import XLSTMLM
 from repro_torch.sim.engine import ShardedSimState, SimState
 from repro_torch.sim.updates import DPCDUpdate
 
@@ -306,7 +310,9 @@ def agent_params_from_reference(tree, cfg, device="cuda") -> dict:
     """The reference's stacked agent parameters -> the port's.
 
     ``tree`` is ``jax.vmap(bundle.init)(keys)``'s tree as numpy: every leaf
-    with a leading agent axis A, the ``layers`` axis under it. Returns the
+    with a leading agent axis A, the family's stacked layer axes under it
+    (``layers``; ``encoder``/``decoder``; ``mlstm``, ``slstm``, ``ln_m``,
+    ``ln_s``). Returns the
     same nested dict of tensors on ``device``, the layout
     :mod:`repro_torch.core.spmd` trains (``ModelBundle.init_agents``'s).
     The agents' slices must load into the family's model: names, shapes
@@ -318,8 +324,8 @@ def agent_params_from_reference(tree, cfg, device="cuda") -> dict:
     if len(counts) != 1:
         raise ValueError(f"the leaves' leading agent axes differ: {sorted(counts)}")
     cls = model_class(cfg)
-    load_reference_params(cls(cfg, device="meta"), _agent(tree, 0),
-                          stacked=ENCDEC_STACKED if cls is EncDecLM else ("layers",))
+    stacked = {EncDecLM: ENCDEC_STACKED, XLSTMLM: XLSTM_STACKED}.get(cls, ("layers",))
+    load_reference_params(cls(cfg, device="meta"), _agent(tree, 0), stacked=stacked)
 
     def build(node):
         return {k: build(v) if isinstance(v, dict) else _tensor_of(v).to(dev)
@@ -344,6 +350,12 @@ def encdec_params_from_reference(tree, cfg, device="cuda"):
     """The reference enc-dec's ``init_params(key, cfg)`` tree (``encoder``
     and ``decoder`` stacked) -> an :class:`EncDecLM`."""
     return load_reference_params(EncDecLM(cfg, device=device), tree, stacked=ENCDEC_STACKED)
+
+
+def xlstm_params_from_reference(tree, cfg, device="cuda"):
+    """The reference xLSTM's ``init_params(key, cfg)`` tree (``mlstm``,
+    ``slstm``, ``ln_m`` and ``ln_s`` stacked) -> an :class:`XLSTMLM`."""
+    return load_reference_params(XLSTMLM(cfg, device=device), tree, stacked=XLSTM_STACKED)
 
 
 def topology_state_from_numpy(nbr, w, valid, version, *, device="cuda") -> TopologyState:

@@ -4,11 +4,10 @@ Port of ``repro/launch/train.py``: personal models per agent, per-round DP
 perturbation, ring or dense gossip, periodic checkpoints. The A agents
 are stacked on one device (the card unless ``--device cpu``); A is
 ``--agents``, else the mesh's data axis, and a model axis in ``--mesh``
-raises naming ROADMAP A15d. Every family built on attention trains: the
-decoder-only transformer (the default ``--arch llama3.2-1b``; MoE, VLM),
-the enc-dec transformer (its frame embeddings drawn each step, as the
-reference draws them) and the zamba2 hybrid; the xLSTM family raises
-naming ROADMAP A15c-ii.
+raises naming ROADMAP A15d. Every family trains: the decoder-only
+transformer (the default ``--arch llama3.2-1b``; MoE, VLM), the enc-dec
+transformer (its frame embeddings drawn each step, as the reference draws
+them), the zamba2 hybrid and the recurrent xLSTM (``--arch xlstm-1.3b``).
 
     PYTHONPATH=src python -m repro_torch.launch.train --preset tiny --steps 50 \\
         --batch 4 --seq 129 --device cpu

@@ -1,12 +1,12 @@
 """Model families of the LLM scaffold, ported from ``repro.models``.
 
-Ported so far: every family built on ``attention``: the zamba2 hybrid
+Every family is ported, for serving and training: the zamba2 hybrid
 (``hybrid``: Mamba2 blocks through the ``ssm_chunk`` kernel on the card,
 one shared attention + SwiGLU block, with ``ssm``), the decoder-only
-transformer (``transformer``: dense, MoE through ``moe``, VLM) and the
-enc-dec transformer (``encdec``), their ``layers`` and the ``registry``
-(``build_model``), for serving and training. The recurrent xLSTM family
-is queued in ``ROADMAP.md`` (A15c-ii).
+transformer (``transformer``: dense, MoE through ``moe``, VLM), the
+enc-dec transformer (``encdec``) and the recurrent xLSTM (``xlstm_stack``
+over the mLSTM and sLSTM blocks of ``xlstm``), their ``layers`` and the
+``registry`` (``build_model``).
 """
 
 from repro_torch.models.registry import ModelBundle, build_model

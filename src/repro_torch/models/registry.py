@@ -1,23 +1,25 @@
 """Uniform model API: ``build_model(cfg)`` -> :class:`ModelBundle`.
 
 Port of ``repro/models/registry.py``: ``init`` / ``loss`` (train) /
-``prefill`` / ``decode`` / ``init_cache`` over every family built on
-``models/attention.py``, as the reference sends them: the enc-dec
-transformer (``audio``, :mod:`~repro_torch.models.encdec`), the zamba2
-hybrid (:mod:`~repro_torch.models.hybrid`) and the decoder-only
-transformer (``dense``, ``moe``, ``vlm``: :mod:`~repro_torch.models.transformer`).
-The recurrent xLSTM family (``ssm``) raises ``NotImplementedError``
-naming ROADMAP A15c-ii.
+``prefill`` / ``decode`` / ``init_cache`` over every family, as the
+reference sends them: the enc-dec transformer (``audio``,
+:mod:`~repro_torch.models.encdec`), the zamba2 hybrid
+(:mod:`~repro_torch.models.hybrid`), the recurrent xLSTM (``ssm``,
+:mod:`~repro_torch.models.xlstm_stack`) and the decoder-only transformer
+(``dense``, ``moe``, ``vlm``: :mod:`~repro_torch.models.transformer`).
 
 The bundle is bound to one device, the CUDA card unless the caller passes
 ``device="cpu"``, and takes token ids (and the enc-dec frame embeddings)
 as tensors or numpy arrays. ``prefill``, ``decode`` and ``init_cache`` run
 under ``torch.inference_mode()``; ``loss`` runs outside it, so autograd
 can record it (a tensor made in inference mode can never enter a graph).
-As in the reference, a transformer's ``prefill`` builds a cache of exactly
-the prompt's S positions; ``prefill(params, batch, max_len=)`` sizes it
-for the decode steps to come (the port raises at a position past the
-cache, where the reference overwrites its last slot: ``DEVIATIONS.md``).
+The recurrent families' ``prefill`` (hybrid, xLSTM) is the forward pass's
+last-token logits, as in the reference: serving continues through
+``decode`` from ``init_cache``. As in the reference, a transformer's
+``prefill`` builds a cache of exactly the prompt's S positions;
+``prefill(params, batch, max_len=)`` sizes it for the decode steps to
+come (the port raises at a position past the cache, where the reference
+overwrites its last slot: ``DEVIATIONS.md``).
 
 Beyond the reference's fields, for the P2P layer's stacked agents
 (:mod:`repro_torch.core.spmd`): ``bind`` lays the family's model over one
@@ -37,7 +39,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import encdec, hybrid, transformer
+from repro_torch.models import encdec, hybrid, transformer, xlstm_stack
 from repro_torch.utils.tree import module_tree, module_views, tree_map
 
 
@@ -85,13 +87,11 @@ def model_class(cfg: ModelConfig):
     if cfg.family == "hybrid":
         return hybrid.HybridLM
     if cfg.family == "ssm":
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family (xLSTM) is not ported yet (ROADMAP A15c-ii)")
+        return xlstm_stack.XLSTMLM
     return transformer.TransformerLM  # dense / moe / vlm
 
 
 def build_model(cfg: ModelConfig, remat: bool = True, device="cuda") -> ModelBundle:
-    model_class(cfg)  # refuses the families not ported
     dev = resolve_device(device)
 
     def on_device(batch, key="tokens"):
@@ -130,6 +130,22 @@ def build_model(cfg: ModelConfig, remat: bool = True, device="cuda") -> ModelBun
             prefill=prefill, decode=_decode(hybrid.decode_step, cfg, dev),
             init_cache=_init_cache(hybrid.init_cache, cfg),
             bind=lambda tree: hybrid.bind(cfg, tree), device=dev)
+
+    if cfg.family == "ssm":
+        def loss(params, batch):
+            return xlstm_stack.loss_fn(params, {"tokens": on_device(batch)}, cfg, remat=remat)
+
+        @torch.inference_mode()
+        def prefill(params, batch):
+            return xlstm_stack.forward(params, on_device(batch), cfg, remat=False,
+                                       last_only=True)
+
+        return ModelBundle(
+            cfg=cfg, init=lambda seed=0: xlstm_stack.init_params(cfg, seed, dev), loss=loss,
+            prefill=prefill, decode=_decode(xlstm_stack.decode_step, cfg, dev),
+            init_cache=_init_cache(xlstm_stack.init_cache, cfg),
+            bind=lambda tree: xlstm_stack.bind(cfg, tree), device=dev,
+            stacked=xlstm_stack.STACKED)
 
     # dense / moe / vlm are all decoder-only transformers.
     def loss(params, batch):

@@ -15,7 +15,9 @@ were), the reference kernel bench's shapes, the training round, and last
 the transformer families (dense, MoE, enc-dec: a bf16 forward against
 float32, the MoE prefill and its routing against the CPU, an enc-dec
 prefill against its decode loop, a reduced round of each against the
-CPU), which launch no kernel of ours.
+CPU) and the xLSTM family (a full-width 2-block prefill against its decode
+loop, the reduced forward and gradients against the CPU, a reduced round),
+which launch no kernel of ours.
 
 Marked ``cuda``: every test skips where there is no CUDA device. Run on a
 GPU machine with ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``
@@ -1507,7 +1509,8 @@ def test_encdec_prefill_matches_its_decode_loop_on_the_card(dev):
     _close(step, logits, MODEL_TOL)
 
 
-@pytest.mark.parametrize("arch", ["llama3.2-1b", "granite-moe-3b-a800m", "seamless-m4t-medium"])
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "granite-moe-3b-a800m", "seamless-m4t-medium",
+                                  "xlstm-1.3b"])
 def test_family_training_round_on_the_card_matches_the_cpu(dev, arch):
     """One reduced float32 DP-off round of each family on the card against
     the CPU: every agent's parameters and both metrics within 1e-5."""
@@ -1535,3 +1538,68 @@ def test_family_training_round_on_the_card_matches_the_cpu(dev, arch):
         _close(a.cpu(), b)
     for k in ("loss", "grad_norm"):
         _close(got_m[k].cpu(), want_m[k])
+
+
+# The recurrent xLSTM family: plain PyTorch on the card, no kernel of ours,
+# as in the JAX package.
+
+
+def test_xlstm_prefill_matches_its_decode_loop_on_the_card(dev):
+    """xlstm-1.3b at full width (d_model 2048, 4 heads, mLSTM heads of 1024)
+    cut to 2 blocks with ``slstm_every=2`` (one mLSTM, one sLSTM), float32,
+    TF32 off: the prefill of 2 x 256 tokens (two chunks of 128: the
+    chunkwise form with its inter-chunk scan) against the same tokens fed
+    one at a time through decode (the recurrent form); no launch of ours."""
+    cfg = get_config("xlstm-1.3b")
+    cfg = dataclasses.replace(cfg, num_layers=2, dtype="float32",
+                              xlstm=dataclasses.replace(cfg.xlstm, slstm_every=2))
+    bundle = build_model(cfg, device=dev)
+    model = bundle.init(0)
+    assert (len(model.mlstm), len(model.slstm)) == (1, 1)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 256),
+                           generator=torch.Generator(device=dev).manual_seed(8), device=dev)
+    before = ops.launch_counts()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        logits, _ = bundle.prefill(model, {"tokens": tokens})
+        caches = bundle.init_cache(model, 2, 256)
+        for pos in range(256):
+            step, caches = bundle.decode(model, tokens[:, pos:pos + 1], caches, pos)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert ops.launch_counts() == before
+    assert bool(torch.isfinite(logits).all())
+    _close(step, logits, MODEL_TOL)
+
+
+def test_xlstm_reduced_forward_and_gradients_on_the_card_match_the_cpu(dev):
+    """The reduced float32 xLSTM (2 blocks, chunk 16), one agent, 2 x 33
+    tokens (two chunks): the loss and every leaf's gradient through
+    ``spmd.agent_losses_and_grads`` on the card against the CPU (1e-5 and
+    1e-4, as the CPU tests hold them to the reference), and the prefill's
+    logits (1e-5); no launch of ours."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.core import spmd
+    from repro_torch.utils.tree import tree_flatten_with_path, tree_map
+
+    cfg = get_reduced("xlstm-1.3b", dtype="float32")
+    tokens = np.random.default_rng(9).integers(0, cfg.vocab_size, (1, 2, 33)).astype(np.int32)
+    on_cpu = build_model(cfg, device="cpu")
+    start = on_cpu.init_agents(1, 0)
+    before = ops.launch_counts()
+    outs = []
+    for device, params in ((dev, tree_map(lambda x: x.to(dev, copy=True), start)),
+                           ("cpu", start)):
+        bundle = build_model(cfg, device=device)
+        losses, grads = spmd.agent_losses_and_grads(
+            bundle, params, {"tokens": torch.as_tensor(tokens, device=device)})
+        logits, _ = bundle.prefill(bundle.bind(tree_map(lambda x: x[0], params)),
+                                   {"tokens": tokens[0, :, :-1]})
+        outs.append((losses, grads, logits))
+    assert ops.launch_counts() == before
+    (l_card, g_card, p_card), (l_cpu, g_cpu, p_cpu) = outs
+    _close(l_card.cpu(), l_cpu)
+    _close(p_card.cpu(), p_cpu)
+    for (name, a), (_, b) in zip(tree_flatten_with_path(g_card), tree_flatten_with_path(g_cpu)):
+        _close(a.cpu(), b, MODEL_TOL)

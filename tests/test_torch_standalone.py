@@ -256,13 +256,12 @@ RECORDED_ABSENT = {
 # drawing from a generator, with their deviation's text.
 MODELS_ABSENT = {f"models.{k}": "`init_*` functions are module constructors" for k in (
     "attention.init_attention", "layers.init_dense", "layers.init_rmsnorm", "layers.init_swiglu",
-    "layers.init_embedding", "moe.init_moe", "ssm.init_mamba2")}
+    "layers.init_embedding", "moe.init_moe", "ssm.init_mamba2", "xlstm.init_mlstm",
+    "xlstm.init_slstm")}
 # The modules of ``repro.models`` and ``repro.launch`` not ported yet, each
 # with the text of the DEVIATIONS.md row naming its ROADMAP item.
-_XLSTM = "`models/xlstm.py` and `models/xlstm_stack.py` wait for ROADMAP A15c-ii"
 _MESH = "`models/sharding.py` and `launch/{dryrun,hillclimb,mesh}.py` wait for ROADMAP A15d"
-MODULES_WAITING = {"models.xlstm": _XLSTM, "models.xlstm_stack": _XLSTM,
-                   "models.sharding": _MESH, "launch.dryrun": _MESH,
+MODULES_WAITING = {"models.sharding": _MESH, "launch.dryrun": _MESH,
                    "launch.hillclimb": _MESH, "launch.mesh": _MESH}
 # The functions and classes ``repro.core.spmd`` defines that the port's
 # ``core/spmd.py`` leaves out, with their deviation's text.
@@ -328,8 +327,8 @@ def test_every_public_name_of_a_done_reference_package_is_ported_or_recorded():
             assert missing <= set(MODELS_ABSENT), missing
             for why in (MODELS_ABSENT[k] for k in missing):
                 assert why in text
-    assert set(MODULES_WAITING) == {"models.xlstm", "models.xlstm_stack", "models.sharding",
-                                    "launch.dryrun", "launch.hillclimb", "launch.mesh"}
+    assert set(MODULES_WAITING) == {"models.sharding", "launch.dryrun", "launch.hillclimb",
+                                    "launch.mesh"}
 
 
 def test_every_function_of_the_reference_spmd_is_ported_or_recorded():

@@ -396,8 +396,8 @@ def test_bundle_surface(setup):
     assert spmd.num_agents(types.SimpleNamespace(shape={"pod": 2, "data": 3}), "silo") == 2
     assert spmd.agent_axes_of(MESH) == ("data",) and spmd.agent_axes_of(3) == ("data",)
     assert b.stacked == ("layers",)
-    with pytest.raises(NotImplementedError, match="A15c-ii"):
-        build_model(get_reduced("xlstm-1.3b"), device=CPU)
+    xlstm = build_model(get_reduced("xlstm-1.3b"), device=CPU)
+    assert xlstm.stacked == ("ln_m", "ln_s", "mlstm", "slstm")
 
 
 def test_train_launcher_writes_and_resumes_checkpoints(tmp_path, capsys):
@@ -416,8 +416,10 @@ def test_train_launcher_writes_and_resumes_checkpoints(tmp_path, capsys):
     hist = ttrain.main(argv + ["--steps", "5", "--resume"])
     assert "resumed from step 3" in capsys.readouterr().out
     assert [r["step"] for r in hist] == [3, 4]
-    with pytest.raises(NotImplementedError, match="A15c-ii"):
-        ttrain.main(["--arch", "xlstm-1.3b", "--steps", "1", "--device", "cpu"])
+    hist = ttrain.main(["--arch", "xlstm-1.3b", "--preset", "tiny", "--steps", "2", "--batch",
+                        "2", "--seq", "33", "--agents", "2", "--log-every", "1", "--device", "cpu"])
+    assert [r["step"] for r in hist] == [0, 1]
+    assert all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]) for r in hist)
     with pytest.raises(NotImplementedError, match="A15d"):
         ttrain.main(["--mesh", "2x2", "--steps", "1", "--device", "cpu"])
 
@@ -450,7 +452,7 @@ def test_train_launcher_runs_every_attention_family(arch):
     assert all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]) for r in hist)
 
 
-FAMILY_ARCHS = ["llama3.2-1b", "granite-moe-3b-a800m"]
+FAMILY_ARCHS = ["llama3.2-1b", "granite-moe-3b-a800m", "xlstm-1.3b"]
 
 
 @functools.lru_cache(maxsize=None)
@@ -473,7 +475,8 @@ def _family(arch):
 @pytest.mark.parametrize("arch", FAMILY_ARCHS)
 def test_family_train_step_matches_reference(arch):
     """One DP round of the transformer families (dense, and MoE with its
-    aux in the loss) against the reference's ``make_train_step`` (its dense
+    aux in the loss) and of the xLSTM family (its four stacked block trees
+    under the agent axis) against the reference's ``make_train_step`` (its dense
     route; the port's ring of rolls), its noise given through ``draws=``:
     every agent's new parameters and the metrics within 1e-4."""
     s = _family(arch)
