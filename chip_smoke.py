@@ -262,7 +262,21 @@ Phases, one line each (any failure ends the run with a non-zero code):
    of 2 x 256 tokens (the chunkwise mLSTM) against its own decode loop
    (the recurrent form, 1e-4), the reduced config on the card against the
    CPU (1e-5);
-12. a JSON line of every ported kernel (launches, error, times, bound),
+12. the mesh and launch layer (``launch/mesh.py``, ``models/sharding.py``,
+   ``core/spmd.py::jit_train_step``, ``launch/dryrun.py``), no kernel of
+   ours launched: (a) llama3.2-1b at full width, bfloat16, one agent with
+   phase 10's per-agent batch (2 x 2049), DP on: the round of
+   ``jit_train_step`` on a (1, 1) ``make_mesh`` over a one-rank NCCL group
+   must equal ``make_train_step``'s stacked round at A = 1 bit for bit on
+   the same inputs and Laplace draws; then 2 timed mesh rounds and their
+   peak memory; (b) meanwhile, in subprocesses, the dry-run of llama3.2-1b
+   x train_4k on 16x16, the hill-climb's ``gossip_dense`` variant, and the
+   (1, 1) mesh at (a)'s batch and at 16 x 4096: the (1, 1) row's argument
+   bytes must equal (a)'s input bytes, 16 x the 16x16 row's per-device
+   flops must lie within 5% of the (1, 1) row's at 16 x 4096, the ring
+   gossip must ship fewer collective bytes than the dense one; (a)'s
+   measured peak prints beside the predicted argument + temp bytes;
+13. a JSON line of every ported kernel (launches, error, times, bound),
    the phases' command seconds (each also printed as a ``[time]`` line
    when its phase ends), then the last line
    ``{"ok": true, "device": {...}}``.
@@ -275,6 +289,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -3907,6 +3922,207 @@ def xlstm_family(dev, launches: dict, card: str) -> dict:
     return out
 
 
+# Phase 12: the mesh and launch layer (see PERF.md, "Cells"). (a) the P2P-DP
+# round of llama3.2-1b at full width on a (1, 1) DeviceMesh over a
+# one-rank NCCL group, phase 10's per-agent traffic; (b) the dry-run in
+# subprocesses (a fake process group cannot share a process with NCCL).
+MESH_ROUND = dict(LLAMA_TRAIN, agents=1, rounds=2)
+# The dry-run runs: the 16x16 train_4k row, the hill-climb's gossip_dense
+# variant of it, and the (1, 1) mesh at (a)'s batch and at the 16x16 row's
+# per-agent batch (16 x 4096).
+DRYRUN_CALLS = {
+    "16x16": ["-m", "repro_torch.launch.dryrun", "--arch", "llama3.2-1b", "--shape", "train_4k"],
+    "16x16_dense": ["-m", "repro_torch.launch.hillclimb", "--pair", "llama",
+                    "--variant", "gossip_dense"],
+    "1x1_card": ["-m", "repro_torch.launch.dryrun", "--arch", "llama3.2-1b", "--shape",
+                 "train_4k", "--mesh-shape", "1x1", "--batch", str(MESH_ROUND["batch"]),
+                 "--seq", str(MESH_ROUND["seq"] - 1)],
+    "1x1_per_agent": ["-m", "repro_torch.launch.dryrun", "--arch", "llama3.2-1b", "--shape",
+                      "train_4k", "--mesh-shape", "1x1", "--batch", "16", "--seq", "4096"],
+}
+DRYRUN_FLOPS_TOL = 0.05  # 16 x the 16x16 per-device flops against the (1, 1) row's
+DRYRUN_TIMEOUT_S = 300
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def dryrun_start(out_dir: Path) -> dict:
+    """Start the dry-run calls of :data:`DRYRUN_CALLS`, each in its own
+    process writing its row to ``out_dir``; returns the processes."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="",
+               OMP_NUM_THREADS="1")
+    procs = {}
+    for label, args in DRYRUN_CALLS.items():
+        out = out_dir / f"{label}.jsonl"
+        out.unlink(missing_ok=True)
+        procs[label] = (subprocess.Popen([sys.executable, *args, "--out", str(out)], cwd=ROOT,
+                                         env=env, stdout=subprocess.PIPE,
+                                         stderr=subprocess.STDOUT, text=True), out)
+    return procs
+
+
+def dryrun_rows(procs: dict) -> dict:
+    """Wait for the dry-run processes; any that fails fails the phase."""
+    rows = {}
+    for label, (proc, out) in procs.items():
+        try:
+            text, _ = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            raise SystemExit(f"phase 12 dry-run {label}: no row in {DRYRUN_TIMEOUT_S} s")
+        if proc.returncode != 0 or not out.exists():
+            raise SystemExit(f"phase 12 dry-run {label} failed ({proc.returncode}): "
+                             f"{text[-3000:]}")
+        rows[label] = json.loads(out.read_text().splitlines()[-1])
+    return rows
+
+
+def mesh_round(dev, launches: dict, card: str) -> dict:
+    """(a) The P2P-DP round of llama3.2-1b at full width (bfloat16, random
+    weights from a seeded generator, one agent, phase 10's per-agent batch,
+    DP on, remat on) through ``spmd.jit_train_step`` on a (1, 1)
+    ``make_mesh`` over a one-rank NCCL group, against ``make_train_step``'s
+    stacked round at A = 1 on the same inputs and the same Laplace draws
+    (``draws=``): every leaf must come out with the same bits. Then
+    ``MESH_ROUND["rounds"]`` timed mesh rounds (noise from a generator),
+    their peak memory, and no kernel of ours launched."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import P2PConfig
+    from repro_torch.core import spmd
+    from repro_torch.core.coordinate_descent import standard_laplace
+    from repro_torch.data.synthetic import token_stream
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.registry import build_model
+    from repro_torch.models.sharding import batch_specs, param_specs
+    from repro_torch.utils.tree import tree_flatten_with_path, tree_map
+
+    t = MESH_ROUND
+    B, S = t["batch"], t["seq"]
+    ops.reset_launch_counts()
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}",
+                            world_size=1, rank=0, device_id=dev)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        cfg = get_config(t["arch"])
+        bundle = build_model(cfg, device=dev)
+        p2p = P2PConfig(agent_mode="full", dp_enabled=True, eps_bar=t["eps_bar"],
+                        planned_rounds=2 + t["rounds"], clip=t["clip"], mu=t["mu"],
+                        neighbor_offsets=t["offsets"], gossip_dtype=None)
+        m_i = B * (S - 1)
+        step, eps_step, noise_scale = spmd.make_train_step(bundle, p2p, mesh, m_i,
+                                                           alpha=t["alpha"], gossip=t["gossip"])
+        stacked = bundle.init_agents(1, t["seed"])
+        toks = token_stream(cfg.vocab_size, B, S, t["seed"], 1)
+        batch = {"tokens": torch.as_tensor(next(toks).reshape(1, B, S), device=dev)}
+        mstep = spmd.jit_train_step(step, mesh, param_specs(stacked, mesh, "full", 1),
+                                    batch_specs(batch, mesh, "full"))
+        params = mstep.shard(tree_map(lambda x: x[0].clone(), stacked))
+        gen = torch.Generator(device=dev).manual_seed(t["seed"] + 1)
+        draws = {name: standard_laplace(x.shape, gen, dev, torch.float32)
+                 for name, x in tree_flatten_with_path(stacked)}
+        in_bytes = (sum(x.to_local().numel() * x.element_size()
+                        for _, x in tree_flatten_with_path(params))
+                    + batch["tokens"].numel() * batch["tokens"].element_size())
+        _, want = step(stacked, batch, draws=draws)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, got = mstep(params, {"tokens": batch["tokens"][0]},
+                       draws={k: v[0] for k, v in draws.items()})
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        differ = [name for (name, x), (_, y) in zip(tree_flatten_with_path(params),
+                                                    tree_flatten_with_path(stacked))
+                  if not torch.equal(x.to_local(), y[0])]
+        if differ or float(got["loss"]) != float(want["loss"]):
+            raise SystemExit(f"phase 12 mesh round != stacked round: leaves {differ[:8]}, "
+                             f"loss {float(got['loss'])} vs {float(want['loss'])}")
+        del stacked, draws, want
+        gc.collect()
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        rounds = []
+        for _ in range(t["rounds"]):
+            b = {"tokens": torch.as_tensor(next(toks).reshape(B, S), device=dev)}
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            _, m = mstep(params, b, gen)
+            torch.cuda.synchronize()
+            rounds.append((time.perf_counter() - t1) * 1e3)
+            if not (math.isfinite(float(m["loss"])) and math.isfinite(float(m["grad_norm"]))):
+                raise SystemExit(f"phase 12 mesh round: metrics {m}")
+        peak = torch.cuda.max_memory_allocated(dev)
+    finally:
+        dist.destroy_process_group()
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    if counts:
+        raise SystemExit(f"phase 12 launched kernels of ours: {counts}")
+    ms = spread(rounds)
+    out = dict(agents=1, batch=B, seq=S, m_i=m_i, eps_step=eps_step, noise_scale=noise_scale,
+               equal_bits=True, first_round_ms=first_ms, round_ms=ms["median"],
+               round_ms_min=ms["min"], round_ms_max=ms["max"],
+               tokens_per_s=B * (S - 1) / ms["median"] * 1e3, input_bytes=in_bytes,
+               held_before_bytes=held, peak_bytes=peak, peak_gb=peak / 1e9)
+    log(f"[12] on {card}: llama3.2-1b mesh round (1, 1) == stacked round, bit for bit; "
+        f"{fmt({k: v for k, v in out.items() if k != 'equal_bits'})}")
+    return out
+
+
+def mesh_layer(dev, launches: dict, card: str) -> dict:
+    """Phase 12: the dry-run started in subprocesses, (a) on the card
+    meanwhile, then the dry-run's gates: the (1, 1) row's argument bytes
+    equal the card's input bytes; 16 x the 16x16 row's per-device flops
+    within ``DRYRUN_FLOPS_TOL`` of the (1, 1) row's at the same per-agent
+    batch; the ring gossip ships fewer collective bytes than the dense
+    one; (a)'s measured peak beside the predicted argument + temp bytes."""
+    t0 = time.perf_counter()
+    procs = dryrun_start(ROOT / "build" / "dryrun")
+    out = {"mesh_round": mesh_round(dev, launches, card)}
+    rows = dryrun_rows(procs)
+    dr_s = time.perf_counter() - t0
+    big, dense = rows["16x16"], rows["16x16_dense"]
+    card_row, per_agent = rows["1x1_card"], rows["1x1_per_agent"]
+    for label, r in rows.items():
+        log(f"[12] dry-run {label}: mesh={r['mesh']} gossip={r['gossip']} trace_s={r['trace_s']} "
+            f"{fmt(r['memory'])} flops_per_device={r['flops_per_device']:.6g} "
+            f"bytes_per_device={r['bytes_per_device']:.6g} "
+            f"collective_bytes_per_device={r['collective_bytes_per_device']:.6g} "
+            f"compute_s={r['compute_s']:.6g} memory_s={r['memory_s']:.6g} "
+            f"collective_s={r['collective_s']:.6g} dominant={r['dominant']} "
+            f"useful_ratio={r['useful_ratio']:.6g} collectives={r['collective_breakdown']}")
+    mr = out["mesh_round"]
+    args_ok = card_row["memory"]["argument_size_in_bytes"] == mr["input_bytes"]
+    flops_rel = big["flops_per_device"] * 16 / per_agent["flops_per_device"] - 1.0
+    coll_ok = big["collective_bytes_per_device"] < dense["collective_bytes_per_device"]
+    mem = card_row["memory"]
+    predicted = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+    out.update(rows=rows, args_equal=args_ok, flops_rel=flops_rel, ppermute_lt_dense=coll_ok,
+               predicted_peak_bytes=predicted, measured_over_predicted=mr["peak_bytes"] / predicted,
+               seconds=dr_s)
+    log(f"[12] gates: argument bytes {card_row['memory']['argument_size_in_bytes']} vs the card's "
+        f"{mr['input_bytes']} ({args_ok}); 16 x 16x16 flops / (1, 1) flops - 1 = {flops_rel:.6g} "
+        f"(tolerance {DRYRUN_FLOPS_TOL}); ppermute {big['collective_bytes_per_device']:.6g} B < "
+        f"dense {dense['collective_bytes_per_device']:.6g} B ({coll_ok}); on {card}: measured peak "
+        f"{mr['peak_bytes']} B vs predicted argument + temp {predicted} B "
+        f"(ratio {out['measured_over_predicted']:.6g}); phase wall {dr_s:.1f} s")
+    if not (args_ok and abs(flops_rel) <= DRYRUN_FLOPS_TOL and coll_ok):
+        raise SystemExit(f"phase 12 dry-run gates failed: args {args_ok}, flops {flops_rel}, "
+                         f"ppermute < dense {coll_ok}")
+    return out
+
+
 def memory(when: str) -> None:
     """Print what the card holds allocated and reserved."""
     import torch
@@ -4183,7 +4399,15 @@ def main() -> int:
     xl = xlstm_family(dev, launches, smi)
     mark("11 xLSTM family")
 
-    # [12] the kernel table and the result
+    # [12] the mesh and launch layer, phase 11's memory released: the
+    # llama3.2-1b round on a (1, 1) mesh against the stacked round, and the
+    # dry-run's rows and gates; no kernel of ours may launch
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh = mesh_layer(dev, launches, smi)
+    mark("12 mesh and launch layer")
+
+    # [13] the kernel table and the result
     src = {"sparse_mix": "src/repro/kernels/sparse_mix.py:60",
            "fused_row_update": "src/repro/kernels/fused_row_update.py:133",
            "graph_mix": "src/repro/kernels/graph_mix.py:38",
@@ -4215,6 +4439,7 @@ def main() -> int:
     log(json.dumps({"zamba2_train": train, "ssm_chunk_train": results["ssm_chunk_train"]}))
     log(json.dumps({"transformer_families": families}))
     log(json.dumps({"xlstm": xl}))
+    log(json.dumps({"mesh_layer": mesh}))
     log(json.dumps({"phase_seconds": phase_s, "total_s": sum(phase_s.values())}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

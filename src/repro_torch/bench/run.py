@@ -1,8 +1,9 @@
 """Bench entry point of the port: the ported benches in the reference's order.
 
 Port of ``benchmarks/run.py`` over the benches ``repro_torch.bench``
-holds, registered in the reference's order (``roofline``, which formats
-the LLM dry-run, waits for ROADMAP A15d):
+holds, registered in the reference's order (``roofline``, last, formats
+the LLM dry-run's rows: ``results/dryrun_torch.jsonl`` from
+``python -m repro_torch.launch.dryrun``):
 
     python -m repro_torch.bench.run                 # fast sizes (the reference's)
     python -m repro_torch.bench.run --full          # the reference's full sizes
@@ -169,7 +170,19 @@ def _bench_serving(full, dev, rows, record):
            f"n={kw['n']},shards=8,batch={kw['batch']},predictions_per_s={rate:.4g}")
 
 
-# Registration order is execution order, the reference's.
+def _bench_roofline(full, dev, rows, record):
+    from repro_torch.bench import roofline
+
+    t0 = time.perf_counter()
+    rs = roofline.run()
+    if not rs:
+        # No dry-run rows: say so (run() did) and record nothing.
+        return
+    record("roofline", t0, f"{len(rs)} dry-run rows")
+
+
+# Registration order is execution order, the reference's; roofline stays
+# last so its dry-run rows print after the measured ones they contextualize.
 BENCHES = {
     "fig1": _bench_fig1,
     "fig2": _bench_fig2,
@@ -183,6 +196,7 @@ BENCHES = {
     "dynamic_topology": _bench_dynamic_topology,
     "checkpoint": _bench_checkpoint,
     "serving": _bench_serving,
+    "roofline": _bench_roofline,
 }
 
 

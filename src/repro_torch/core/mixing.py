@@ -234,6 +234,48 @@ class StackedCollective:
         return torch.roll(send, shifts=int(offset), dims=0)
 
 
+class GroupCollective:
+    """The same collective step with one member a process: ``group`` is a
+    ``torch.distributed`` process group of n ranks (an axis of a
+    ``DeviceMesh``), member i its i-th rank. ``ppermute(send, offset)``
+    returns what member i receives: the ``send`` of member ``(i - offset)
+    mod n`` (``batch_isend_irecv``: i sends to ``(i + offset) mod n``);
+    ``all_gather(send)`` stacks every member's ``send`` as (n, ...). The
+    sharded engine's multi-process backend (ROADMAP A9b) is to reuse it for
+    the halo exchange."""
+
+    def __init__(self, group):
+        import torch.distributed as dist
+
+        self.group = group
+        self.size = dist.get_world_size(group)
+        self.rank = dist.get_rank(group)
+
+    def ppermute(self, send, offset: int):
+        import torch.distributed as dist
+
+        n, i = self.size, self.rank
+        if int(offset) % n == 0:
+            return send
+        send = send.contiguous()
+        recv = torch.empty_like(send)
+        to = dist.get_global_rank(self.group, (i + int(offset)) % n)
+        frm = dist.get_global_rank(self.group, (i - int(offset)) % n)
+        ops_ = [dist.P2POp(dist.isend, send, to, group=self.group),
+                dist.P2POp(dist.irecv, recv, frm, group=self.group)]
+        for work in dist.batch_isend_irecv(ops_):
+            work.wait()
+        return recv
+
+    def all_gather(self, send):
+        import torch.distributed as dist
+
+        send = send.contiguous()
+        out = torch.empty(self.size * send.numel(), dtype=send.dtype, device=send.device)
+        dist.all_gather_into_tensor(out, send.view(-1), group=self.group)
+        return out.view(self.size, *send.shape)
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class ShardedMixOp:
     """Shard-local neighbour sums with halo exchange over an agent partition.

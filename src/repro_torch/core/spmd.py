@@ -27,8 +27,8 @@ with eta_i ~ Laplace(0, s)^dim, s = 2 C / (eps_step * m_i).
 How the agents map onto one device (``src/repro_torch/DEVIATIONS.md``):
 * the A agents are the leading axis of every leaf of one parameter tree,
   the reference's ``jax.vmap(bundle.init)`` layout, the ``layers`` axis
-  under it; A is that axis (a "mesh" here is only ``.shape["data"]`` or a
-  count, read by :func:`num_agents`);
+  under it; A is that axis (:func:`num_agents` of a ``DeviceMesh``, a
+  stand-in with ``.shape``, or a count);
 * the reference vmaps ``value_and_grad(bundle.loss)`` over the agents; the
   ``ssm_chunk`` kernel has no vmap rule, so each agent's loss and gradient
   run in turn, the model laid over its slice of the stacked leaves
@@ -41,6 +41,11 @@ How the agents map onto one device (``src/repro_torch/DEVIATIONS.md``):
   returns it (the reference's launcher donates them to its jit);
 * the noise comes from a ``torch.Generator`` (Philox), not from a threefry
   key: ``draws=`` takes the standard Laplace draws by leaf name instead.
+
+On a ``DeviceMesh`` the same round runs one agent a rank
+(:func:`jit_train_step`, :class:`MeshTrainStep`): the agent's tree is a
+DTensor tree over its ranks of the model axis, and the ring shift goes to
+another rank (``mixing.GroupCollective``).
 """
 
 from __future__ import annotations
@@ -56,7 +61,8 @@ from torch.profiler import record_function
 from repro_torch.configs.base import P2PConfig
 from repro_torch.core import privacy
 from repro_torch.core.coordinate_descent import standard_laplace
-from repro_torch.core.mixing import StackedCollective
+from repro_torch.core.mixing import GroupCollective, StackedCollective
+from repro_torch.models.sharding import axis_sizes, drop_dim, map_specs, placements
 from repro_torch.utils.tree import (module_views, tree_flatten_with_path, tree_map,
                                      tree_map_with_path)
 
@@ -70,20 +76,23 @@ F32 = torch.float32
 
 def agent_axes_of(mesh) -> tuple:
     """The mesh axes the agents span; a count stands for ``("data",)``."""
-    shape = getattr(mesh, "shape", {})
-    return ("pod", "data") if "pod" in shape else ("data",)
+    if isinstance(mesh, (int, np.integer)):
+        return ("data",)
+    return ("pod", "data") if "pod" in axis_sizes(mesh) else ("data",)
 
 
 def num_agents(mesh, agent_mode: str) -> int:
-    """A from a mesh stand-in (``.shape`` a dict of axis sizes) or a count."""
+    """A from a ``DeviceMesh``, a stand-in (``.shape`` a dict of axis
+    sizes) or a count."""
     if isinstance(mesh, (int, np.integer)):
         return int(mesh)
+    shape = axis_sizes(mesh)
     if agent_mode == "full":
-        n = mesh.shape["data"]
-        if "pod" in mesh.shape:
-            n *= mesh.shape["pod"]
+        n = shape["data"]
+        if "pod" in shape:
+            n *= shape["pod"]
         return n
-    return mesh.shape.get("pod", 1)
+    return shape.get("pod", 1)
 
 
 def _ring_perm(n: int, shift: int):
@@ -376,7 +385,28 @@ def make_train_step(bundle, p2p: P2PConfig, mesh, local_batch_size: int,
         metrics = {"loss": losses.mean(), "grad_norm": norms.mean()}
         return params, metrics
 
+    # What jit_train_step needs to run the same round one agent a rank.
+    train_step.plan = _RoundPlan(bundle=bundle, p2p=p2p, alpha=alpha, gossip=gossip,
+                                 n_agents=A, noise_scale=noise_scale, do_gossip=do_gossip,
+                                 offsets=offsets, gossip_dtype=gossip_dtype, mix_mat=mix_mat,
+                                 mix_idx=mix_idx, mix_w=mix_w)
     return train_step, eps_step, noise_scale
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class _RoundPlan:
+    bundle: object
+    p2p: P2PConfig
+    alpha: float
+    gossip: str
+    n_agents: int
+    noise_scale: float
+    do_gossip: bool
+    offsets: tuple
+    gossip_dtype: object
+    mix_mat: object
+    mix_idx: object
+    mix_w: object
 
 
 def _node(tree, name: str):
@@ -407,3 +437,226 @@ def make_fedavg_step(bundle, mesh, lr: float = 3e-4):
         return params, metrics
 
     return train_step
+
+
+# ---------------------------------------------------------------------------
+# The round on a DeviceMesh, one agent a rank (the reference's pjit wiring)
+# ---------------------------------------------------------------------------
+
+
+def shardings_for(tree, mesh, spec_tree):
+    """The DTensor placements of every spec of ``spec_tree`` over ``mesh``
+    (``models.sharding.placements``); ``tree`` is unused, as in the
+    reference."""
+    return map_specs(lambda s: placements(s, mesh), spec_tree)
+
+
+def jit_train_step(train_step, mesh, pspecs, bspecs):
+    """The round of ``train_step`` (from :func:`make_train_step`) as each
+    rank of ``mesh`` runs it: a :class:`MeshTrainStep`. ``pspecs`` and
+    ``bspecs`` are the stacked trees' specs (``param_specs``,
+    ``batch_specs``), the agent dim leading."""
+    return MeshTrainStep(train_step.plan, mesh, pspecs, bspecs)
+
+
+def _agent_axes(mesh, agent_mode):
+    names = tuple(mesh.mesh_dim_names)
+    if agent_mode == "full":
+        return tuple(a for a in ("pod", "data") if a in names), ("model",)
+    if agent_mode == "silo":
+        return (("pod",) if "pod" in names else ()), ("data", "model")
+    raise ValueError(f"agent_mode {agent_mode!r} trains no agents")
+
+
+def _sub_mesh(mesh, axes):
+    return mesh[axes[0]] if len(axes) == 1 else mesh[tuple(axes)]
+
+
+def _local_slice(full, mesh, places):
+    """This rank's shard of ``full`` under ``places`` (DTensor's even
+    chunks, mesh dims in order), with no communication."""
+    for i, p in enumerate(places):
+        if p.is_shard():
+            full = full.chunk(mesh.size(i), dim=p.dim)[mesh.get_local_rank(i)]
+    return full
+
+
+class MeshTrainStep:
+    """The P2P-DP round on a ``DeviceMesh``, one agent a rank of the agent
+    axes: in ``"full"`` mode each rank of ("pod", "data") holds one agent
+    (A = pods x data), its tree a DTensor tree on the 1-D ``mesh["model"]``
+    with its ``param_specs`` placements minus the agent dim; in ``"silo"``
+    mode each pod holds one agent, FSDP over "data" and TP over "model".
+
+    ``step(params, batch, generator=None, draws=None)`` runs this rank's
+    part of the stacked round: the agent's loss and gradient on the DTensor
+    tree (remat as the bundle was built), the global-L2 clip (a sharded
+    leaf's sum of squares all-reduced over the mesh dims it is split on)
+    and Laplace noise, the gossip over the agent axes
+    (:class:`~repro_torch.core.mixing.GroupCollective`: a ring shift by r
+    receives agent (i - r) mod A, the circulant mean of
+    :func:`gossip_ppermute`; dense and sparse gossip all-gather the agents'
+    blocks and take this agent's row), and the update, written into the
+    local shards of ``params`` in place. ``draws`` holds this agent's
+    standard Laplace draws by leaf name, each of the leaf's full shape (a
+    rank takes its shard); with a ``generator`` (seeded alike on the ranks
+    of one agent) a replicated leaf's noise comes from it, alike on the
+    agent's ranks, and a split leaf's shard from a stream of the rank's own
+    (:meth:`_shard_generator`), as the reference draws each shard. Returns
+    ``(params, metrics)``, the metrics the means over the agents.
+
+    :meth:`shard` lays one agent's tree of full tensors out on the agent
+    mesh (each rank keeps its own slices, no communication; a batch of
+    full tensors is laid out alike); ``agent`` is this rank's agent
+    and ``collective`` the gossip's :class:`GroupCollective` (None for one
+    agent)."""
+
+    def __init__(self, plan, mesh, pspecs, bspecs):
+        self.plan, self.mesh = plan, mesh
+        mode = plan.p2p.agent_mode
+        agent_axes, within = _agent_axes(mesh, mode)
+        self.agent_mesh = _sub_mesh(mesh, within)
+        if agent_axes:
+            am = _sub_mesh(mesh, agent_axes)
+            self._agents_mesh = am if len(agent_axes) == 1 else am._flatten()
+            self.agent = self._agents_mesh.get_local_rank()
+            n = self._agents_mesh.size()
+        else:
+            self._agents_mesh, self.agent, n = None, 0, 1
+        if n != plan.n_agents:
+            raise ValueError(f"the mesh holds {n} agents, the step was built for {plan.n_agents}")
+        self.collective = (GroupCollective(self._agents_mesh.get_group())
+                           if self._agents_mesh is not None and n > 1 else None)
+        self._rounds = 0  # rounds drawn from a generator (the shard streams' seeds)
+        # One agent's specs: the agent dim dropped.
+        self.agent_specs = map_specs(lambda s: drop_dim(s, 0), pspecs)
+        self.batch_specs = map_specs(lambda s: drop_dim(s, 0), bspecs)
+
+    def _distribute(self, spec, x):
+        from torch.distributed.tensor import DTensor
+
+        pl = placements(spec, self.agent_mesh)
+        return DTensor.from_local(_local_slice(x, self.agent_mesh, pl).contiguous(),
+                                  self.agent_mesh, pl, run_check=False, shape=x.shape,
+                                  stride=x.contiguous().stride())
+
+    def shard(self, tree):
+        """One agent's tree of full tensors -> DTensors on the agent mesh."""
+        return map_specs(self._distribute, self.agent_specs, tree)
+
+    def _shard_generator(self, generator):
+        """This rank's stream for the noise of the leaves split over its
+        agent's ranks, new each round: seeded from ``generator``'s seed,
+        the round and the rank's coordinate in the agent mesh (the
+        replicated leaves draw from ``generator`` itself, alike on every
+        rank of the agent)."""
+        self._rounds += 1
+        coord = 0
+        for i, c in enumerate(self.agent_mesh.get_coordinate() or ()):
+            coord = coord * self.agent_mesh.size(i) + c
+        seed = (generator.initial_seed() * 1_000_003 + self._rounds) * 65_537 + coord
+        return torch.Generator(device=generator.device).manual_seed(seed % (1 << 63))
+
+    def _all_reduce(self, t, dims, mesh):
+        import torch.distributed._functional_collectives as funcol
+
+        for i in dims:
+            t = funcol.all_reduce(t, "sum", (mesh, i))
+        return t
+
+    def _mix(self, theta):
+        """This agent's row of the round's gossip of the (1, w) block."""
+        plan, A, i = self.plan, self.plan.n_agents, self.agent
+        if plan.gossip == "ppermute":
+            residues = _residues(plan.offsets, A)
+            w = 1.0 / len(residues)
+            xg = theta.to(plan.gossip_dtype) if plan.gossip_dtype is not None else theta
+            acc = torch.zeros(xg.shape, dtype=F32, device=theta.device)
+            for r in residues:
+                got = xg if r == 0 else self.collective.ppermute(xg, r)
+                acc = acc + w * got.to(F32)
+            return acc.to(theta.dtype)
+        every = self.collective.all_gather(theta[0])  # (A, w)
+        if plan.gossip == "dense":
+            return gossip_dense(every, plan.mix_mat)[i:i + 1]
+        return gossip_gather(every, plan.mix_idx, plan.mix_w)[i:i + 1]
+
+    @torch.no_grad()
+    def __call__(self, params, batch, generator=None, draws=None):
+        from torch.distributed.tensor import DTensor
+        from torch.distributed.tensor.experimental import implicit_replication
+
+        plan = self.plan
+        p2p, bundle = plan.p2p, plan.bundle
+        if p2p.dp_enabled and draws is None and generator is None:
+            raise ValueError("DP is on: pass a generator or draws")
+        batch = {k: v if isinstance(v, DTensor) else self._distribute(self.batch_specs[k], v)
+                 for k, v in batch.items()}
+        grads = tree_map(torch.empty_like, params)
+        with torch.enable_grad(), implicit_replication():
+            model = bundle.bind(params)
+            with record_function("agent_forward"):
+                loss = bundle.loss(model, batch)
+            dsts = module_views(grads, bundle.stacked)
+            with record_function("agent_backward"):
+                got = torch.autograd.grad(loss, [model.get_parameter(n) for n, _ in dsts],
+                                          allow_unused=True)
+            with record_function("grad_copy"):
+                for (_, dst), g in zip(dsts, got):
+                    if g is None:
+                        dst.zero_()
+                    else:
+                        dst.copy_(g)
+        del model, got
+        loss = loss.detach().to_local().to(F32).reshape(1)
+        leaves = tree_flatten_with_path(params)
+        gleaves = dict(tree_flatten_with_path(grads))
+        total = torch.zeros((1,), dtype=F32, device=loss.device)
+        for name, _ in leaves:
+            g = gleaves[name]
+            dims = [i for i, pl in enumerate(g.placements)
+                    if pl.is_shard() and g.device_mesh.size(i) > 1]
+            part = 0 if dims else total
+            for blk in _column_blocks(g.to_local(), 1):
+                part = part + torch.sum(torch.square(blk.to(F32)), dim=1)
+            total = total + self._all_reduce(part, dims, g.device_mesh) if dims else part
+        norm = torch.sqrt(total)
+        s = _clip_scale(norm, p2p.clip)[:, None] if p2p.dp_enabled else None
+        shard_gen = (self._shard_generator(generator)
+                     if p2p.dp_enabled and draws is None else None)
+        for name, leaf in leaves:
+            g_leaf = gleaves[name]
+            if p2p.dp_enabled and draws is not None:
+                d_blocks = _column_blocks(_local_slice(
+                    _draws_of(name, leaf, draws), leaf.device_mesh, leaf.placements
+                ).contiguous(), 1)
+            elif p2p.dp_enabled:
+                local = leaf.to_local()
+                split = any(pl.is_shard() and leaf.device_mesh.size(i) > 1
+                            for i, pl in enumerate(leaf.placements))
+                d_blocks = _column_blocks(standard_laplace(
+                    local.shape, shard_gen if split else generator, local.device, F32), 1)
+            else:
+                d_blocks = itertools.repeat(None)
+            blocks = zip(_column_blocks(leaf.to_local(), 1),
+                         _column_blocks(g_leaf.to_local(), 1), d_blocks)
+            for theta, g, d in blocks:
+                if p2p.dp_enabled:
+                    with record_function("clip_noise"):
+                        g = _perturb(g, s, plan.noise_scale, generator, d)
+                with record_function("gossip"):
+                    mix = self._mix(theta) if plan.do_gossip else theta
+                with record_function("update"):
+                    t32 = theta.to(F32)
+                    m32 = mix.to(F32) if plan.do_gossip else t32
+                    theta.copy_((1.0 - plan.alpha) * t32
+                                + plan.alpha * (m32 - p2p.mu * g.to(F32)))
+                del g, mix, t32, m32
+        metrics = {"loss": loss, "grad_norm": norm}
+        if self.collective is not None:
+            import torch.distributed._functional_collectives as funcol
+
+            group = self._agents_mesh.get_group()
+            metrics = {k: funcol.all_reduce(v, "sum", group) / plan.n_agents
+                       for k, v in metrics.items()}
+        return params, {k: v.mean() for k, v in metrics.items()}

@@ -29,6 +29,7 @@ import torch
 from torch import nn
 
 from repro_torch.models.layers import Dense, apply_rope, dense
+from repro_torch.models.sharding import batch_zeros, einsum, gather_unless_divides, shard_like
 
 NEG_INF = -1e30
 CHUNKED_ATTN_THRESHOLD = 16384  # above this S, q-block chunking (flash-style)
@@ -55,6 +56,9 @@ class Attention(nn.Module):
 
 
 def _split_heads(x, n_heads, hd):
+    # A DTensor split over more ranks than heads (8 KV heads over 16) is
+    # gathered first: the split must keep whole heads.
+    x = gather_unless_divides(x, x.ndim - 1, n_heads)
     return x.reshape(*x.shape[:-1], n_heads, hd)
 
 
@@ -72,7 +76,7 @@ def _softcap(scores, cap):
 
 def _scores(q, kr, hd):
     """(B, Sq, H, hd) x (B, Sk, H, hd) -> (B, H, Sq, Sk) float32 / sqrt(hd)."""
-    return torch.einsum("bqhd,bkhd->bhqk", q, kr).to(torch.float32) / math.sqrt(hd)
+    return einsum("bqhd,bkhd->bhqk", q, kr).to(torch.float32) / math.sqrt(hd)
 
 
 def _chunked_causal_attention(q, kr, vr, positions, cfg, window, q_chunk=1024):
@@ -84,14 +88,14 @@ def _chunked_causal_attention(q, kr, vr, positions, cfg, window, q_chunk=1024):
     for start in range(0, S, q_chunk):
         qc = q[:, start:start + q_chunk]
         pc = positions[start:start + q_chunk]
-        scores = torch.einsum("bqhd,bkhd->bhqk", qc, kr).to(torch.float32) * scale
+        scores = einsum("bqhd,bkhd->bhqk", qc, kr).to(torch.float32) * scale
         scores = _softcap(scores, cfg.logit_softcap)
         mask = positions[None, :] <= pc[:, None]
         if window is not None:
             mask = mask & (pc[:, None] - positions[None, :] < window)
         bias = torch.where(mask, 0.0, NEG_INF).to(torch.float32)
         w = torch.softmax(scores + bias[None, None], dim=-1).to(qc.dtype)
-        out.append(torch.einsum("bhqk,bkhd->bqhd", w, vr))
+        out.append(einsum("bhqk,bkhd->bqhd", w, vr))
     return torch.cat(out, dim=1)
 
 
@@ -116,8 +120,9 @@ def attention(params: Attention, x, cfg, positions=None, causal=True, window=Non
             positions = torch.arange(S, device=x.device)
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-    kr = _repeat_kv(k, H // KV)
-    vr = _repeat_kv(v, H // KV)
+    # On a mesh: split like the queries' heads (identity off a mesh).
+    kr = shard_like(_repeat_kv(k, H // KV), q, 2)
+    vr = shard_like(_repeat_kv(v, H // KV), q, 2)
     if kv_memory is None and causal and S >= CHUNKED_ATTN_THRESHOLD and S % 1024 == 0:
         y = _chunked_causal_attention(q, kr, vr, positions, cfg, window)
         return dense(params.o, y.reshape(B, S, H * hd)), (k, v)
@@ -131,7 +136,7 @@ def attention(params: Attention, x, cfg, positions=None, causal=True, window=Non
         bias = torch.where(mask, 0.0, NEG_INF).to(torch.float32)
         scores = scores + bias[None, None]
     w = torch.softmax(scores, dim=-1).to(x.dtype)
-    y = torch.einsum("bhqk,bkhd->bqhd", w, vr).reshape(B, S, H * hd)
+    y = einsum("bhqk,bkhd->bqhd", w, vr).reshape(B, S, H * hd)
     return dense(params.o, y), (k, v)
 
 
@@ -142,9 +147,9 @@ def init_cache(cfg, batch, max_len, dtype, device):
     size = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
     heads = cfg.num_heads if REPEAT_KV_IN_CACHE else cfg.num_kv_heads
     shape = (batch, size, heads, hd)
-    return {
-        "k": torch.zeros(shape, dtype=dtype, device=device),
-        "v": torch.zeros(shape, dtype=dtype, device=device),
+    return {  # batch-sharded on a mesh (models/sharding.py::batch_zeros)
+        "k": batch_zeros(shape, dtype, device),
+        "v": batch_zeros(shape, dtype, device),
         "slot_pos": torch.full((size,), -1, dtype=torch.int32, device=device),  # absolute pos per slot
     }
 
@@ -213,7 +218,7 @@ def decode_attention(params: Attention, x, cfg, cache, pos: int):
     valid = (slot_pos >= 0) & (slot_pos <= pos)
     scores = scores + torch.where(valid, 0.0, NEG_INF).to(torch.float32)[None, None, None, :]
     w = torch.softmax(scores, dim=-1).to(x.dtype)
-    y = torch.einsum("bhqk,bkhd->bqhd", w, vr).reshape(B, 1, H * hd)
+    y = einsum("bhqk,bkhd->bqhd", w, vr).reshape(B, 1, H * hd)
     return dense(params.o, y), cache
 
 
@@ -227,5 +232,5 @@ def decode_cross_attention(params: Attention, x, cfg, mem_k, mem_v):
     kr = _repeat_kv(mem_k, H // KV)
     vr = _repeat_kv(mem_v, H // KV)
     w = torch.softmax(_scores(q, kr, hd), dim=-1).to(x.dtype)
-    y = torch.einsum("bhqk,bkhd->bqhd", w, vr).reshape(B, 1, H * hd)
+    y = einsum("bhqk,bkhd->bqhd", w, vr).reshape(B, 1, H * hd)
     return dense(params.o, y)

@@ -35,6 +35,7 @@ from repro_torch.models.layers import (
     swiglu,
     unembed,
 )
+from repro_torch.models.sharding import constrain_batch
 from repro_torch.models.transformer import head
 from repro_torch.utils.tree import bind_module, module_tree
 
@@ -106,7 +107,7 @@ def _run(body, layers, x, *args, remat):
 
 def encode(params: EncDecLM, embeds, cfg, remat=True):
     """embeds (B, S_enc, d) from the stubbed frontend -> the memory (B, S_enc, d)."""
-    x = embeds.to(dtype_of(cfg))
+    x = constrain_batch(embeds.to(dtype_of(cfg)))
     positions = torch.arange(x.shape[1], device=x.device)
 
     def body(layer, x):
@@ -175,10 +176,11 @@ def prefill(params: EncDecLM, embeds, tokens, cfg, max_len=None):
     B, S = tokens.shape
     max_len = max_len if max_len is not None else S
     dtype, dev = params.embed.table.dtype, params.embed.table.device
-    x = embed(params.embed, tokens)
+    x = constrain_batch(embed(params.embed, tokens))
     positions = torch.arange(S, device=x.device)
     caches = []
     for layer in params.decoder:
+        x = constrain_batch(x)
         with record_function("attention"):
             h, (k, v) = attn_mod.attention(layer.self_attn, rms_norm(layer.ln1, x, cfg.norm_eps),
                                            cfg, positions=positions, window=cfg.sliding_window)

@@ -30,6 +30,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ssm
+from repro_torch.models.sharding import constrain_batch
 from repro_torch.models.layers import (
     Embedding,
     RMSNorm,
@@ -120,7 +121,7 @@ def forward(params: HybridLM, tokens, cfg, remat=True, window=None, last_only=Fa
     block runs in a profiler range, "mamba2" or "shared_attn", so a trace
     can split the device time between them (a range costs a few
     microseconds when no profiler runs)."""
-    x = embed(params.embed, tokens)
+    x = constrain_batch(embed(params.embed, tokens))
     positions = torch.arange(tokens.shape[1], device=x.device)
     window = window if window is not None else cfg.sliding_window
     sites = set(attn_sites(cfg))
@@ -143,6 +144,7 @@ def forward(params: HybridLM, tokens, cfg, remat=True, window=None, last_only=Fa
                            preserve_rng_state=False)
         else:
             x = body(x, layer, i in sites)
+        x = constrain_batch(x)
     x = rms_norm(params.final_norm, x, cfg.norm_eps)
     if last_only:
         x = x[:, -1:]

@@ -55,7 +55,9 @@ class Dense(nn.Module):
 
 
 def dense(p: Dense, x):
-    y = x @ p.w
+    from repro_torch.models.sharding import matmul
+
+    y = matmul(x, p.w)  # x @ p.w off a mesh
     if p.b is not None:
         y = y + p.b
     return y
@@ -71,11 +73,14 @@ class RMSNorm(nn.Module):
 
 
 def rms_norm(p: RMSNorm, x, eps=1e-5):
-    """RMS norm computed in float32 and cast back to ``x``'s type."""
+    """RMS norm computed in float32 and cast back to ``x``'s type (on a
+    mesh the scale whole, as the features are)."""
+    from repro_torch.models.sharding import replicate_features
+
     x32 = x.to(torch.float32)
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
     y = x32 * torch.rsqrt(var + eps)
-    return (y * p.scale.to(torch.float32)).to(x.dtype)
+    return (y * replicate_features(p.scale).to(torch.float32)).to(x.dtype)
 
 
 class SwiGLU(nn.Module):
@@ -123,17 +128,63 @@ def embed(p: Embedding, tokens):
 
 
 def unembed(p: Embedding, x):
-    """Logits against the (tied) table: ``x @ table.T``."""
-    return x @ p.table.T
+    """Logits against the (tied) table: ``x @ table.T`` (on a mesh, ``x``
+    with whole features: ``sharding.replicate_features``)."""
+    from repro_torch.models.sharding import replicate_features
+
+    return replicate_features(x) @ p.table.T
+
+
+def _vocab_sharded(logits) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(logits, DTensor) and any(
+        p.is_shard(logits.ndim - 1) and logits.device_mesh.size(i) > 1
+        for i, p in enumerate(logits.placements))
+
+
+def _vocab_parallel_nll(logits, labels):
+    """-log softmax(logits)[label] of float32 logits split on the vocab over
+    one mesh dim (Megatron's vocab-parallel cross entropy): the max and the
+    sum of exponentials reduce over the split, and each rank picks the
+    label's logit from its own slice of the vocab, the picks summed. The
+    gradient stays split on the vocab (DTensor's own ``cross_entropy``
+    gathers it)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    mesh, places = logits.device_mesh, list(logits.placements)
+    vdim = [i for i, p in enumerate(places) if p.is_shard(logits.ndim - 1)][0]
+    m = logits.detach().amax(dim=-1, keepdim=True)
+    m = m.redistribute(mesh, [Replicate() if i == vdim else p for i, p in enumerate(places)])
+    logz = torch.log(torch.exp(logits - m).sum(dim=-1)) + m[..., 0]
+    rows = [Replicate() if i == vdim else p for i, p in enumerate(places)]
+    if not isinstance(labels, DTensor):
+        labels = DTensor.from_local(labels, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    labels = labels.redistribute(mesh, rows).to_local().long()
+    local = logits.to_local()
+    width = local.shape[-1]
+    lab = labels - mesh.get_local_rank(vdim) * width
+    inside = (lab >= 0) & (lab < width)
+    pick = torch.gather(local, -1, torch.where(inside, lab, 0)[..., None])[..., 0]
+    pick = torch.where(inside, pick, 0.0)
+    picked = DTensor.from_local(pick, mesh, [Partial() if i == vdim else p for i, p in
+                                             enumerate(rows)], run_check=False)
+    return logz - picked.redistribute(mesh, rows)
 
 
 def cross_entropy_loss(logits, labels, mask=None):
     """Mean next-token NLL in float32; logits (..., V), labels int (...).
-    With ``mask``, the masked sum over ``max(sum(mask), 1)``."""
+    With ``mask``, the masked sum over ``max(sum(mask), 1)``. Logits that
+    are a DTensor split on the vocab dim (a tensor-parallel lm head) take
+    the vocab-parallel route instead, which never gathers the vocab
+    (:func:`_vocab_parallel_nll`)."""
     logits = logits.to(torch.float32)
-    logz = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0] - logz
-    nll = -ll
+    if _vocab_sharded(logits):
+        nll = _vocab_parallel_nll(logits, labels)
+    else:
+        logz = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0] - logz
+        nll = -ll
     if mask is None:
         return torch.mean(nll)
     mask = torch.as_tensor(mask, device=nll.device).to(torch.float32)

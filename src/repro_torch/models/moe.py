@@ -30,6 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models.layers import Dense, _param, normal_
+from repro_torch.models.sharding import gather_unless_divides
 
 
 class MoE(nn.Module):
@@ -113,7 +114,9 @@ def moe_ffn(params: MoE, x, cfg):
     mcfg = cfg.moe
     B, S, d = x.shape
     E = mcfg.num_experts
-    xg, T = _groups(x, min(mcfg.group_size, B * S))
+    gs = min(mcfg.group_size, B * S)
+    x = gather_unless_divides(x, 0, -(-B * S // gs))  # identity off a mesh
+    xg, T = _groups(x, gs)
     r = route(params, xg, cfg)
 
     xd = torch.einsum("gsec,gsd->gecd", r.dispatch.to(x.dtype), xg)  # (G, E, C, d)

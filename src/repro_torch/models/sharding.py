@@ -1,0 +1,507 @@
+"""Partition specs for every model family on the production mesh.
+
+Port of ``repro/models/sharding.py``. Mesh axes: ("data", "model")
+single-pod, ("pod", "data", "model") multi-pod.
+
+Two P2P agent modes (DESIGN.md §5):
+* ``full`` — params carry a leading agent axis of size n_agents
+  (= data-axis size x pods) sharded over ("pod","data"); within an agent the
+  model is tensor-parallel over "model".
+* ``silo`` — no agent axis (or pod-sized); params are FSDP-sharded over
+  "data" and tensor-parallel over "model" (giant archs).
+
+Rules are divisibility-aware: a dim is only sharded if the axis size divides
+it; otherwise the rule falls through to the next candidate dim. The rules
+are the reference's, in numpy, over trees of anything with a ``.shape``
+(tensors, FakeTensors, ``torch.Size``-carrying stand-ins). A spec is a
+:class:`P`: one entry per dimension, ``None``, an axis name, or a tuple of
+names. :func:`placements` turns one into DTensor placements over a
+``DeviceMesh``, one per mesh dimension.
+
+``set_activation_axes``/``constrain_batch`` and ``set_seq_axis``/
+``constrain_seq`` are the reference's sharding constraints: the identity
+unless an ambient mesh is set (``launch.mesh.use_mesh``) and the activation
+is a DTensor, which they then ``redistribute``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+from repro_torch.utils.tree import tree_map, tree_map_with_path
+
+
+class P(tuple):
+    """A partition spec: one entry per dimension (``None``, an axis name,
+    or a tuple of names), the port's ``jax.sharding.PartitionSpec``."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self):
+        return "P" + super().__repr__()
+
+
+def axis_sizes(mesh) -> dict:
+    """``{axis name: size}`` of a ``DeviceMesh``, or a stand-in's ``.shape``
+    dict (the tests' and the dry-run's mesh-shape objects)."""
+    names = getattr(mesh, "mesh_dim_names", None)
+    if names is not None:
+        return dict(zip(names, (int(s) for s in mesh.shape)))
+    return dict(mesh.shape)
+
+
+# The ambient mesh of :func:`repro_torch.launch.mesh.use_mesh`.
+_MESH = None
+
+# Optional activation-batch constraint used by inference paths: the launcher
+# sets the batch axes here; library code calls constrain_batch at anchor
+# points.
+_ACT_AXES = None
+
+# §Perf lever: Megatron-style sequence parallelism. When set (to the model
+# axis name), the residual stream between TP regions is sharded on the SEQ
+# dim by constrain_seq at the layer boundary.
+_SEQ_AXIS = None
+
+
+def set_mesh(mesh):
+    global _MESH
+    _MESH = mesh
+
+
+def current_mesh():
+    return _MESH
+
+
+def set_seq_axis(axis):
+    global _SEQ_AXIS
+    _SEQ_AXIS = axis
+
+
+def set_activation_axes(axes):
+    global _ACT_AXES
+    _ACT_AXES = axes
+
+
+def _axes_tuple(axes) -> tuple:
+    return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+def _constrain(x, dim, axes):
+    """``x`` redistributed to ``Shard(dim)`` over the mesh dims named in
+    ``axes`` and replicated over the others (the reference's
+    ``with_sharding_constraint(x, P(..., axes at dim, ...))``), when the
+    named dims' size divides ``x.shape[dim]``; else ``x``."""
+    if _MESH is None or not isinstance(x, DTensor):
+        return x
+    mesh = x.device_mesh
+    names = mesh.mesh_dim_names or ()
+    dims = [i for i, n in enumerate(names) if n in axes]
+    size = int(np.prod([mesh.size(i) for i in dims])) if dims else 1
+    if size <= 1 or x.ndim <= dim or x.shape[dim] % size != 0 or x.shape[dim] < size:
+        return x
+    want = tuple(Shard(dim) if i in dims else Replicate() for i in range(mesh.ndim))
+    if tuple(x.placements) == want:
+        return x
+    return x.redistribute(mesh, want)
+
+
+def constrain_seq(x, dim=1):
+    """Shard the sequence dim of an activation (B, S, d) over the TP axis.
+    Without sequence parallelism, a DTensor residual stream is kept with
+    whole features (``replicate_features``): Megatron's layout, which
+    GSPMD finds by propagation and DTensor, choosing op by op, does not."""
+    if _SEQ_AXIS is None:
+        return replicate_features(x)
+    return _constrain(x, dim, (_SEQ_AXIS,))
+
+
+def constrain_batch(x, dim=0):
+    """Shard the batch dim of an activation over the activation axes."""
+    if _ACT_AXES is None:
+        return x
+    return _constrain(x, dim, _axes_tuple(_ACT_AXES))
+
+
+def gather_unless_divides(x, dim: int, n: int):
+    """``x``; a DTensor whose split of ``dim`` over the mesh does not divide
+    ``n`` (the MoE's token groups of a decode step) gathered on that dim."""
+    if not isinstance(x, DTensor):
+        return x
+    mesh = x.device_mesh
+    parts = int(np.prod([mesh.size(i) for i, p in enumerate(x.placements) if p.is_shard(dim)]))
+    if parts <= 1 or n % parts == 0:
+        return x
+    return x.redistribute(mesh, [Replicate() if p.is_shard(dim) else p for p in x.placements])
+
+
+def _retarget(t, want):
+    want = list(want)
+    return t if want == list(t.placements) else t.redistribute(t.device_mesh, want)
+
+
+def row_parallel(x, w):
+    """The weight ``w`` (d_in, d_out) of ``x @ w``: where ``x`` is split on
+    its features over a mesh dim that splits ``w``'s outputs, ``w`` split
+    on its inputs there instead (a row-parallel product, partial sums
+    reduced after), the layout GSPMD picks; DTensor would gather both."""
+    if not (isinstance(x, DTensor) and isinstance(w, DTensor)) or x.device_mesh != w.device_mesh:
+        return w
+    k = x.ndim - 1
+    return _retarget(w, [Shard(0) if xp.is_shard(k) and wp.is_shard(1) else wp
+                         for xp, wp in zip(x.placements, w.placements)])
+
+
+def _tp_placements(x, w):
+    """Per mesh dim, (output, x-grad, w-grad) placements of ``x @ w`` done on
+    the local shards, or None where the pair is not a tensor-parallel
+    pattern (FSDP-split or pending weights: DTensor decides)."""
+    k = x.ndim - 1
+    out = []
+    for xp, wp in zip(x.placements, w.placements):
+        if xp.is_replicate() and wp.is_replicate():
+            out.append((Replicate(), Replicate(), Replicate()))
+        elif xp.is_replicate() and wp.is_shard(1):  # column-parallel
+            out.append((Shard(k), Partial(), wp))
+        elif xp.is_shard(k) and wp.is_shard(0):  # row-parallel
+            out.append((Partial(), xp, wp))
+        elif xp.is_shard() and xp.dim < k and wp.is_replicate():  # batch-split
+            out.append((xp, xp, Partial()))
+        else:
+            return None
+    return out
+
+
+def matmul(x, w):
+    """``x @ w`` (``w`` a 2-D weight). On a mesh, a tensor-parallel layout
+    (Megatron's column- or row-parallel product, after ``row_parallel``)
+    is computed on the local shards, the output split or pending a sum as
+    the layout says: DTensor, choosing op by op, gathers the weight
+    instead once the activations are large."""
+    if not (isinstance(x, DTensor) and isinstance(w, DTensor)) or x.device_mesh != w.device_mesh:
+        return x @ w
+    w = row_parallel(x, w)
+    plan = _tp_placements(x, w)
+    if plan is None:
+        return x @ w
+    out, xg, wg = zip(*plan)
+    local = x.to_local(grad_placements=xg) @ w.to_local(grad_placements=wg)
+    shape = (*x.shape[:-1], w.shape[-1])
+    return DTensor.from_local(local, x.device_mesh, out, run_check=False, shape=shape,
+                              stride=torch.empty(shape, device="meta").stride())
+
+
+def einsum(eq: str, *ops):
+    """``torch.einsum(eq, *ops)``; on a mesh, where every operand is split on
+    the same index letter (one kept in the output: a head or a batch dim)
+    or replicated, mesh dim by mesh dim, computed on the local shards."""
+    if not all(isinstance(t, DTensor) for t in ops):
+        return torch.einsum(eq, *ops)
+    ins, res = eq.replace(" ", "").split("->")
+    ins = ins.split(",")
+    mesh = ops[0].device_mesh
+    out = []
+    for i in range(mesh.ndim):
+        letters = {t_in[p.dim] if p.is_shard() else None if p.is_replicate() else "?"
+                   for t_in, p in ((t_in, t.placements[i]) for t_in, t in zip(ins, ops))}
+        if any(t.device_mesh != mesh for t in ops) or len(letters) != 1:
+            return torch.einsum(eq, *ops)
+        (letter,) = letters
+        if letter == "?" or (letter is not None and letter not in res):
+            return torch.einsum(eq, *ops)
+        out.append(Replicate() if letter is None else Shard(res.index(letter)))
+    local = torch.einsum(eq, *(t.to_local() for t in ops)).contiguous()
+    sizes = {c: n for t_in, t in zip(ins, ops) for c, n in zip(t_in, t.shape)}
+    shape = tuple(sizes[c] for c in res)
+    return DTensor.from_local(local, mesh, out, run_check=False, shape=shape,
+                              stride=torch.empty(shape, device="meta").stride())
+
+
+def shard_like(t, ref, dim: int):
+    """``t`` split on ``dim`` where ``ref`` is and ``t`` is replicated (the
+    repeated K/V beside the head-split queries): a local slice."""
+    if not (isinstance(t, DTensor) and isinstance(ref, DTensor)):
+        return t
+    if t.device_mesh != ref.device_mesh:
+        return t
+    return _retarget(t, [Shard(dim) if rp.is_shard(dim) and tp.is_replicate() else tp
+                         for tp, rp in zip(t.placements, ref.placements)])
+
+
+def replicate_features(x):
+    """``x``; a DTensor activation whose feature (last) dim is split or
+    pending a sum gathered on it first, so the product with a vocab-split
+    head gives vocab-split logits (never full-vocab partial sums)."""
+    if not isinstance(x, DTensor):
+        return x
+    want = [Replicate() if p.is_partial() or p.is_shard(x.ndim - 1) else p
+            for p in x.placements]
+    return x if want == list(x.placements) else x.redistribute(x.device_mesh, want)
+
+
+def batch_zeros(shape, dtype, device, dim=0):
+    """``torch.zeros(shape)``; with an ambient mesh and activation axes set,
+    a DTensor of zeros sharded on ``dim`` over them that holds only its
+    local shard (the reference constrains its zero caches so)."""
+    if _MESH is None or _ACT_AXES is None:
+        return torch.zeros(shape, dtype=dtype, device=device)
+    import torch.distributed.tensor as dt
+
+    names = _MESH.mesh_dim_names
+    axes = _axes_tuple(_ACT_AXES)
+    size = int(np.prod([axis_sizes(_MESH)[a] for a in axes]))
+    place = [Shard(dim) if n in axes and shape[dim] % size == 0 and shape[dim] >= size
+             else Replicate() for n in names]
+    return dt.zeros(tuple(shape), dtype=dtype, device_mesh=_MESH, placements=place)
+
+
+def _register_pointwise(ops, n_out: int, n_in: int):
+    """Give elementwise ops DTensor has no sharding strategy for one: every
+    operand and output alike, replicated or split on one dim."""
+    from torch.distributed.tensor.experimental import register_sharding
+
+    def strategy(x, *rest):
+        return [([Replicate()] * n_out, [Replicate()] * n_in)] + [
+            ([Shard(d)] * n_out, [Shard(d)] * n_in) for d in range(x.ndim)]
+
+    register_sharding(ops)(strategy)
+
+
+# The xLSTM gates' ``F.logsigmoid`` and its backward.
+_register_pointwise(torch.ops.aten.log_sigmoid_forward.default, 2, 1)
+_register_pointwise(torch.ops.aten.log_sigmoid_backward.default, 1, 3)
+
+
+def _replicated_assert(cond, msg):
+    # ``F.one_hot``'s range check (the MoE router): on the whole condition.
+    return [([], [Replicate(), None])]
+
+
+def _register_assert():
+    from torch.distributed.tensor.experimental import register_sharding
+
+    register_sharding(torch.ops.aten._assert_async.msg)(_replicated_assert)
+
+
+_register_assert()
+
+
+def _axis_size(mesh, name) -> int:
+    if isinstance(name, tuple):
+        return int(np.prod([_axis_size(mesh, n) for n in name]))
+    return axis_sizes(mesh)[name]
+
+
+def _pick_dims(shape, skip, mesh, model_axis, fsdp_axis=None):
+    """Choose (model_dim, fsdp_dim) to shard for a leaf of `shape`.
+
+    Preference: shard the *last* divisible dim over model (column-parallel
+    default), and the largest remaining divisible dim over data (FSDP).
+    Dims in `skip` (leading layer-stack / agent dims) are never sharded.
+    """
+    msz = _axis_size(mesh, model_axis)
+    cands = [i for i in range(len(shape)) if i not in skip]
+    model_dim = None
+    for i in reversed(cands):
+        if shape[i] % msz == 0 and shape[i] >= msz:
+            model_dim = i
+            break
+    fsdp_dim = None
+    if fsdp_axis is not None:
+        fsz = _axis_size(mesh, fsdp_axis)
+        rest = [i for i in cands if i != model_dim]
+        rest.sort(key=lambda i: -shape[i])
+        for i in rest:
+            if shape[i] % fsz == 0 and shape[i] >= fsz:
+                fsdp_dim = i
+                break
+    return model_dim, fsdp_dim
+
+
+_STACKS = ("layers", "encoder", "decoder", "mlstm", "slstm", "ln_m", "ln_s")
+
+
+def param_specs(params, mesh, agent_mode: str, n_agents: int, scan_dims=("layers",)):
+    """A :class:`P` tree matching ``params`` (a tree of anything with a
+    ``.shape``). In ``full`` mode the leaves carry the leading agent dim."""
+    sizes = axis_sizes(mesh)
+    has_pod = "pod" in sizes
+    agent_axes = ("pod", "data") if has_pod else ("data",)
+    fsdp_axis = "data" if agent_mode in ("silo", "serve") else None
+
+    def one(path_str, leaf):
+        shape = tuple(leaf.shape)
+        skip = set()
+        spec = [None] * len(shape)
+        dim0 = 0
+        if agent_mode == "full":
+            spec[0] = agent_axes if len(agent_axes) > 1 else agent_axes[0]
+            skip.add(0)
+            dim0 = 1
+        elif agent_mode == "silo":
+            # leading pod-agent dim (size 1 on a single pod -> replicated)
+            spec[0] = "pod" if (has_pod and n_agents > 1) else None
+            skip.add(0)
+            dim0 = 1
+        # layer-stack dim (from the stacked init) right after the agent dim.
+        if any(s in path_str for s in _STACKS) and len(shape) > dim0:
+            skip.add(dim0)
+        if len(shape) - len(skip) == 0:
+            return P(*spec)
+        if len(shape) - len(skip) == 1 and shape[-1] < 1024:
+            return P(*spec)  # small vectors (norm scales, biases): replicate
+        if path_str.endswith("table") and len(shape) - dim0 == 2:
+            # embedding / lm-head: shard the (padded) vocab dim over "model"
+            # so logits stay vocab-sharded instead of replicated at full V.
+            msz = _axis_size(mesh, "model")
+            vdim, ddim = dim0, dim0 + 1
+            if shape[vdim] % msz == 0:
+                spec[vdim] = "model"
+                if fsdp_axis is not None and shape[ddim] % _axis_size(mesh, fsdp_axis) == 0:
+                    spec[ddim] = fsdp_axis
+                return P(*spec)
+        model_dim, fsdp_dim = _pick_dims(shape, skip, mesh, "model", fsdp_axis)
+        if model_dim is not None:
+            spec[model_dim] = "model"
+        if fsdp_dim is not None:
+            spec[fsdp_dim] = "data"
+        return P(*spec)
+
+    return tree_map_with_path(one, params)
+
+
+def batch_specs(batch, mesh, agent_mode: str):
+    """Batch specs, divisibility-safe.
+
+    full  — dim0 is the agent dim, sharded over ("pod","data");
+    silo  — dim0 is the pod-agent dim ("pod" when pods>1, else replicated),
+            dim1 (per-agent batch) sharded over "data";
+    serve — dim0 is the request batch, sharded over ("pod","data") when the
+            size divides (long_500k's batch of 1 stays replicated).
+    """
+    sizes = axis_sizes(mesh)
+    has_pod = "pod" in sizes
+    data_axes = ("pod", "data") if has_pod else ("data",)
+    lead = data_axes if len(data_axes) > 1 else data_axes[0]
+    lead_sz = _axis_size(mesh, data_axes)
+    dsz = _axis_size(mesh, "data")
+
+    def one(leaf):
+        shape = tuple(leaf.shape)
+        spec = [None] * len(shape)
+        if agent_mode == "full":
+            if len(shape) >= 1 and shape[0] % lead_sz == 0:
+                spec[0] = lead
+        elif agent_mode == "silo":
+            if has_pod and len(shape) >= 1 and shape[0] % sizes["pod"] == 0:
+                spec[0] = "pod"
+            if len(shape) >= 2 and shape[1] % dsz == 0 and shape[1] >= dsz:
+                spec[1] = "data"
+        else:  # serve
+            if len(shape) >= 1 and shape[0] % lead_sz == 0 and shape[0] >= lead_sz:
+                spec[0] = lead
+            elif len(shape) >= 1 and not has_pod and shape[0] % dsz == 0 and shape[0] >= dsz:
+                spec[0] = "data"
+        return P(*spec)
+
+    return tree_map(one, batch)
+
+
+def cache_specs(cache, mesh, batch_sharded: bool):
+    """Decode-cache specs.
+
+    Layout is (layer, batch, seq, kv_heads, head_dim) for KV buffers. Batch
+    shards over ("pod","data"); the model axis takes the KV-head dim when it
+    divides, otherwise the SEQ dim. The port's caches are lists, one entry
+    a layer: :func:`layer_cache_specs` reads them as stacked.
+    """
+    sizes = axis_sizes(mesh)
+    has_pod = "pod" in sizes
+    data_axes = ("pod", "data") if has_pod else ("data",)
+    lead = data_axes if len(data_axes) > 1 else data_axes[0]
+    dsz = _axis_size(mesh, data_axes)
+    msz = _axis_size(mesh, "model")
+
+    def one(leaf):
+        shape = tuple(leaf.shape)
+        spec = [None] * len(shape)
+        # caches are stacked per layer: dim0 = layer, dim1 = batch
+        if batch_sharded and len(shape) >= 2 and shape[1] % dsz == 0 and shape[1] >= dsz:
+            spec[1] = lead
+        if len(shape) == 5:  # (L, B, S, KV, hd)
+            if shape[3] % msz == 0 and shape[3] >= msz:
+                spec[3] = "model"
+            elif shape[2] % msz == 0 and shape[2] >= msz:
+                spec[2] = "model"
+        return P(*spec)
+
+    return tree_map(one, cache)
+
+
+class Shape:
+    """A leaf stand-in for the spec rules: only a ``.shape``."""
+
+    def __init__(self, shape):
+        self.shape = tuple(shape)
+
+
+def stacked_shapes(tree, n: int):
+    """``tree``'s leaves as stand-ins stacked on a leading axis of ``n``
+    (the agents of a round, the layers of a cache)."""
+    return tree_map(lambda x: Shape((n, *x.shape)), tree)
+
+
+def layer_cache_specs(caches, mesh, batch_sharded: bool):
+    """:func:`cache_specs` of the port's per-layer caches (lists of a tree a
+    layer): each leaf read as the reference's stacked (layer, ...) leaf,
+    the layer dim dropped from its spec again (the rules never shard it)."""
+    stacked = stacked_shapes(caches, 1)
+    return map_specs(drop_dim, cache_specs(stacked, mesh, batch_sharded))
+
+
+def map_specs(fn, specs, *rest):
+    """``fn`` applied to each :class:`P` of a spec tree (and the matching
+    nodes of trees of its structure): a ``P`` is a leaf, not a tuple."""
+    if isinstance(specs, P):
+        return fn(specs, *rest)
+    if isinstance(specs, dict):
+        return {k: map_specs(fn, specs[k], *(r[k] for r in rest)) for k in sorted(specs)}
+    if isinstance(specs, (list, tuple)):
+        return type(specs)(map_specs(fn, x, *(r[i] for r in rest)) for i, x in enumerate(specs))
+    return fn(specs, *rest)
+
+
+def placements(spec, mesh) -> tuple:
+    """DTensor placements of ``spec`` over ``mesh``, one per mesh dimension:
+    ``Shard(d)`` on each mesh dim that dimension d's entry names (a tuple
+    such as ("pod", "data") shards d over both, major first), else
+    ``Replicate()``. A mesh dim the spec does not name is replicated; an
+    axis the mesh lacks raises."""
+    names = tuple(mesh.mesh_dim_names)
+    out = [Replicate()] * len(names)
+    for d, entry in enumerate(spec):
+        if entry is None:
+            continue
+        for axis in _axes_tuple(entry):
+            if axis not in names:
+                raise ValueError(f"spec {spec} names {axis!r}, the mesh has {names}")
+            out[names.index(axis)] = Shard(d)
+    return tuple(out)
+
+
+def drop_dim(spec, dim: int = 0):
+    """``spec`` without dimension ``dim`` (the agent or the layer axis)."""
+    return P(*(e for i, e in enumerate(spec) if i != dim))
+
+
+def local_shape(shape, spec, mesh) -> tuple:
+    """The shape of one device's shard of a leaf of ``shape`` under ``spec``
+    (the specs shard only dims the axes divide)."""
+    out = list(shape)
+    for d, entry in enumerate(spec):
+        if entry is not None:
+            out[d] //= _axis_size(mesh, entry)
+    return tuple(out)

@@ -14,9 +14,9 @@ The reference's ``lax.scan`` over stacked layers is a Python loop over
 attention and FFN run in the profiler ranges "attention" and "ffn", so a
 trace can split the device time between them. The caches are a list, one
 KV cache a layer, written in place (``src/repro_torch/DEVIATIONS.md``).
-The reference's ``constrain_seq``/``constrain_batch`` are sharding
-constraints, no-ops without a mesh; the port has no mesh (ROADMAP A15d)
-and leaves them out.
+The reference's ``constrain_seq``/``constrain_batch`` sit where the
+reference has them (``models/sharding.py``): the identity without an
+ambient mesh, a DTensor redistribution with one.
 """
 
 from __future__ import annotations
@@ -40,6 +40,7 @@ from repro_torch.models.layers import (
     swiglu,
     unembed,
 )
+from repro_torch.models.sharding import constrain_batch, constrain_seq
 from repro_torch.utils.tree import bind_module, module_tree
 
 
@@ -94,10 +95,11 @@ def ffn(cfg, layer, h):
 
 
 def _block(cfg, layer: Block, x, positions, window):
+    x = constrain_seq(x)  # seq-parallel residual (no-op unless enabled)
     with record_function("attention"):
         h, _ = attn_mod.attention(layer.attn, rms_norm(layer.ln1, x, cfg.norm_eps), cfg,
                                   positions=positions, window=window)
-        x = x + h
+        x = constrain_seq(x + h)
     with record_function("ffn"):
         f, aux = ffn(cfg, layer, rms_norm(layer.ln2, x, cfg.norm_eps))
     return x + f, aux
@@ -145,9 +147,10 @@ def prefill(params: TransformerLM, tokens, cfg, max_len=None):
     logits (B, 1, vocab) and the caches."""
     B, S = tokens.shape
     caches = init_cache(params, cfg, B, max_len if max_len is not None else S)
-    x = embed(params.embed, tokens)
+    x = constrain_batch(embed(params.embed, tokens))
     positions = torch.arange(S, device=x.device)
     for layer, cache in zip(params.layers, caches):
+        x = constrain_batch(x)
         with record_function("attention"):
             h, (k, v) = attn_mod.attention(layer.attn, rms_norm(layer.ln1, x, cfg.norm_eps), cfg,
                                            positions=positions, window=cfg.sliding_window)

@@ -174,7 +174,7 @@ def mlstm_forward(params: MLSTM, xin, cfg):
     return _mlstm_out(params, y, z, xin, cfg)
 
 
-def init_mlstm_cache(cfg, batch, device="cpu"):
+def init_mlstm_cache(cfg, batch, device):
     """The recurrent state: C (B, H, hd, hd), n (B, H, hd), m (B, H) = -1e30."""
     _, H, hd = _dims(cfg)
     return {
@@ -230,7 +230,7 @@ class SLSTM(nn.Module):
                 self.bias.zero_()
 
 
-def init_slstm_cache(cfg, batch, device="cpu"):
+def init_slstm_cache(cfg, batch, device):
     """The recurrent state: c, n, h (B, H, hd) and the stabilizer m (B, H),
     all zero (m starts at 0, not at -1e30 as the mLSTM's does)."""
     H = cfg.num_heads

@@ -14,8 +14,8 @@ Remat: each block's body (its norm and block) runs under
 records, the reference's ``jax.checkpoint`` of the layer body. Each block
 body runs in a profiler range, "mlstm" or "slstm" (the remat recompute
 too). The decode caches are lists, one recurrent state a block of each
-type. The reference's ``constrain_batch`` is a sharding constraint, a
-no-op without a mesh (the port has none: ROADMAP A15d).
+type. The reference's ``constrain_batch`` calls stand where it has them
+(``models/sharding.py``: the identity without an ambient mesh).
 """
 
 from __future__ import annotations
@@ -27,6 +27,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import xlstm
+from repro_torch.models.sharding import constrain_batch
 from repro_torch.models.layers import (
     Embedding,
     RMSNorm,
@@ -106,7 +107,7 @@ def forward(params: XLSTMLM, tokens, cfg, remat=True, last_only=False):
 
     ``remat``: with autograd recording, each block's body runs under
     ``torch.utils.checkpoint`` (no effect without a gradient)."""
-    x = embed(params.embed, tokens)
+    x = constrain_batch(embed(params.embed, tokens))
     remat = remat and torch.is_grad_enabled()
     for is_s, j in _blocks(cfg):
         if is_s:
@@ -119,6 +120,7 @@ def forward(params: XLSTMLM, tokens, cfg, remat=True, last_only=False):
                            preserve_rng_state=False)
         else:
             x = body(cfg, ln, block, x)
+        x = constrain_batch(x)
     x = rms_norm(params.final_norm, x, cfg.norm_eps)
     if last_only:
         x = x[:, -1:]

@@ -153,7 +153,7 @@ def test_bench_run_list_and_unknown_only(capsys):
     names = capsys.readouterr().out.split()
     assert names == ["fig1", "fig2", "table1", "ablations", "kernels", "sparse_scale",
                      "async_engine", "sharded_engine", "obs", "dynamic_topology", "checkpoint",
-                     "serving"]
+                     "serving", "roofline"]
     assert bench_run.main(["--only", "definitely_not_a_bench"]) != 0
     err = capsys.readouterr().err
     assert "definitely_not_a_bench" in err

@@ -52,7 +52,11 @@ def test_every_module_imports_without_jax_or_reference():
             "repro_torch.optim", "repro_torch.optim.optimizers", "repro_torch.core.spmd",
             "repro_torch.launch", "repro_torch.launch.train", "repro_torch.launch.serve",
             "repro_torch.models.transformer", "repro_torch.models.moe",
-            "repro_torch.models.encdec", "repro_torch.examples.decentralized_lm"} <= set(mods)
+            "repro_torch.models.encdec", "repro_torch.examples.decentralized_lm",
+            "repro_torch.models.sharding", "repro_torch.launch.mesh",
+            "repro_torch.launch.dryrun", "repro_torch.launch.hillclimb",
+            "repro_torch.roofline", "repro_torch.roofline.analysis",
+            "repro_torch.roofline.counter", "repro_torch.bench.roofline"} <= set(mods)
     code = textwrap.dedent(
         f"""
         import importlib, sys
@@ -242,15 +246,15 @@ def test_deviations_name_existing_tests_and_current_figures():
     assert "208 KB" not in text
 
 
-# The reference packages the port has done (ROADMAP A1-A14, A15a, A15b and
-# the training half of A15d), and the public names of theirs the port
-# leaves out on purpose, each with the text of its recorded deviation in
-# DEVIATIONS.md.
+# The reference packages the port has done (ROADMAP A1-A14, A15a-A15d),
+# and the public names of theirs the port leaves out on purpose, each with
+# the text of its recorded deviation in DEVIATIONS.md.
 DONE_PACKAGES = ("core", "sim", "obs", "checkpoint", "serve", "models", "configs", "data",
-                 "kernels", "optim", "utils")
+                 "kernels", "optim", "utils", "launch", "roofline")
 RECORDED_ABSENT = {
     "sim.SimState.key": "`.generator` in place of `.key` / `keys`",
     "sim.ShardedSimState.keys": "`.generator` in place of `.key` / `keys`",
+    "roofline.analyze_compiled": "`analyze_traced` in place of `analyze_compiled`",
 }
 # The ``init_*`` functions of ``repro.models`` whose port is a module class
 # drawing from a generator, with their deviation's text.
@@ -259,16 +263,14 @@ MODELS_ABSENT = {f"models.{k}": "`init_*` functions are module constructors" for
     "layers.init_embedding", "moe.init_moe", "ssm.init_mamba2", "xlstm.init_mlstm",
     "xlstm.init_slstm")}
 # The modules of ``repro.models`` and ``repro.launch`` not ported yet, each
-# with the text of the DEVIATIONS.md row naming its ROADMAP item.
-_MESH = "`models/sharding.py` and `launch/{dryrun,hillclimb,mesh}.py` wait for ROADMAP A15d"
-MODULES_WAITING = {"models.sharding": _MESH, "launch.dryrun": _MESH,
-                   "launch.hillclimb": _MESH, "launch.mesh": _MESH}
+# with the text of the DEVIATIONS.md row naming its ROADMAP item: none since
+# A15d (the mesh, sharding, dry-run and hill-climb modules).
+MODULES_WAITING = {}
+# The reference modules whose import sets XLA_FLAGS for 512 host devices.
+SET_XLA_FLAGS = ("launch.dryrun", "launch.hillclimb")
 # The functions and classes ``repro.core.spmd`` defines that the port's
-# ``core/spmd.py`` leaves out, with their deviation's text.
-SPMD_ABSENT = {
-    "shardings_for": "`shardings_for` and `jit_train_step` absent",
-    "jit_train_step": "`shardings_for` and `jit_train_step` absent",
-}
+# ``core/spmd.py`` leaves out, with their deviation's text: none since A15d.
+SPMD_ABSENT = {}
 
 
 def test_every_public_name_of_a_done_reference_package_is_ported_or_recorded():
@@ -282,6 +284,13 @@ def test_every_public_name_of_a_done_reference_package_is_ported_or_recorded():
     for pkg in DONE_PACKAGES:
         ref = importlib.import_module(f"repro.{pkg}")
         port = importlib.import_module(f"repro_torch.{pkg}")
+        if getattr(ref, "__file__", None) is None:
+            # A namespace package (``repro.launch``): its names are its
+            # modules, each ported (their contents are checked below).
+            mods = {m.name for m in pkgutil.iter_modules(ref.__path__)}
+            absent.update(f"{pkg}.{m}" for m in mods
+                          if not (SRC / pkg / f"{m}.py").exists())
+            continue
         names = getattr(ref, "__all__", None) or [k for k in dir(ref) if not k.startswith("_")]
         for name in names:
             if not hasattr(port, name):
@@ -318,6 +327,16 @@ def test_every_public_name_of_a_done_reference_package_is_ported_or_recorded():
                 assert not (SRC / pkg / f"{info.name}.py").exists(), name
                 assert MODULES_WAITING[name] in text, name
                 continue
+            if name in SET_XLA_FLAGS:
+                # Importing these sets the reference's 512-device flag: their
+                # top-level functions and classes are read from the source.
+                tree = ast.parse((SRC.parent / "repro" / pkg / f"{info.name}.py").read_text())
+                port = importlib.import_module(f"repro_torch.{name}")
+                defined = {n.name for n in tree.body
+                           if isinstance(n, (ast.FunctionDef, ast.ClassDef))
+                           and not n.name.startswith("_")}
+                assert defined and all(hasattr(port, k) for k in defined), name
+                continue
             ref = importlib.import_module(f"repro.{name}")
             port = importlib.import_module(f"repro_torch.{name}")
             defined = {k for k, v in vars(ref).items() if not k.startswith("_")
@@ -327,8 +346,7 @@ def test_every_public_name_of_a_done_reference_package_is_ported_or_recorded():
             assert missing <= set(MODELS_ABSENT), missing
             for why in (MODELS_ABSENT[k] for k in missing):
                 assert why in text
-    assert set(MODULES_WAITING) == {"models.sharding", "launch.dryrun", "launch.hillclimb",
-                                    "launch.mesh"}
+    assert MODULES_WAITING == {}
 
 
 def test_every_function_of_the_reference_spmd_is_ported_or_recorded():
@@ -346,7 +364,8 @@ def test_every_function_of_the_reference_spmd_is_ported_or_recorded():
     assert {"make_train_step", "make_fedavg_step", "gossip_ppermute", "clip_and_noise",
             "P2PPlan", "_ring_perm", "_tree_norm"} <= defined
     absent = {name for name in defined if not hasattr(port, name)}
-    assert absent == set(SPMD_ABSENT)
+    assert absent == set(SPMD_ABSENT) == set()
+    assert {"shardings_for", "jit_train_step"} <= defined
     text = (SRC / "DEVIATIONS.md").read_text()
     for why in SPMD_ABSENT.values():
         assert why in text

@@ -420,7 +420,8 @@ def test_train_launcher_writes_and_resumes_checkpoints(tmp_path, capsys):
                         "2", "--seq", "33", "--agents", "2", "--log-every", "1", "--device", "cpu"])
     assert [r["step"] for r in hist] == [0, 1]
     assert all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]) for r in hist)
-    with pytest.raises(NotImplementedError, match="A15d"):
+    # A model axis runs one agent a data rank: only under torchrun.
+    with pytest.raises(RuntimeError, match="torchrun --standalone --nproc_per_node 4"):
         ttrain.main(["--mesh", "2x2", "--steps", "1", "--device", "cpu"])
 
 

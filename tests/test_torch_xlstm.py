@@ -153,7 +153,7 @@ def test_decode_cells_and_states_match_reference():
               txl.init_slstm_cache, model.slstm[0]))
     for key, jdec, jinit, tdec, tinit, block in cases:
         p = _block(params, key)
-        want_c, got_c = jinit(jcfg, B), tinit(tcfg, B)
+        want_c, got_c = jinit(jcfg, B), tinit(tcfg, B, device="cpu")
         assert set(want_c) == set(got_c)
         for name in want_c:
             assert np.array_equal(got_c[name].numpy(), np.asarray(want_c[name])), (key, name)
@@ -350,3 +350,15 @@ def test_bundle_bind_and_param_tree_round_trip():
                                        bias=np_params["slstm"]["bias"].astype(np.float64)))
     with pytest.raises(ValueError, match="slstm.0.bias"):
         xlstm_params_from_reference(wrong, tcfg, CPU)
+
+
+def test_cache_initialisers_take_no_default_device():
+    """``init_mlstm_cache`` and ``init_slstm_cache`` take ``device`` with no
+    default, as ``attention.init_cache`` and ``ssm.init_mamba2_cache`` do:
+    nothing lands on the CPU unless asked (``repro_torch/device.py``)."""
+    tcfg = tcfgs.get_reduced(ARCH, dtype="float32")
+    for init in (txl.init_mlstm_cache, txl.init_slstm_cache):
+        with pytest.raises(TypeError, match="device"):
+            init(tcfg, B)
+        state = init(tcfg, B, device="cpu")
+        assert all(t.device == CPU for t in state.values())
