@@ -275,8 +275,23 @@ Phases, one line each (any failure ends the run with a non-zero code):
    bytes must equal (a)'s input bytes, 16 x the 16x16 row's per-device
    flops must lie within 5% of the (1, 1) row's at 16 x 4096, the ring
    gossip must ship fewer collective bytes than the dense one; (a)'s
-   measured peak prints beside the predicted argument + temp bytes;
-13. a JSON line of every ported kernel (launches, error, times, bound),
+   measured peak prints beside the predicted argument + temp bytes; and
+   the serve rows of llama3.2-1b x prefill_32k and decode_32k on 16x16:
+   per-device flops within 5% of the JAX package's counts of the same
+   rows (2.556e13 and 3.383e9), temp under 80 GB;
+13. the sharded engine one shard a process on ``rgg500k_p100`` at S = 2
+   (RCM, degree blocks, exchange ``auto``): (i) two worker processes on
+   the card (``--rank-worker``) in a gloo group through a ``FileStore``,
+   the halo staged through host memory: 37 forced slots of the legs
+   ``sharded_fused``, ``sharded_unfused`` and ``sharded_fused_bf16_ef``
+   must equal the stacked S = 2 engine's, run here, bit for bit, every
+   fused rank must launch ``fused_row_update``, a per-rank save restored
+   into fresh rank engines must resume bit for bit; per-rank eager ms a
+   slot beside the stacked captured one (two ranks on one card over a
+   host-staged wire: not a multi-card figure); which gloo collectives
+   take CUDA tensors (``--gloo-probe`` pairs); (ii) a one-rank NCCL group
+   at S = 1: captured == eager == stacked bit for bit, ms a captured slot;
+14. a JSON line of every ported kernel (launches, error, times, bound),
    the phases' command seconds (each also printed as a ``[time]`` line
    when its phase ends), then the last line
    ``{"ok": true, "device": {...}}``.
@@ -3939,8 +3954,16 @@ DRYRUN_CALLS = {
                  "--seq", str(MESH_ROUND["seq"] - 1)],
     "1x1_per_agent": ["-m", "repro_torch.launch.dryrun", "--arch", "llama3.2-1b", "--shape",
                       "train_4k", "--mesh-shape", "1x1", "--batch", "16", "--seq", "4096"],
+    "16x16_prefill": ["-m", "repro_torch.launch.dryrun", "--arch", "llama3.2-1b", "--shape",
+                      "prefill_32k"],
+    "16x16_decode": ["-m", "repro_torch.launch.dryrun", "--arch", "llama3.2-1b", "--shape",
+                     "decode_32k"],
 }
 DRYRUN_FLOPS_TOL = 0.05  # 16 x the 16x16 per-device flops against the (1, 1) row's
+# The serve rows' gates: per-device flops within DRYRUN_FLOPS_TOL of the
+# reference's count of the same row (ROADMAP C8, from the JAX package's
+# dry-run of llama3.2-1b on 16x16 on a CPU), and a temp an 80 GB card holds.
+DRYRUN_SERVE_FLOPS = {"16x16_prefill": 2.556e13, "16x16_decode": 3.383e9}
 DRYRUN_TIMEOUT_S = 300
 
 
@@ -4111,16 +4134,391 @@ def mesh_layer(dev, launches: dict, card: str) -> dict:
     out.update(rows=rows, args_equal=args_ok, flops_rel=flops_rel, ppermute_lt_dense=coll_ok,
                predicted_peak_bytes=predicted, measured_over_predicted=mr["peak_bytes"] / predicted,
                seconds=dr_s)
+    serve = {label: dict(flops_rel=rows[label]["flops_per_device"] / want - 1.0,
+                         temp_bytes=rows[label]["memory"]["temp_size_in_bytes"])
+             for label, want in DRYRUN_SERVE_FLOPS.items()}
+    serve_ok = all(abs(v["flops_rel"]) <= DRYRUN_FLOPS_TOL and v["temp_bytes"] < CARD_GB * 1e9
+                   for v in serve.values())
+    out["serve_gates"] = serve
+    for label, v in serve.items():
+        log(f"[12] serve gate {label}: flops_per_device {rows[label]['flops_per_device']:.6g} vs "
+            f"the reference's {DRYRUN_SERVE_FLOPS[label]:.6g} (rel {v['flops_rel']:.6g}, "
+            f"tolerance {DRYRUN_FLOPS_TOL}); temp {v['temp_bytes']} B < {CARD_GB:g} GB")
     log(f"[12] gates: argument bytes {card_row['memory']['argument_size_in_bytes']} vs the card's "
         f"{mr['input_bytes']} ({args_ok}); 16 x 16x16 flops / (1, 1) flops - 1 = {flops_rel:.6g} "
         f"(tolerance {DRYRUN_FLOPS_TOL}); ppermute {big['collective_bytes_per_device']:.6g} B < "
         f"dense {dense['collective_bytes_per_device']:.6g} B ({coll_ok}); on {card}: measured peak "
         f"{mr['peak_bytes']} B vs predicted argument + temp {predicted} B "
         f"(ratio {out['measured_over_predicted']:.6g}); phase wall {dr_s:.1f} s")
-    if not (args_ok and abs(flops_rel) <= DRYRUN_FLOPS_TOL and coll_ok):
+    if not (args_ok and abs(flops_rel) <= DRYRUN_FLOPS_TOL and coll_ok and serve_ok):
         raise SystemExit(f"phase 12 dry-run gates failed: args {args_ok}, flops {flops_rel}, "
-                         f"ppermute < dense {coll_ok}")
+                         f"ppermute < dense {coll_ok}, serve rows {serve}")
     return out
+
+
+# Phase 13: the sharded engine one shard a process (see PERF.md, "Cells").
+# The rgg500k_p100 problem uncut at S = 2 with phase 4's sharded placement
+# (RCM relabel, degree blocks, exchange "auto"). (i) Two worker processes
+# on the one card form a gloo group through a FileStore, the halo staged
+# through host memory: each leg's forced-wake slots must equal the stacked
+# S = 2 engine's, run here, bit for bit; a per-rank save restores into
+# fresh rank engines. This checks per-rank state and per-rank launches on
+# one card; it is no measure of an exchange across cards. (ii) A one-rank
+# NCCL group runs the fused leg at S = 1, captured.
+RANKS = dict(shards=2, relabel="rcm", partition_mode="degree", mask_seed=13, slots=37,
+             timed_windows=3, timed_slots=20, nccl_windows=3, nccl_slots=100)
+RANK_LEGS = ("sharded_fused", "sharded_unfused", "sharded_fused_bf16_ef")
+RANK_TIMEOUT_S = 400
+
+
+def _rank_engine_kw(leg: str, c: dict) -> dict:
+    """The engine options of a phase-13 leg (phase 4's sharded legs') on
+    the problem ``c`` (:data:`MAIN`)."""
+    from repro_torch.sim import ChurnConfig, ExchangeSpec, Scenario
+
+    wire = (ExchangeSpec(method="p2p", dtype="bf16", error_feedback=True)
+            if leg == "sharded_fused_bf16_ef" else ExchangeSpec())
+    return dict(exchange=wire, fused=False if leg == "sharded_unfused" else "auto",
+                slot_wakes=c["slot_wakes"], seed=c["seed"],
+                scenario=Scenario(churn=ChurnConfig(leave_prob=0.01, rejoin_prob=0.2)))
+
+
+def _rank_masks(c: dict, r: dict):
+    """The forced wake sets of phase 13, the same in every process."""
+    import numpy as np
+
+    rng = np.random.default_rng(r["mask_seed"])
+    return (rng.random(c["n"]) < c["slot_wakes"] / c["n"] for _ in range(r["slots"]))
+
+
+def _leaves(state) -> dict:
+    """A sharded state's per-shard leaves (L, ...) on the host."""
+    out = {k: getattr(state, k) for k in ("Theta", "active", "applied", "dropped", "messages",
+                                          "ptr")}
+    if state.ef is not None:
+        out["ef"] = state.ef
+    return {k: v.detach().to("cpu").numpy() for k, v in out.items()}
+
+
+GLOO_PROBES = ("all_gather_into_tensor", "all_reduce", "broadcast", "batch_isend_irecv")
+GLOO_PROBE_TIMEOUT_S = 90
+
+
+def gloo_probe_worker(call: str, rank: int, store: str) -> int:
+    """One rank of a two-rank gloo group on the card trying one collective
+    on CUDA tensors (``chip_smoke.py --gloo-probe``); prints what happened.
+    What the exchange uses is chosen by the backend, not by this probe."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", store=dist.FileStore(store, 2), rank=rank, world_size=2,
+                            timeout=datetime.timedelta(seconds=30))
+    x = torch.ones(4, device=dev)
+    try:
+        if call == "all_gather_into_tensor":
+            dist.all_gather_into_tensor(torch.empty(8, device=dev), x)
+        elif call == "all_reduce":
+            dist.all_reduce(x)
+        elif call == "broadcast":
+            dist.broadcast(x, 0)
+        else:
+            ops_ = [dist.P2POp(dist.isend, x, 1 - rank),
+                    dist.P2POp(dist.irecv, torch.empty_like(x), 1 - rank)]
+            for w in dist.batch_isend_irecv(ops_):
+                w.wait()
+        torch.cuda.synchronize()
+        print("PROBE takes CUDA tensors", flush=True)
+    except Exception as e:  # the finding, recorded as it is
+        print(f"PROBE {type(e).__name__}: {str(e).splitlines()[0][:160]}", flush=True)
+    return 0
+
+
+def gloo_probes_start(out_dir: Path) -> dict:
+    """Start a two-process gloo group on the card for each collective of
+    :data:`GLOO_PROBES`; returns the processes."""
+    procs = {}
+    for call in GLOO_PROBES:
+        store = out_dir / f"probe_{call}"
+        procs[call] = [subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--gloo-probe", call, str(r),
+             str(store)], cwd=ROOT, env=dict(os.environ, OMP_NUM_THREADS="1"),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    return procs
+
+
+def gloo_probes_read(procs: dict) -> dict:
+    """What each probed collective did on CUDA tensors (a process that died
+    or hung is what happened, recorded with its exit code)."""
+    out = {}
+    for call, pair in procs.items():
+        seen = []
+        for p in pair:
+            try:
+                text = p.communicate(timeout=GLOO_PROBE_TIMEOUT_S)[0]
+            except subprocess.TimeoutExpired:
+                p.kill()
+                text = p.communicate()[0] + "\nPROBE hung"
+            lines = [ln[6:] for ln in text.splitlines() if ln.startswith("PROBE ")]
+            seen.append(lines[-1] if lines else f"the process died (exit {p.returncode})")
+        out[call] = seen[0] if seen[0] == seen[1] else " / ".join(seen)
+    return out
+
+
+def rank_worker(rank: int, world: int, store: str, out_dir: str) -> int:
+    """One rank of phase 13 (i): ``chip_smoke.py --rank-worker``, with the
+    problem, the sizes and the device the parent wrote to ``config.json``."""
+    import datetime
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.checkpoint import restore, save_engine_checkpoint
+    from repro_torch.kernels import ops
+    from repro_torch.sim import CDUpdate, make_engine, partition_graph
+
+    out = Path(out_dir)
+    cfg = json.loads((out / "config.json").read_text())
+    c, rk, dev = cfg["main"], cfg["ranks"], torch.device(cfg["device"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=120))
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    try:
+        report = {}
+        t0 = time.perf_counter()
+        obj = quadratic_rgg_problem(c["n"], c["p"], c["m"], c["avg_degree"], c["mu"], c["seed"],
+                                    mix_mode="sparse")
+        part = partition_graph(obj.graph, world, mode=rk["partition_mode"],
+                               relabel=rk["relabel"])
+        report["setup_s"] = time.perf_counter() - t0
+        for leg in RANK_LEGS:
+            def make():
+                return make_engine(CDUpdate(obj), shards=world, partition=part, device=dev,
+                                   **_rank_engine_kw(leg, c))
+
+            eng = make()
+            r = dict(rank=eng.rank, fused=bool(eng.fused), method=eng.exchange_method,
+                     capture_mode=eng.capture_mode, staged=eng.smix.collective.staged)
+            state = eng.init_state(np.zeros((obj.n, obj.p), np.float32))
+            ops.reset_launch_counts()
+            for mask in _rank_masks(c, rk):
+                state = eng.step(state, mask)
+            sync()
+            r["launches"] = {k: v for k, v in ops.launch_counts().items() if v}
+            np.savez(out / f"{leg}_rank{rank}.npz", **_leaves(state))
+            # A per-rank save, restored into a fresh rank engine; both advance.
+            entry = save_engine_checkpoint(eng, state, str(out / f"ckpt_{leg}"))
+            fresh = make()
+            back, step = restore(fresh, entry)
+            ops.reset_launch_counts()
+            a = eng._eager_slots(state, rk["slots"])
+            b = fresh._eager_slots(back, rk["slots"])
+            sync()
+            resume = {k: v for k, v in ops.launch_counts().items() if v}
+            la, lb = _leaves(a), _leaves(b)
+            r["resume_equal"] = step == rk["slots"] and all(
+                np.array_equal(la[k], lb[k]) for k in la)
+            r["resume_launches"] = resume
+            # The per-rank slot time: eager (the exchange is staged on the host).
+            times = []
+            for _ in range(rk["timed_windows"]):
+                dist.barrier()
+                sync()
+                t1 = time.perf_counter()
+                a = eng._eager_slots(a, rk["timed_slots"])
+                sync()
+                times.append((time.perf_counter() - t1) * 1e3 / rk["timed_slots"])
+            r["ms_per_slot"] = spread(times)
+            report[leg] = r
+            del eng, fresh, state, back, a, b
+            gc.collect()
+    finally:
+        dist.destroy_process_group()
+    (out / f"rank{rank}.json").write_text(json.dumps(report, default=str))
+    return 0
+
+
+def _nccl_leg(obj, dev, card: str) -> dict:
+    """(ii) The fused leg at S = 1 on a one-rank NCCL group (a "shards"
+    DeviceMesh of one card): the captured chunk, the eager slots and the
+    stacked S = 1 engine (its generator set to the rank's state) must
+    give the same bits; then the captured slot's time."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.kernels import ops
+    from repro_torch.sim import CDUpdate, EngineConfig, ShardedAsyncEngine, partition_graph
+
+    part = partition_graph(obj.graph, 1, mode=RANKS["partition_mode"], relabel=RANKS["relabel"])
+    kw = dict(_rank_engine_kw("sharded_fused", MAIN), partition=part, device=dev)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}",
+                            world_size=1, rank=0, device_id=dev)
+    try:
+        mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("shards",))
+        cfg = EngineConfig(devices=mesh, **kw)
+        cap = ShardedAsyncEngine(CDUpdate(obj), num_shards=1, config=cfg)
+        eag = ShardedAsyncEngine(CDUpdate(obj), num_shards=1, config=cfg)
+        stk = ShardedAsyncEngine(CDUpdate(obj), num_shards=1, **kw)
+        if cap.rank != 0 or cap.capture_mode != "captured" or stk.rank is not None:
+            raise SystemExit(f"phase 13 (ii): rank {cap.rank}, {cap.capture_mode}")
+        Theta0 = np.zeros((obj.n, obj.p), np.float32)
+        sc, se, ss = (e.init_state(Theta0) for e in (cap, eag, stk))
+        ss.generator.set_state(sc.generator.get_state())
+        ops.reset_launch_counts()
+        sc = cap.advance(sc, RANKS["slots"])
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in ops.launch_counts().items() if v}
+        se = eag._eager_slots(se, RANKS["slots"])
+        ss = stk._eager_slots(ss, RANKS["slots"])
+        lc, le, ls = _leaves(sc), _leaves(se), _leaves(ss)
+        equal = all(np.array_equal(lc[k], le[k]) and np.array_equal(lc[k], ls[k]) for k in lc)
+        gathered = np.array_equal(cap.global_theta(sc), stk.global_theta(ss))
+        if not (equal and gathered and launches.get("fused_row_update", 0) > 0):
+            raise SystemExit(f"phase 13 (ii): captured == eager == stacked {equal}, "
+                             f"global_theta {gathered}, launches {launches}")
+        times = []
+        for _ in range(RANKS["nccl_windows"]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sc = cap.advance(sc, RANKS["nccl_slots"])
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3 / RANKS["nccl_slots"])
+        timed = {k: v for k, v in ops.launch_counts().items() if v}
+    finally:
+        dist.destroy_process_group()
+    out = dict(equal_bits=True, launches=launches, timed_launches=timed,
+               ms_per_slot=spread(times), backend="nccl", capture_mode=cap.capture_mode)
+    log(f"[13] (ii) on {card}: one-rank NCCL, S = 1 fused, captured == eager == stacked S = 1 "
+        f"for {RANKS['slots']} slots, bit for bit; launches {launches}; ms a slot (captured, "
+        f"{RANKS['nccl_windows']} windows of {RANKS['nccl_slots']}) {fmt(out['ms_per_slot'])}")
+    return out
+
+
+def rank_engines(dev, launches: dict, card: str) -> dict:
+    """Phase 13: (i) two gloo ranks on the card against the stacked S = 2
+    engine run here, (ii) the one-rank NCCL leg. Any worker failure fails
+    the run; nothing falls back to the CPU or to the stacked engine."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.sim import CDUpdate, ShardedAsyncEngine, partition_graph
+
+    t0 = time.perf_counter()
+    world = RANKS["shards"]
+    out_dir = ROOT / "build" / "rank13"
+    if out_dir.exists():
+        import shutil
+
+        shutil.rmtree(out_dir)
+    out_dir.mkdir(parents=True)
+    store = out_dir / "store"
+    (out_dir / "config.json").write_text(json.dumps({"main": MAIN, "ranks": RANKS,
+                                                     "device": str(dev)}))
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    probes = gloo_probes_start(out_dir) if dev.type == "cuda" else {}
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--rank-worker",
+                               str(r), str(world), str(store), str(out_dir)], cwd=ROOT, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    try:
+        c = MAIN
+        obj = quadratic_rgg_problem(c["n"], c["p"], c["m"], c["avg_degree"], c["mu"], c["seed"],
+                                    mix_mode="sparse")
+        part = partition_graph(obj.graph, world, mode=RANKS["partition_mode"],
+                               relabel=RANKS["relabel"])
+        stacked = {}
+        for leg in RANK_LEGS:
+            eng = ShardedAsyncEngine(CDUpdate(obj), num_shards=world, partition=part, device=dev,
+                                     **_rank_engine_kw(leg, c))
+            state = eng.init_state(np.zeros((obj.n, obj.p), np.float32))
+            for mask in _rank_masks(c, RANKS):
+                state = eng.step(state, mask)
+            stacked[leg] = (eng, _leaves(state))
+        texts = []
+        for p in procs:
+            try:
+                texts.append(p.communicate(timeout=RANK_TIMEOUT_S)[0])
+            except subprocess.TimeoutExpired:
+                raise SystemExit(f"phase 13: a rank worker gave no result in {RANK_TIMEOUT_S} s")
+        for r, (p, text) in enumerate(zip(procs, texts)):
+            if p.returncode != 0 or not (out_dir / f"rank{r}.json").exists():
+                raise SystemExit(f"phase 13 rank worker {r} failed ({p.returncode}): "
+                                 f"{text[-3000:]}")
+        gloo_cuda = gloo_probes_read(probes)
+    finally:
+        for p in procs + [q for pair in probes.values() for q in pair]:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    reports = [json.loads((out_dir / f"rank{r}.json").read_text()) for r in range(world)]
+    result = {"gloo_cuda": gloo_cuda, "worker_setup_s": [
+        r["setup_s"] for r in reports], "legs": {}}
+    for leg in RANK_LEGS:
+        eng, want = stacked[leg]
+        legr = {"ranks": [rep[leg] for rep in reports]}
+        equal, diff = True, 0.0
+        for r in range(world):
+            got = dict(np.load(out_dir / f"{leg}_rank{r}.npz"))
+            for k, v in want.items():
+                same = np.array_equal(v[r:r + 1], got[k])
+                equal &= same
+                if not same and v.dtype.kind == "f":
+                    diff = max(diff, float(np.abs(v[r:r + 1] - got[k]).max()))
+        legr["equal_bits"], legr["max_abs_diff"] = bool(equal), diff
+        fused_ok = all(rep["launches"].get("fused_row_update", 0) > 0 and
+                       rep["resume_launches"].get("fused_row_update", 0) > 0
+                       for rep in legr["ranks"]) if leg != "sharded_unfused" else True
+        for rep in legr["ranks"]:
+            for k, v in rep["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+        resume_ok = all(rep["resume_equal"] for rep in legr["ranks"])
+        legr.update(fused_launches_ok=fused_ok, resume_equal=resume_ok)
+        if not (equal and fused_ok and resume_ok):
+            raise SystemExit(f"phase 13 (i) {leg}: ranks == stacked S = 2 {equal} (max |diff| "
+                             f"{diff}), fused launches in every rank {fused_ok}, per-rank resume "
+                             f"{resume_ok}: {legr['ranks']}")
+        # The stacked S = 2 leg's slot time on the card (captured chunk),
+        # the workers done: the card is this process's alone.
+        st = eng.init_state(np.zeros((obj.n, obj.p), np.float32))
+        st = eng.advance(st, WARM_STEPS)
+        times = []
+        ops.reset_launch_counts()
+        for _ in range(RANKS["timed_windows"]):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            st = eng.advance(st, RANKS["nccl_slots"])
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t1) * 1e3 / RANKS["nccl_slots"])
+        legr["stacked_ms_per_slot"] = spread(times)
+        result["legs"][leg] = legr
+        ranks_ms = [fmt(rep["ms_per_slot"]) for rep in legr["ranks"]]
+        log(f"[13] (i) {leg} on {card}: 2 gloo ranks on one card (host-staged wire, not a "
+            f"multi-card figure) == stacked S = 2 for {RANKS['slots']} forced slots, bit for bit; "
+            f"per-rank resume after a per-rank save equal {resume_ok}; method "
+            f"{legr['ranks'][0]['method']}, {legr['ranks'][0]['capture_mode']}; launches "
+            f"{[rep['launches'] for rep in legr['ranks']]}; per-rank ms a slot (eager) "
+            f"{ranks_ms}; stacked S = 2 ms a slot (captured) {fmt(legr['stacked_ms_per_slot'])}")
+        del eng, st
+        stacked[leg] = None
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"[13] gloo collectives on CUDA tensors (torch {torch.__version__}): "
+        f"{result['gloo_cuda']}")
+    result["nccl"] = _nccl_leg(obj, dev, card)
+    for k, v in result["nccl"]["launches"].items():
+        launches[k] = launches.get(k, 0) + v
+    result["seconds"] = time.perf_counter() - t0
+    return result
 
 
 def memory(when: str) -> None:
@@ -4407,7 +4805,14 @@ def main() -> int:
     mesh = mesh_layer(dev, launches, smi)
     mark("12 mesh and launch layer")
 
-    # [13] the kernel table and the result
+    # [13] the sharded engine one shard a process: two gloo ranks on the
+    # card against the stacked S = 2 engine, and a one-rank NCCL group
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks = rank_engines(dev, launches, smi)
+    mark("13 sharded engine one shard a process")
+
+    # [14] the kernel table and the result
     src = {"sparse_mix": "src/repro/kernels/sparse_mix.py:60",
            "fused_row_update": "src/repro/kernels/fused_row_update.py:133",
            "graph_mix": "src/repro/kernels/graph_mix.py:38",
@@ -4440,6 +4845,7 @@ def main() -> int:
     log(json.dumps({"transformer_families": families}))
     log(json.dumps({"xlstm": xl}))
     log(json.dumps({"mesh_layer": mesh}))
+    log(json.dumps({"rank_engines": ranks}))
     log(json.dumps({"phase_seconds": phase_s, "total_s": sum(phase_s.values())}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -4448,4 +4854,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank-worker"]:  # phase 13's ranks
+        sys.exit(rank_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5]))
+    if sys.argv[1:2] == ["--gloo-probe"]:  # phase 13's probes of gloo on CUDA tensors
+        sys.exit(gloo_probe_worker(sys.argv[2], int(sys.argv[3]), sys.argv[4]))
     sys.exit(main())

@@ -187,6 +187,12 @@ def _write_entry(entry: str, files: dict, manifest: dict) -> str:
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp)
+    return _publish(entry, manifest, _write_files(tmp, files))
+
+
+def _write_files(tmp: str, files: dict) -> dict:
+    """Write ``{filename: {key: array}}`` into ``tmp``, each npz fsynced;
+    returns their sha256 by name."""
     hashes = {}
     for name, arrays in files.items():
         fp = os.path.join(tmp, name)
@@ -194,6 +200,13 @@ def _write_entry(entry: str, files: dict, manifest: dict) -> str:
         with open(fp, "rb+") as f:
             os.fsync(f.fileno())
         hashes[name] = _sha256_file(fp)
+    return hashes
+
+
+def _publish(entry: str, manifest: dict, hashes: dict) -> str:
+    """The manifest written and fsynced into ``<entry>.tmp`` (holding the
+    files of ``hashes``), then the directory renamed into place."""
+    tmp = entry + ".tmp"
     manifest = dict(manifest, format=_FORMAT, file_sha256=hashes)
     with open(os.path.join(tmp, _MANIFEST), "w") as f:
         json.dump(manifest, f, indent=1, sort_keys=True)
@@ -213,19 +226,60 @@ def _write_entry(entry: str, files: dict, manifest: dict) -> str:
     return entry
 
 
-def _save_entry(path: str, files: dict, manifest: dict, step: int, keep_last):
-    """Write one entry at ``path`` (or into its ``keep_last`` rotation)."""
+def _write_entry_ranked(entry: str, own: dict, files: dict, manifest: dict, group) -> str:
+    """:func:`_write_entry` across the ranks of ``group``: rank 0 stages
+    ``<entry>.tmp``; after a barrier every rank writes its ``own`` files
+    there (fsync, sha256); rank 0 writes ``files``, gathers every rank's
+    hashes, writes the manifest and renames; a last barrier returns only
+    once the entry is published."""
+    import torch.distributed as dist
+
+    rank, tmp = dist.get_rank(group), entry + ".tmp"
+    if rank == 0:
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp)
+    dist.barrier(group)
+    hashes = _write_files(tmp, own)
+    every = [None] * dist.get_world_size(group)
+    dist.all_gather_object(every, hashes, group=group)
+    if rank == 0:
+        for h in every:
+            hashes.update(h)
+        hashes.update(_write_files(tmp, files))
+        _publish(entry, manifest, dict(sorted(hashes.items())))
+    dist.barrier(group)
+    return entry
+
+
+def _save_entry(path: str, files: dict, manifest: dict, step: int, keep_last, *,
+                own=None, group=None):
+    """Write one entry at ``path`` (or into its ``keep_last`` rotation).
+    With ``group``, every rank of it calls this with its ``own`` files
+    (:func:`_write_entry_ranked`; rank 0 writes ``files`` and prunes)."""
     if keep_last is not None:
         keep = int(keep_last)
         if keep < 1:
             raise ValueError("keep_last must be >= 1")
         os.makedirs(path, exist_ok=True)
-        entry = _write_entry(os.path.join(path, f"ckpt-{int(step):012d}"), files, manifest)
-        _prune_rotation(path, keep)
+        entry = os.path.join(path, f"ckpt-{int(step):012d}")
+    else:
+        entry = path
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    if group is None:
+        _write_entry(entry, files, manifest)
+    else:
+        _write_entry_ranked(entry, own or {}, files, manifest, group)
+    if group is None:
+        if keep_last is not None:
+            _prune_rotation(path, keep)
         return entry
-    parent = os.path.dirname(os.path.abspath(path))
-    os.makedirs(parent, exist_ok=True)
-    return _write_entry(path, files, manifest)
+    import torch.distributed as dist
+
+    if keep_last is not None and dist.get_rank(group) == 0:
+        _prune_rotation(path, keep)
+    dist.barrier(group)
+    return entry
 
 
 def _read_manifest(entry: str) -> dict:

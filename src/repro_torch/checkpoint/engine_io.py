@@ -20,7 +20,10 @@ exactly:
   state, the (S,) counters, the error-feedback accumulator ``ef``, the
   counter-type metrics). Theta never becomes one (n, p) host array, at
   save or at load; the slab's halo rows are derived (the slot's exchange
-  rewrites them) and are not saved.
+  rewrites them) and are not saved. An engine one shard a rank writes the
+  same entry together: each rank its own ``shard_<rank>.npz``, rank 0
+  the rest after a barrier (the counters, the error feedback and every
+  rank's generator state, ``generators``, gathered), then the manifest.
 
 Restore checks the manifest's fingerprint (graph sha256, n, p, dtype, an
 :class:`repro_torch.sim.EngineConfig` digest, topology version) before
@@ -28,7 +31,12 @@ touching the engine, and a sharded entry restores at another shard count
 by re-tiling the saved rows through :meth:`GraphPartition.place_rows`.
 Same-S resume is bit for bit; the elastic policies are the reference's
 (counters collapsed into shard 0, ``ef`` restarted) except that the one
-generator is kept (``src/repro_torch/DEVIATIONS.md``).
+generator is kept (``src/repro_torch/DEVIATIONS.md``). A rank restoring
+at the same S reads its own shard file, at another S every file, keeping
+the rows it owns under the new cut. Stacked and per-rank entries restore
+into either form: the stacked engine and rank 0 continue rank 0's (or
+the one) stream, and a rank the entry has no stream for starts one from
+(seed, rank, step).
 
 The files and keys are the reference's, so ``repro.serve`` serves a
 port entry and the port serves a reference entry; a full engine restore
@@ -60,6 +68,7 @@ from repro_torch.checkpoint.checkpoint import (
     structure_digest,
 )
 from repro_torch.core.graph import CSRGraph, TopologyState, as_csr
+from repro_torch.sim.engine import rank_seed
 from repro_torch.sim.partition import partition_from_ownership, partition_graph
 
 # Placement fields: they pick where the run executes, not what it computes.
@@ -300,7 +309,10 @@ def _restore_async(engine, entry: str, manifest: dict):
 
 
 def _sharded_state_dict(engine, state, step: int):
-    part, S = engine.part, engine.num_shards
+    """The entry's files and manifest (on a rank: its own shard file and
+    the common files, their per-shard leaves gathered from every rank;
+    a collective, every rank calls it)."""
+    part, S, every = engine.part, engine.num_shards, engine.shards_of
     files: dict = {}
     bf16: list[str] = []
 
@@ -331,25 +343,29 @@ def _sharded_state_dict(engine, state, step: int):
 
     # One file per shard, owned rows only, keyed by original agent ids:
     # each block goes to the host as its own (size, ...) tile.
-    for s in range(S):
+    for j, s in enumerate(engine._shards):  # the shards this process holds
         size = int(part.sizes[s])
         fname = f"shard_{s}.npz"
         arrs: dict = {"ids": np.asarray(part.owned[s, :size], np.int64)}
-        put(fname, arrs, "theta", state.Theta[s, :size])
-        arrs["active"] = state.active[s, :size].to("cpu").numpy()
-        for j, (_pth, leaf) in enumerate(ustate_flat):
-            put(fname, arrs, f"ustate_{j}", leaf[s, :size])
+        put(fname, arrs, "theta", state.Theta[j, :size])
+        arrs["active"] = state.active[j, :size].to("cpu").numpy()
+        for i, (_pth, leaf) in enumerate(ustate_flat):
+            put(fname, arrs, f"ustate_{i}", leaf[j, :size])
         if has_last_wake:
-            arrs["last_wake"] = metrics["last_wake"][s, :size].to("cpu").numpy()
+            arrs["last_wake"] = metrics["last_wake"][j, :size].to("cpu").numpy()
         files[fname] = arrs
 
-    sc: dict = {name: getattr(state, name).to("cpu").numpy()
+    sc: dict = {name: every(getattr(state, name)).to("cpu").numpy()
                 for name in ("applied", "dropped", "messages", "ptr")}
-    sc["generator"] = state.generator.get_state().numpy()
+    gen = state.generator.get_state().numpy()
+    sc["generator"] = gen
+    if engine.rank is not None:  # every rank's stream, rank 0's the one above
+        streams = _gathered(engine, gen)
+        sc["generator"], sc["generators"] = np.asarray(streams[0]), np.stack(streams)
     if state.ef is not None:
-        put("scalars.npz", sc, "ef", state.ef)
+        put("scalars.npz", sc, "ef", every(state.ef))
     for k in counter_keys:
-        put("scalars.npz", sc, f"metric_{k}", metrics[k])
+        put("scalars.npz", sc, f"metric_{k}", every(metrics[k]))
     files["scalars.npz"] = sc
 
     manifest = {
@@ -369,6 +385,16 @@ def _sharded_state_dict(engine, state, step: int):
         files["topology.npz"] = _topology_arrays(engine)
         manifest["topology_log"] = dict(engine.topology_log)
     return files, manifest
+
+
+def _gathered(engine, obj) -> list:
+    """``obj`` of every rank of the engine's group, in rank order (host
+    objects; a collective)."""
+    import torch.distributed as dist
+
+    out = [None] * engine.num_shards
+    dist.all_gather_object(out, obj, group=engine.group)
+    return out
 
 
 def _adopt_partition(engine, manifest: dict, data: dict) -> int:
@@ -430,13 +456,20 @@ def _restore_sharded(engine, entry: str, manifest: dict):
     sc = _load_file(entry, "scalars.npz")
     if "generator" not in sc:
         raise CheckpointError(f"{entry}: no generator in scalars.npz (not a port engine entry)")
-    generator = _generator(entry, manifest.get("generator_device"), sc["generator"],
-                           engine.device)
+    rank = engine.rank
+    streams = sc.get("generators")
+    if rank is None or rank == 0 or streams is not None and len(streams) == engine.num_shards:
+        saved = sc["generator"] if rank is None or streams is None else streams[rank]
+        generator = _generator(entry, manifest.get("generator_device"), saved, engine.device)
+    else:  # a rank the entry holds no stream for
+        generator = torch.Generator(device=engine.device)
+        generator.manual_seed(rank_seed(engine._seed, rank, int(manifest["step"])))
     pmeta = _load_file(entry, "partition.npz")
     topo = _load_file(entry, "topology.npz") if fp.get("dynamic") else {}
     saved_S = _adopt_partition(engine, manifest, {**pmeta, **topo})
     elastic = saved_S != engine.num_shards
-    part, S, dev = engine.part, engine.num_shards, engine.device
+    part, S, dev, mine = engine.part, engine.num_shards, engine.device, engine._shards
+    first = bool(mine[0] == 0)  # this process holds shard 0 (elastic totals go there)
 
     blank = engine._blank_state()
     ustate_flat = _flatten_with_paths(blank.ustate)
@@ -457,22 +490,25 @@ def _restore_sharded(engine, entry: str, manifest: dict):
         raise CheckpointError(f"{entry}: checkpoint carries metrics, engine has none")
 
     def host_zeros(t):
-        """A numpy template of ``t``'s shape (bfloat16 as its uint16 view)."""
+        """A numpy template of all S shards' tiles of ``t``, an (L, ...)
+        leaf of this process (bfloat16 as its uint16 view)."""
         dt = np.uint16 if t.dtype == torch.bfloat16 else torch.empty(0, dtype=t.dtype).numpy().dtype
-        return np.zeros(tuple(t.shape), dt)
+        return np.zeros((S,) + tuple(t.shape[1:]), dt)
 
     def on_device(a, like):
         return _from_numpy(a, _leaf_dtype_name(like)).to(dev)
 
     theta_t = host_zeros(blank.Theta)
     active_t = np.zeros((S, part.rows_per_shard), bool)
+    # Same S on a rank: its own file holds all its rows; else every file.
+    files = range(saved_S) if elastic or engine.rank is None else mine
     ustate_t = [host_zeros(leaf) for _pth, leaf in ustate_flat]
     lw_t = host_zeros(blank.metrics["last_wake"]) if manifest.get("has_last_wake") else None
     # Re-tile each saved shard's owned rows through the live partition's id
     # maps, whether the cut moved or S changed; one shard file is on the
     # host at a time. The arrays stay in their saved form (bfloat16 as its
     # uint16 view) until they go to the device.
-    for s in range(saved_S):
+    for s in files:
         z = _load_file(entry, f"shard_{s}.npz")
         ids = z["ids"]
         part.place_rows(theta_t, ids, z["theta"])
@@ -485,42 +521,44 @@ def _restore_sharded(engine, entry: str, manifest: dict):
     def dev_t(a, dtype):
         return torch.as_tensor(np.asarray(a)).to(device=dev, dtype=dtype)
 
-    ustate = _unflatten(blank.ustate, [on_device(t, leaf)
+    ustate = _unflatten(blank.ustate, [on_device(t[mine], leaf)
                                        for t, (_, leaf) in zip(ustate_t, ustate_flat)])
-    state = engine._state(on_device(theta_t, blank.Theta).reshape(-1, engine.p),
-                          torch.from_numpy(active_t).to(dev), ustate)
+    state = engine._state(on_device(theta_t[mine], blank.Theta).reshape(-1, engine.p),
+                          torch.from_numpy(active_t[mine]).to(dev), ustate)
     if not elastic:
         for name, dtype in (("applied", torch.long), ("dropped", torch.long),
                             ("messages", torch.float32), ("ptr", torch.long)):
-            getattr(state, name).copy_(dev_t(sc[name], dtype))
+            getattr(state, name).copy_(dev_t(np.asarray(sc[name])[mine], dtype))
         if engine._use_ef and "ef" in sc and state.ef is not None \
-                and tuple(np.shape(sc["ef"])) == tuple(state.ef.shape):
-            state.ef.copy_(on_device(sc["ef"], state.ef))
+                and tuple(np.shape(sc["ef"])[1:]) == tuple(state.ef.shape[1:]):
+            state.ef.copy_(on_device(np.asarray(sc["ef"])[mine], state.ef))
     else:
         # Elastic policies (src/repro_torch/DEVIATIONS.md): the one generator
         # is kept, additive counters collapse into shard 0 (run totals kept),
         # and the error-feedback accumulator restarts (its rows describe the
         # old cut's border).
         state.ptr.fill_(int(sc["ptr"][0]))
-        state.applied[0] = int(sc["applied"].sum())
-        state.dropped[0] = int(sc["dropped"].sum())
-        state.messages[0] = float(sc["messages"].astype(np.float64).sum())
+        if first:
+            state.applied[0] = int(sc["applied"].sum())
+            state.dropped[0] = int(sc["dropped"].sum())
+            state.messages[0] = float(sc["messages"].astype(np.float64).sum())
 
     metrics = state.metrics
     if engine._macc is not None:
         if lw_t is not None:
-            metrics["last_wake"].copy_(torch.from_numpy(lw_t))
+            metrics["last_wake"].copy_(torch.from_numpy(lw_t[mine]))
         for k in manifest.get("metrics_keys", []):
             if k not in metrics or f"metric_{k}" not in sc:
                 continue
             saved = torch.from_numpy(np.asarray(sc[f"metric_{k}"]))
             tmpl = metrics[k]
             if not elastic:
-                if tuple(saved.shape) == tuple(tmpl.shape):
-                    tmpl.copy_(saved)
+                if tuple(saved.shape[1:]) == tuple(tmpl.shape[1:]):
+                    tmpl.copy_(saved[mine])
             elif tuple(saved.shape[1:]) == tuple(tmpl.shape[1:]):
                 tmpl.zero_()
-                tmpl[0] = saved.sum(dim=0).to(tmpl.dtype)
+                if first:
+                    tmpl[0] = saved.sum(dim=0).to(tmpl.dtype)
     return state._replace(generator=generator), int(manifest["step"])
 
 
@@ -541,14 +579,19 @@ def engine_state_dict(engine, state, step: int | None = None):
 
 
 def save_engine_checkpoint(engine, state, path, *, step=None, keep_last=None):
-    """Write a crash-safe engine checkpoint (see the module docstring).
+    """Write a crash-safe engine checkpoint (see the module docstring); an
+    engine one shard a rank writes it together, every rank calling this.
 
     ``step`` defaults to the state's slot counter. With ``keep_last=K``,
     ``path`` is a rotation root (entries ``ckpt-<step>``, newest K kept);
     otherwise it is the entry directory itself. Returns the entry written.
     """
     files, manifest = engine_state_dict(engine, state, step=step)
-    return _save_entry(path, files, manifest, manifest["step"], keep_last)
+    if getattr(engine, "rank", None) is None:
+        return _save_entry(path, files, manifest, manifest["step"], keep_last)
+    own = {k: files.pop(k) for k in [f"shard_{engine.rank}.npz"]}
+    return _save_entry(path, files, manifest, manifest["step"], keep_last, own=own,
+                       group=engine.group)
 
 
 def restore(engine, path):

@@ -241,8 +241,14 @@ class GroupCollective:
     returns what member i receives: the ``send`` of member ``(i - offset)
     mod n`` (``batch_isend_irecv``: i sends to ``(i + offset) mod n``);
     ``all_gather(send)`` stacks every member's ``send`` as (n, ...). The
-    sharded engine's multi-process backend (ROADMAP A9b) is to reuse it for
-    the halo exchange."""
+    mesh round's gossip and the per-rank sharded engine's halo exchange
+    (``ShardedMixOp.for_rank``) use it.
+
+    **Wire staging.** On a gloo group (``dist.get_backend(group)``, read
+    once here) a tensor on a device other than the CPU goes to the host
+    for the send and its receive comes back to the device: gloo's
+    point-to-point calls carry CPU tensors only. On an NCCL group the
+    buffers stay on the card. ``staged`` says which."""
 
     def __init__(self, group):
         import torch.distributed as dist
@@ -250,6 +256,12 @@ class GroupCollective:
         self.group = group
         self.size = dist.get_world_size(group)
         self.rank = dist.get_rank(group)
+        self.backend = str(dist.get_backend(group))
+        self.staged = self.backend == "gloo"
+
+    def _out(self, t):
+        """``t`` as the wire carries it (the host on a staged group)."""
+        return t.to("cpu") if self.staged and t.device.type != "cpu" else t
 
     def ppermute(self, send, offset: int):
         import torch.distributed as dist
@@ -257,23 +269,23 @@ class GroupCollective:
         n, i = self.size, self.rank
         if int(offset) % n == 0:
             return send
-        send = send.contiguous()
-        recv = torch.empty_like(send)
+        wire = self._out(send.contiguous())
+        recv = torch.empty_like(wire)
         to = dist.get_global_rank(self.group, (i + int(offset)) % n)
         frm = dist.get_global_rank(self.group, (i - int(offset)) % n)
-        ops_ = [dist.P2POp(dist.isend, send, to, group=self.group),
+        ops_ = [dist.P2POp(dist.isend, wire, to, group=self.group),
                 dist.P2POp(dist.irecv, recv, frm, group=self.group)]
         for work in dist.batch_isend_irecv(ops_):
             work.wait()
-        return recv
+        return recv.to(send.device)
 
     def all_gather(self, send):
         import torch.distributed as dist
 
-        send = send.contiguous()
-        out = torch.empty(self.size * send.numel(), dtype=send.dtype, device=send.device)
-        dist.all_gather_into_tensor(out, send.view(-1), group=self.group)
-        return out.view(self.size, *send.shape)
+        wire = self._out(send.contiguous())
+        out = torch.empty(self.size * wire.numel(), dtype=wire.dtype, device=wire.device)
+        dist.all_gather_into_tensor(out, wire.view(-1), group=self.group)
+        return out.view(self.size, *send.shape).to(send.device)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -301,6 +313,12 @@ class ShardedMixOp:
     :meth:`gather_rows` is the reference's ``einsum`` over the slab, with
     the tiles remapped to slab rows (``flat_idx``). The host tables are
     numpy; :meth:`table` makes their device copies once.
+
+    **Per-rank form** (:meth:`for_rank`): the same operator for one
+    process holding shard s, its tables the one-row cut ``[s:s + 1]`` of
+    the (S, ...) tables (``num_shards`` 1, ``rank`` s) and its collective
+    a :class:`GroupCollective` of S members: the same three steps on a
+    (R + Hmax, p) slab, the pool coming from every rank.
     """
 
     n: int
@@ -318,6 +336,24 @@ class ShardedMixOp:
     dtype: str = "f32"  # wire format: "f32" | "bf16" | "int8"
     error_feedback: bool = False  # thread a (S, Bmax, p) residual accumulator
     collective: StackedCollective = dataclasses.field(default_factory=StackedCollective)
+    rank: int | None = None  # per-rank form: the shard this process holds
+
+    def for_rank(self, rank: int, collective) -> "ShardedMixOp":
+        """The per-rank form of this stacked operator for shard ``rank``,
+        exchanging over ``collective`` (a :class:`GroupCollective` of S
+        members, member ``rank`` this process)."""
+        if self.rank is not None:
+            raise ValueError("already a per-rank operator")
+        S = self.num_shards
+        if getattr(collective, "size", S) != S:
+            raise ValueError(f"a group of {collective.size} ranks cannot hold {S} shards")
+        cut = (lambda a: np.asarray(a)[rank:rank + 1])
+        return dataclasses.replace(
+            self, num_shards=1, idx=cut(self.idx), w=cut(self.w), border=cut(self.border),
+            halo_src=cut(self.halo_src), p2p_send=tuple(cut(a) for a in self.p2p_send),
+            p2p_dst=tuple(cut(a) for a in self.p2p_dst),
+            p2p_bpos=tuple(cut(a) for a in self.p2p_bpos), collective=collective,
+            rank=int(rank))
 
     @property
     def rows_per_shard(self) -> int:
@@ -332,13 +368,15 @@ class ShardedMixOp:
     def rebound(self, partition) -> "ShardedMixOp":
         """This operator rebuilt against another partition, the method
         pinned to this one's resolved choice (never re-run through
-        ``"auto"``); wire dtype and error feedback carry over."""
-        return sharded_mix_op(
+        ``"auto"``); wire dtype and error feedback carry over, and a
+        per-rank operator stays per-rank (same rank, same collective)."""
+        op = sharded_mix_op(
             partition,
             exchange=ExchangeSpec(
                 method=self.method, dtype=self.dtype, error_feedback=self.error_feedback
             ),
         )
+        return op if self.rank is None else op.for_rank(self.rank, self.collective)
 
     # -- host tables over the slab -------------------------------------------
     def _host(self, name: str) -> np.ndarray:

@@ -1,4 +1,5 @@
-"""Sharded async engine walkthrough on the port: S agent blocks stacked on one card.
+"""Sharded async engine walkthrough on the port: S agent blocks stacked on one card,
+or one a process.
 
 Port of ``examples/sharded_async_simulation.py``. Shards a 20,000-agent
 random geometric collaboration graph into 4 agent blocks, stacked on one
@@ -15,6 +16,16 @@ the stacked slot and the single-device slot sum a row's neighbours in
 their own float32 orders (``src/repro_torch/DEVIATIONS.md``).
 
     python -m repro_torch.examples.sharded_async_simulation [--smoke] [--device D]
+
+Under ``torchrun`` it runs one shard a rank (the reference's one block a
+device): each process joins the default process group (gloo with
+``--device cpu``, NCCL on ``cuda:<local rank>`` otherwise), and
+``make_engine`` hands it its rank's shard. Rank 0 prints, and the parity
+check holds the ranks against the stacked engine, which they must equal
+bit for bit::
+
+    torchrun --standalone --nproc_per_node 4 -m repro_torch.examples.sharded_async_simulation \
+        --smoke --device cpu
 
 Crash-safe resume (checkpoints through :mod:`repro_torch.checkpoint`)::
 
@@ -61,6 +72,19 @@ def main(argv=None) -> dict:
 
     from repro_torch.checkpoint import restore
 
+    ranked = int(os.environ.get("WORLD_SIZE", "1")) > 1  # started by torchrun
+    if ranked:
+        import torch
+        import torch.distributed as dist
+
+        if not dist.is_initialized():
+            dist.init_process_group("gloo" if a.device == "cpu" else "nccl")
+        if a.device != "cpu":
+            a.device = f"cuda:{int(os.environ.get('LOCAL_RANK', '0'))}"
+            torch.cuda.set_device(a.device)
+    rank0 = not ranked or int(os.environ.get("RANK", "0")) == 0
+    say = print if rank0 else (lambda *args, **kw: None)
+
     rng = np.random.default_rng(0)
     n, p, m, shards = (2_000, 4, 8, 4) if a.smoke else (20_000, 8, 16, 4)
     slots, record_every = (12, 6) if a.smoke else (40, 10)
@@ -73,7 +97,8 @@ def main(argv=None) -> dict:
     Theta0 = np.zeros((n, p))
     update = CDUpdate(obj)
 
-    print(f"device: {a.device}, shards: {shards} (stacked)")
+    say(f"device: {a.device}, shards: {shards} "
+        f"({'one a rank' if ranked else 'stacked'})")
     # One config, both engines. Placement fields (relabel, exchange) are
     # no-ops on the single-device side, so the parity pair shares it.
     cfg = EngineConfig(
@@ -88,11 +113,11 @@ def main(argv=None) -> dict:
     # contiguous blocks read mostly remote rows; the RCM relabel shrinks
     # the cut by an order of magnitude and unlocks the p2p exchange.
     base = partition_graph(graph, shards)
-    eng = make_engine(update, cfg, shards=shards)
+    eng = make_engine(update, cfg, shards=shards)  # one a rank under torchrun
     part = eng.part
-    print(f"partition: mode={part.mode} rows/shard<={part.rows_per_shard} "
+    say(f"partition: mode={part.mode} rows/shard<={part.rows_per_shard} "
           f"tile K={part.tile_width}")
-    print(f"halo fraction: {base.halo_fraction():.2f} (no relabel) -> "
+    say(f"halo fraction: {base.halo_fraction():.2f} (no relabel) -> "
           f"{part.halo_fraction():.2f} (RCM); exchange={eng.exchange_method}, "
           f"{part.exchange_rows(eng.exchange_method)} rows/super-tick vs "
           f"{base.exchange_rows('all_gather')} unrelabeled all_gather")
@@ -110,7 +135,7 @@ def main(argv=None) -> dict:
     state0, start = None, 0
     if a.resume:
         state0, start = restore(eng, a.checkpoint_dir)
-        print(f"[resume]   picked up slot {start} from {a.checkpoint_dir}")
+        say(f"[resume]   picked up slot {start} from {a.checkpoint_dir}")
     res = eng.run(
         Theta0,
         slots=slots - start,
@@ -120,8 +145,8 @@ def main(argv=None) -> dict:
         checkpoint_dir=a.checkpoint_dir if a.checkpoint_every > 0 else None,
         checkpoint_keep_last=a.keep_last,
     )
-    print("[sharded]  Q:", " -> ".join(f"{q:.1f}" for q in res.objective))
-    print(f"           {res.wakes_applied} wakes over {res.slots} super-ticks, "
+    say("[sharded]  Q:", " -> ".join(f"{q:.1f}" for q in res.objective))
+    say(f"           {res.wakes_applied} wakes over {res.slots} super-ticks, "
           f"{res.messages:.0f} p-vectors broadcast, "
           f"{int((~res.active).sum())} agents currently departed")
 
@@ -133,27 +158,38 @@ def main(argv=None) -> dict:
     drift = float(np.abs(cres.Theta - res.Theta).max())
     f32_bytes = part.exchange_rows("p2p") * ExchangeSpec().payload_bytes_per_row(p)
     bf16_bytes = part.exchange_rows("p2p") * wire.payload_bytes_per_row(p)
-    print(f"[bf16+ef]  halo payload {f32_bytes} -> {bf16_bytes} bytes/super-tick "
+    say(f"[bf16+ef]  halo payload {f32_bytes} -> {bf16_bytes} bytes/super-tick "
           f"({f32_bytes / bf16_bytes:.1f}x less wire), |Theta - f32 Theta| <= {drift:.1e}")
 
     # Forced wake sets: the stacked engine is the single-device engine,
-    # under any relabeling and either exchange method.
-    single = make_engine(update, cfg, slot_wakes=64.0)
-    s1 = single.init_state(Theta0)
+    # under any relabeling and either exchange method; the ranks are the
+    # stacked engine, bit for bit.
+    if ranked:
+        from repro_torch.sim import ShardedAsyncEngine
+
+        yard, name, tol = ShardedAsyncEngine(update, num_shards=shards, config=cfg), \
+            "the stacked engine", 0.0
+    else:
+        yard, name, tol = make_engine(update, cfg, slot_wakes=64.0), "AsyncEngine", PARITY_TOL
+    s1 = yard.init_state(Theta0)
     sS = eng.init_state(Theta0)
     mask_rng = np.random.default_rng(7)
     for _ in range(3):
         mask = mask_rng.random(n) < 0.005
-        s1 = single.step(s1, mask)
+        s1 = yard.step(s1, mask)
         sS = eng.step(sS, mask)
-    err = float(np.abs(s1.Theta.cpu().numpy() - eng.global_theta(sS)).max())
-    print(f"[parity]   forced wake sets against AsyncEngine: max |diff| {err:.1e} "
-          f"(tol {PARITY_TOL:.0e})")
-    assert err <= PARITY_TOL, "sharded engine diverged from AsyncEngine under forced wakes"
+    want = yard.global_theta(s1) if ranked else s1.Theta.cpu().numpy()
+    err = float(np.abs(want - eng.global_theta(sS)).max())
+    say(f"[parity]   forced wake sets against {name}: max |diff| {err:.1e} (tol {tol:.0e})")
+    assert err <= tol, f"sharded engine diverged from {name} under forced wakes"
+    if ranked:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
     return dict(slots=res.slots, start=start, objective=res.objective.tolist(),
                 wakes_applied=res.wakes_applied, exchange=eng.exchange_method,
                 halo_fraction=[base.halo_fraction(), part.halo_fraction()], wire_drift=drift,
-                parity_err=err)
+                parity_err=err, ranks=shards if ranked else 1)
 
 
 if __name__ == "__main__":

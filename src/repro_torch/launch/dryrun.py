@@ -125,7 +125,7 @@ def _dtensor(spec, mesh, shape, dtype, fill=None):
 
     local = sharding.local_shape(shape, spec, mesh) if spec is not None else tuple(shape)
     t = torch.empty(local, dtype=dtype) if fill is None else torch.full(local, fill, dtype=dtype)
-    stride = torch.empty(shape, device="meta").stride()
+    stride = sharding.contiguous_stride(shape)
     return DTensor.from_local(t, mesh, placements(spec or sharding.P(), mesh), run_check=False,
                               shape=tuple(shape), stride=stride)
 
@@ -264,11 +264,13 @@ def mesh_name(shape) -> str:
 def run_one(arch: str, shape_name: str, multi_pod: bool = False, gossip="ppermute",
             p2p_on=True, dp_on=True, verbose=True, seq_parallel=False, cfg_overrides=None,
             moe_overrides=None, variant="", remat=True, cfg=None, mesh_shape=None,
-            global_batch=None, seq_len=None):
+            global_batch=None, seq_len=None, sites=0):
     """Trace one combination's step on the production mesh (or on
     ``mesh_shape``, 2 or 3 dims named as the production meshes) and return
     its row. Raises ``ValueError`` for a ``REFUSED`` combination (with a
-    ``cfg`` of its own, only for a refusal of the layout)."""
+    ``cfg`` of its own, only for a refusal of the layout). ``sites > 0``
+    adds ``peak_sites``: the ``sites`` allocation sites holding the most
+    bytes at the temp peak (``OpCounter.top_sites``)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.distributed.tensor.experimental import implicit_replication
 
@@ -290,7 +292,7 @@ def run_one(arch: str, shape_name: str, multi_pod: bool = False, gossip="ppermut
     else:
         sharding.set_activation_axes(None)
     sharding.set_seq_axis("model" if seq_parallel else None)
-    counter = OpCounter()
+    counter = OpCounter(sites=sites > 0)
     try:
         with FakeTensorMode(allow_non_fake_inputs=True), use_mesh(mesh):
             step, args, meta = input_specs(
@@ -331,9 +333,13 @@ def run_one(arch: str, shape_name: str, multi_pod: bool = False, gossip="ppermut
         "collective_breakdown": {k: v for k, v in roof.collectives.items()
                                  if not k.startswith("_")},
     }
+    if sites:
+        row["peak_sites"] = counter.top_sites(sites)
     if verbose:
         print(f"== {arch} x {shape_name} on {row['mesh']} ({meta['agent_mode']}) ==")
         print("memory:", mem_row)
+        for site, nbytes in row.get("peak_sites", ()):
+            print(f"  peak site {nbytes / 1e9:9.3f} GB  {site}")
         print("counted: flops=%.3e bytes=%.3e ops=%d" % (counter.flops, counter.bytes,
                                                           counter.ops))
         print("roofline: compute=%.4fs memory=%.4fs collective=%.4fs dominant=%s useful=%.2f" % (
@@ -358,6 +364,8 @@ def main(argv=None):
                     help="e.g. 1x1: a mesh of this shape in place of the production one")
     ap.add_argument("--batch", type=int, default=None, help="global batch in place of the shape's")
     ap.add_argument("--seq", type=int, default=None, help="sequence length in place of the shape's")
+    ap.add_argument("--sites", type=int, default=0,
+                    help="print the N allocation sites holding the most bytes at the temp peak")
     args = ap.parse_args(argv)
 
     archs = ARCH_IDS if args.all or args.arch is None else [args.arch]
@@ -390,7 +398,7 @@ def main(argv=None):
                     row = run_one(arch, shape_name, mp, gossip=args.gossip,
                                   p2p_on=not args.no_p2p, dp_on=not args.no_dp,
                                   mesh_shape=mesh_shape, global_batch=args.batch,
-                                  seq_len=args.seq)
+                                  seq_len=args.seq, sites=args.sites)
                     if args.out:
                         with open(args.out, "a") as f:
                             f.write(json.dumps(row) + "\n")

@@ -29,7 +29,8 @@ import torch
 from torch import nn
 
 from repro_torch.models.layers import Dense, apply_rope, dense
-from repro_torch.models.sharding import batch_zeros, einsum, gather_unless_divides, shard_like
+from repro_torch.models.sharding import (batch_zeros, einsum, gather_unless_divides,
+                                         repeat_heads, set_position, shard_like)
 
 NEG_INF = -1e30
 CHUNKED_ATTN_THRESHOLD = 16384  # above this S, q-block chunking (flash-style)
@@ -63,9 +64,7 @@ def _split_heads(x, n_heads, hd):
 
 
 def _repeat_kv(k, n_rep):
-    if n_rep == 1:
-        return k
-    return torch.repeat_interleave(k, n_rep, dim=2)
+    return repeat_heads(k, n_rep, dim=2)
 
 
 def _softcap(scores, cap):
@@ -207,8 +206,8 @@ def decode_attention(params: Attention, x, cfg, cache, pos: int):
         raise ValueError(f"pos={pos} is outside the cache of {size} positions")
     else:
         slot = pos
-    cache["k"][:, slot] = k[:, 0]
-    cache["v"][:, slot] = v[:, 0]
+    set_position(cache["k"], slot, k[:, 0])  # on a mesh: the rank holding the slot
+    set_position(cache["v"], slot, v[:, 0])
     cache["slot_pos"][slot] = pos
 
     kr = _repeat_kv(cache["k"], H // heads)

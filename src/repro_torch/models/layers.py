@@ -124,15 +124,25 @@ class Embedding(nn.Module):
 
 
 def embed(p: Embedding, tokens):
-    return p.table[tokens]
+    """``table[tokens]``; on a serving mesh the vocab-parallel lookup
+    (``sharding.embedding``), split on the batch over the activation axes
+    with whole features (``sharding.constrain_batch``)."""
+    from repro_torch.models.sharding import constrain_batch, embedding
+
+    return constrain_batch(embedding(p.table, tokens))
 
 
 def unembed(p: Embedding, x):
     """Logits against the (tied) table: ``x @ table.T`` (on a mesh, ``x``
-    with whole features: ``sharding.replicate_features``)."""
-    from repro_torch.models.sharding import replicate_features
+    with whole features, ``sharding.replicate_features``; on a serving
+    mesh the vocab-split table's product on the local batch,
+    ``sharding.matmul``)."""
+    from repro_torch.models import sharding
 
-    return replicate_features(x) @ p.table.T
+    x = sharding.replicate_features(x)
+    if sharding._ACT_AXES is None:
+        return x @ p.table.T
+    return sharding.matmul(x, p.table.T)
 
 
 def _vocab_sharded(logits) -> bool:

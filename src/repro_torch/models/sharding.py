@@ -138,6 +138,17 @@ def gather_unless_divides(x, dim: int, n: int):
     return x.redistribute(mesh, [Replicate() if p.is_shard(dim) else p for p in x.placements])
 
 
+def contiguous_stride(shape) -> tuple:
+    """The strides of a contiguous tensor of ``shape``, computed without
+    making one (a meta tensor made inside the dry-run's counter would be
+    counted as an allocation of the global size)."""
+    out, step = [], 1
+    for n in reversed(tuple(shape)):
+        out.append(step)
+        step *= max(int(n), 1)
+    return tuple(reversed(out))
+
+
 def _retarget(t, want):
     want = list(want)
     return t if want == list(t.placements) else t.redistribute(t.device_mesh, want)
@@ -155,10 +166,33 @@ def row_parallel(x, w):
                          for xp, wp in zip(x.placements, w.placements)])
 
 
+def _tp_pattern(xp, wp, k) -> bool:
+    """Whether one mesh dim's (x, w) placements of ``x @ w`` are a pattern
+    :func:`_tp_placements` computes locally (after :func:`row_parallel`)."""
+    return ((xp.is_replicate() and (wp.is_replicate() or wp.is_shard(1)))
+            or (xp.is_shard(k) and wp.is_shard())
+            or (xp.is_shard() and xp.dim < k and wp.is_replicate()))
+
+
+def gather_fsdp(x, w):
+    """On a serving mesh (activation axes set), the weight ``w`` of
+    ``x @ w`` all-gathered over each mesh dim that splits it outside a
+    tensor-parallel pattern: the FSDP ("data") split of a serve weight
+    beside an activation split on its batch there. That is the gather
+    GSPMD inserts; the product then runs on the local batch shard. A
+    training round's weights are left to DTensor."""
+    if (_ACT_AXES is None or not (isinstance(x, DTensor) and isinstance(w, DTensor))
+            or x.device_mesh != w.device_mesh):
+        return w
+    k = x.ndim - 1
+    return _retarget(w, [wp if _tp_pattern(xp, wp, k) or not wp.is_shard() else Replicate()
+                         for xp, wp in zip(x.placements, w.placements)])
+
+
 def _tp_placements(x, w):
     """Per mesh dim, (output, x-grad, w-grad) placements of ``x @ w`` done on
     the local shards, or None where the pair is not a tensor-parallel
-    pattern (FSDP-split or pending weights: DTensor decides)."""
+    pattern (pending or partial activations: DTensor decides)."""
     k = x.ndim - 1
     out = []
     for xp, wp in zip(x.placements, w.placements):
@@ -179,11 +213,16 @@ def matmul(x, w):
     """``x @ w`` (``w`` a 2-D weight). On a mesh, a tensor-parallel layout
     (Megatron's column- or row-parallel product, after ``row_parallel``)
     is computed on the local shards, the output split or pending a sum as
-    the layout says: DTensor, choosing op by op, gathers the weight
-    instead once the activations are large."""
+    the layout says, after an activation pending a sum is reduced and an
+    FSDP-split weight gathered (:func:`gather_fsdp`): DTensor, choosing op
+    by op, gathers the weight instead once the activations are large, or
+    runs the global product."""
     if not (isinstance(x, DTensor) and isinstance(w, DTensor)) or x.device_mesh != w.device_mesh:
         return x @ w
-    w = row_parallel(x, w)
+    if any(p.is_partial() for p in x.placements):  # a row-parallel output: reduced first
+        x = x.redistribute(x.device_mesh, [Replicate() if p.is_partial() else p
+                                           for p in x.placements])
+    w = row_parallel(x, gather_fsdp(x, w))
     plan = _tp_placements(x, w)
     if plan is None:
         return x @ w
@@ -191,33 +230,137 @@ def matmul(x, w):
     local = x.to_local(grad_placements=xg) @ w.to_local(grad_placements=wg)
     shape = (*x.shape[:-1], w.shape[-1])
     return DTensor.from_local(local, x.device_mesh, out, run_check=False, shape=shape,
-                              stride=torch.empty(shape, device="meta").stride())
+                              stride=contiguous_stride(shape))
 
 
 def einsum(eq: str, *ops):
-    """``torch.einsum(eq, *ops)``; on a mesh, where every operand is split on
-    the same index letter (one kept in the output: a head or a batch dim)
-    or replicated, mesh dim by mesh dim, computed on the local shards."""
-    if not all(isinstance(t, DTensor) for t in ops):
+    """``torch.einsum(eq, *ops)``; on a mesh, computed on the local shards,
+    mesh dim by mesh dim, where the split operands are split on one index
+    letter. A replicated operand that has the letter is sliced to the
+    split (a local slice); a letter the output keeps splits the output, a
+    summed one leaves partial sums, reduced at once. On a serving mesh
+    (activation axes set) also: operands split on different letters meet
+    on the largest operand's (the others gathered there, as a decode query
+    meets its cache: the small operand moves), operands pending a sum are
+    reduced first, and a plain tensor beside DTensors is taken as
+    replicated (as DTensor's implicit replication takes it). Other layouts
+    go to DTensor (a training round's, as before the serving rules)."""
+    serving = _ACT_AXES is not None
+    meshes = {t.device_mesh for t in ops if isinstance(t, DTensor)}
+    if len(meshes) != 1 or not (serving or all(isinstance(t, DTensor) for t in ops)):
         return torch.einsum(eq, *ops)
     ins, res = eq.replace(" ", "").split("->")
     ins = ins.split(",")
-    mesh = ops[0].device_mesh
-    out = []
+    (mesh,) = meshes
+    if any(p.is_partial() for t in ops if isinstance(t, DTensor) for p in t.placements):
+        if not serving:
+            return torch.einsum(eq, *ops)
+        ops = [_retarget(t, [Replicate() if p.is_partial() else p for p in t.placements])
+               if isinstance(t, DTensor) else t for t in ops]
+    ops = [t if isinstance(t, DTensor) else
+           DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False) for t in ops]
+    out, want = [], [list(t.placements) for t in ops]
     for i in range(mesh.ndim):
-        letters = {t_in[p.dim] if p.is_shard() else None if p.is_replicate() else "?"
-                   for t_in, p in ((t_in, t.placements[i]) for t_in, t in zip(ins, ops))}
-        if any(t.device_mesh != mesh for t in ops) or len(letters) != 1:
+        split = [(t.numel(), t_in[t.placements[i].dim]) for t_in, t in zip(ins, ops)
+                 if t.placements[i].is_shard()]
+        letters = {c for _, c in split}
+        if len(letters) > 1 and not serving:
             return torch.einsum(eq, *ops)
+        if len(letters) > 1:  # the largest operand's letter; the others gathered
+            keep = max(split)[1]
+            for j, t_in in enumerate(ins):
+                p = ops[j].placements[i]
+                if p.is_shard() and t_in[p.dim] != keep:
+                    want[j][i] = Replicate()
+            letters = {keep}
+        if not letters:
+            out.append(Replicate())
+            continue
         (letter,) = letters
-        if letter == "?" or (letter is not None and letter not in res):
-            return torch.einsum(eq, *ops)
-        out.append(Replicate() if letter is None else Shard(res.index(letter)))
+        for j, t_in in enumerate(ins):
+            if letter in t_in:
+                want[j][i] = Shard(t_in.index(letter))
+        out.append(Shard(res.index(letter)) if letter in res else Partial())
+    ops = [_retarget(t, w) for t, w in zip(ops, want)]
     local = torch.einsum(eq, *(t.to_local() for t in ops)).contiguous()
     sizes = {c: n for t_in, t in zip(ins, ops) for c, n in zip(t_in, t.shape)}
     shape = tuple(sizes[c] for c in res)
-    return DTensor.from_local(local, mesh, out, run_check=False, shape=shape,
-                              stride=torch.empty(shape, device="meta").stride())
+    y = DTensor.from_local(local, mesh, out, run_check=False, shape=shape,
+                           stride=contiguous_stride(shape))
+    if any(p.is_partial() for p in out):
+        y = y.redistribute(mesh, [Replicate() if p.is_partial() else p for p in out])
+    return y
+
+
+def repeat_heads(k, n_rep: int, dim: int = 2):
+    """``torch.repeat_interleave(k, n_rep, dim)`` (the GQA repeat of keys or
+    values); a DTensor repeated on its local shard, its placements kept: a
+    split of whole KV heads is the split of their query heads."""
+    if n_rep == 1:
+        return k
+    if not isinstance(k, DTensor):
+        return torch.repeat_interleave(k, n_rep, dim=dim)
+    local = torch.repeat_interleave(k.to_local(), n_rep, dim=dim)
+    shape = list(k.shape)
+    shape[dim] *= n_rep
+    return DTensor.from_local(local, k.device_mesh, k.placements, run_check=False,
+                              shape=tuple(shape), stride=contiguous_stride(shape))
+
+
+def embedding(table, tokens):
+    """``table[tokens]``; on a serving mesh (activation axes set) with a
+    DTensor table, Megatron's vocab-parallel lookup: the table gathered
+    over the mesh dims that split its features (FSDP), each rank looking
+    up the ids of its own vocab slice on its local tokens (others zero),
+    the pending sums reduced. DTensor's own lookup of a split table
+    replicates the whole global (B, S, d) output first."""
+    if _ACT_AXES is None or not isinstance(table, DTensor):
+        return table[tokens]
+    mesh = table.device_mesh
+    table = _retarget(table, [Replicate() if p.is_shard(1) else p for p in table.placements])
+    vocab = [i for i, p in enumerate(table.placements) if p.is_shard(0)]
+    if not isinstance(tokens, DTensor):
+        tokens = DTensor.from_local(tokens, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    tokens = _retarget(tokens, [Replicate() if i in vocab else p
+                                for i, p in enumerate(tokens.placements)])
+    local, ids = table.to_local(), tokens.to_local().long()
+    width, start = local.shape[0], 0
+    for i in vocab:  # the first vocab row of this rank's slice
+        start = start * mesh.size(i) + mesh.get_local_rank(i)
+    start *= width
+    inside = (ids >= start) & (ids < start + width)
+    rows = local[torch.where(inside, ids - start, 0)]
+    rows = torch.where(inside[..., None], rows, torch.zeros((), dtype=rows.dtype))
+    out = [Partial() if i in vocab else p for i, p in enumerate(tokens.placements)]
+    shape = (*tokens.shape, table.shape[1])
+    y = DTensor.from_local(rows, mesh, out, run_check=False, shape=shape,
+                           stride=contiguous_stride(shape))
+    return y.redistribute(mesh, [Replicate() if p.is_partial() else p for p in out])
+
+
+def set_position(t, pos: int, value, dim: int = 1):
+    """``t[:, pos] = value`` along ``dim`` (``value`` has ``t``'s shape
+    without ``dim``), in place. On a DTensor split on ``dim`` (a decode
+    cache split on its positions) only the rank whose slice holds ``pos``
+    writes, into its local shard: DTensor's own ``__setitem__`` there
+    writes nothing."""
+    index = (slice(None),) * dim + (pos,)
+    if not isinstance(t, DTensor) or not any(p.is_shard(dim) for p in t.placements):
+        t[index] = value
+        return
+    mesh = t.device_mesh
+    if not isinstance(value, DTensor):
+        value = DTensor.from_local(value, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    value = _retarget(value, [Shard(p.dim - (p.dim > dim)) if p.is_shard() and p.dim != dim
+                              else Replicate() if p.is_shard() else p for p in t.placements])
+    local = t.to_local()
+    start = 0
+    for i, p in enumerate(t.placements):  # this rank's first position along dim
+        if p.is_shard(dim):
+            start = start * mesh.size(i) + mesh.get_local_rank(i)
+    start *= local.shape[dim]
+    if start <= pos < start + local.shape[dim]:
+        local[(slice(None),) * dim + (pos - start,)] = value.to_local()
 
 
 def shard_like(t, ref, dim: int):
@@ -273,6 +416,19 @@ def _register_pointwise(ops, n_out: int, n_in: int):
 # The xLSTM gates' ``F.logsigmoid`` and its backward.
 _register_pointwise(torch.ops.aten.log_sigmoid_forward.default, 2, 1)
 _register_pointwise(torch.ops.aten.log_sigmoid_backward.default, 1, 3)
+
+
+def _register_missing_identity():
+    """``detach_`` of a redistributed parameter under inference mode: some
+    torch versions (2.11) give DTensor no strategy for it."""
+    prop = DTensor._op_dispatcher.sharding_propagator
+    op = torch.ops.aten.detach_.default
+    if op not in prop.op_strategy_funcs and op not in prop.op_to_rules and op not in getattr(
+            prop, "op_single_dim_strategy_funcs", {}):
+        _register_pointwise(op, 1, 1)
+
+
+_register_missing_identity()
 
 
 def _replicated_assert(cond, msg):

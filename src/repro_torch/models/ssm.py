@@ -24,6 +24,7 @@ from torch import nn
 
 from repro_torch.kernels import ops
 from repro_torch.models.layers import Dense, dense, normal_
+from repro_torch.models.sharding import einsum  # torch.einsum off a mesh
 
 
 def _dims(cfg):
@@ -139,15 +140,15 @@ def mamba2_forward(params: Mamba2, xin, cfg, use_kernel=None):
         s_loc = sk.reshape(Bsz, nc, nheads, hd, N)
     else:
         # scores[b,c,q,t,h] = exp(cum_q - cum_t) (C_q . B_t) dt_t for t <= q
-        cb = torch.einsum("bcqn,bctn->bcqt", Cc, Bc)
+        cb = einsum("bcqn,bctn->bcqt", Cc, Bc)
         decay = torch.exp(torch.clamp(cum[:, :, :, None, :] - cum[:, :, None, :, :], -60.0, 0.0))
         causal = torch.ones((Q, Q), dtype=torch.bool, device=xin.device).tril()
         scores = cb[..., None] * decay * dtc[:, :, None, :, :]
         scores = torch.where(causal[None, None, :, :, None], scores, 0.0)
-        y_intra = torch.einsum("bcqth,bcthp->bcqhp", scores, xh)
+        y_intra = einsum("bcqth,bcthp->bcqhp", scores, xh)
         # chunk-local end state: sum_t exp(total - cum_t) dt_t x_t B_t
         w_end = torch.exp(torch.clamp(total[:, :, None, :] - cum, -60.0, 0.0)) * dtc
-        s_loc = torch.einsum("bcqhp,bcqn->bchpn", w_end[..., None] * xh, Bc)
+        s_loc = einsum("bcqhp,bcqn->bchpn", w_end[..., None] * xh, Bc)
 
     # Inter-chunk recurrence S_c = exp(total_c) S_{c-1} + s_loc_c; each chunk
     # reads the state entering it.
@@ -160,7 +161,7 @@ def mamba2_forward(params: Mamba2, xin, cfg, use_kernel=None):
 
     # y_inter[q] = exp(cum_q) C_q . S_in
     w_in = torch.exp(torch.clamp(cum, -60.0, 0.0))  # (B, nc, Q, H)
-    y_inter = torch.einsum("bcqn,bchpn->bcqhp", Cc, S_in) * w_in[..., None]
+    y_inter = einsum("bcqn,bchpn->bcqhp", Cc, S_in) * w_in[..., None]
 
     y = (y_intra + y_inter).reshape(Bsz, S, di)
     y = y + params.D.repeat_interleave(hd) * x.to(f32)
@@ -186,7 +187,7 @@ def mamba2_decode(params: Mamba2, xin, cfg, cache):
     z, x, Bssm, Cssm, dt = _split_proj(proj, di, N, nheads)
     conv_in = torch.cat([x, Bssm, Cssm], dim=-1)  # (B, di + 2N)
     buf = torch.cat([cache["conv_buf"], conv_in[:, None]], dim=1)  # (B, K, .)
-    conv_out = F.silu(torch.einsum("bkd,kd->bd", buf, params.conv))
+    conv_out = F.silu(einsum("bkd,kd->bd", buf, params.conv))
     x = conv_out[:, :di]
     Bssm = conv_out[:, di:di + N].to(f32)
     Cssm = conv_out[:, di + N:].to(f32)
@@ -196,7 +197,7 @@ def mamba2_decode(params: Mamba2, xin, cfg, cache):
     xh = x.reshape(Bsz, nheads, hd).to(f32)
     upd = (dt[:, :, None] * xh)[..., None] * Bssm[:, None, None, :]  # (B, H, hd, N)
     state = a[:, :, None, None] * cache["state"] + upd
-    y = torch.einsum("bn,bhpn->bhp", Cssm, state)  # (B, H, hd)
+    y = einsum("bn,bhpn->bhp", Cssm, state)  # (B, H, hd)
     y = y.reshape(Bsz, di) + params.D.repeat_interleave(hd) * x.to(f32)
     out = dense(params.out_proj, _gated_norm(y, z, params).to(xin.dtype))
     return out[:, None], {"state": state, "conv_buf": buf[:, 1:]}

@@ -35,6 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models.layers import Dense, RMSNorm, dense, normal_, rms_norm
+from repro_torch.models.sharding import einsum  # torch.einsum off a mesh
 
 F32 = torch.float32
 
@@ -137,8 +138,8 @@ def mlstm_forward(params: MLSTM, xin, cfg):
         m_new = torch.maximum(m_prev, m_loc)
         scale_prev = torch.exp(m_prev - m_new)  # (B, H)
         wexp = torch.exp(w - m_new[:, None, :])  # (B, Q, H)
-        C_loc = torch.einsum("bqhk,bqhv->bhkv", wexp[..., None] * kcc, vc[:, c])
-        n_loc = torch.einsum("bqh,bqhk->bhk", wexp, kcc)
+        C_loc = einsum("bqhk,bqhv->bhkv", wexp[..., None] * kcc, vc[:, c])
+        n_loc = einsum("bqh,bqhk->bhk", wexp, kcc)
         Cst = scale_prev[:, :, None, None] * Cst + C_loc
         nst = scale_prev[:, :, None] * nst + n_loc
         mst = m_new
@@ -157,18 +158,18 @@ def mlstm_forward(params: MLSTM, xin, cfg):
     Dexp = torch.exp(torch.where(finite, logD - m_row[:, :, :, None, :], -math.inf))
     Dexp = torch.where(causal, Dexp, 0.0)
 
-    qk = torch.einsum("bcqhd,bcthd->bcqth", qc, kc)
-    y_intra = torch.einsum("bcqth,bcthv->bcqhv", qk * Dexp, vc)
+    qk = einsum("bcqhd,bcthd->bcqth", qc, kc)
+    y_intra = einsum("bcqth,bcthv->bcqhv", qk * Dexp, vc)
     # normalizer: n = sum_t D_t k_t (+ inter part), denom = max(|q.n|, exp(-m))
-    n_intra = torch.einsum("bcqth,bcthd->bcqhd", Dexp, kc)
+    n_intra = einsum("bcqth,bcthd->bcqhd", Dexp, kc)
 
     w_inter = torch.exp(m_inter - m_row)  # (B, nc, Q, H)
-    y_inter = torch.einsum("bcqhd,bchdv->bcqhv", qc, C_in) * w_inter[..., None]
+    y_inter = einsum("bcqhd,bchdv->bcqhv", qc, C_in) * w_inter[..., None]
     n_inter = n_in[:, :, None, :, :] * w_inter[..., None]  # (B, nc, Q, H, hd)
 
     num = y_intra + y_inter
     nvec = n_intra + n_inter
-    denom = torch.abs(torch.einsum("bcqhd,bcqhd->bcqh", qc, nvec))
+    denom = torch.abs(einsum("bcqhd,bcqhd->bcqh", qc, nvec))
     denom = torch.maximum(denom, torch.exp(-m_row))  # xLSTM: max(|q.n|, exp(-m))
     y = (num / denom[..., None]).reshape(B, S, di)
     return _mlstm_out(params, y, z, xin, cfg)
@@ -194,11 +195,11 @@ def mlstm_decode(params: MLSTM, xin, cfg, cache):
     m_new = torch.maximum(m_prev, ig)
     scale_prev = torch.exp(m_prev - m_new)
     scale_in = torch.exp(ig - m_new)
-    C = scale_prev[:, :, None, None] * cache["C"] + scale_in[:, :, None, None] * torch.einsum(
+    C = scale_prev[:, :, None, None] * cache["C"] + scale_in[:, :, None, None] * einsum(
         "bhk,bhv->bhkv", k, v)
     n = scale_prev[:, :, None] * cache["n"] + scale_in[:, :, None] * k
-    num = torch.einsum("bhk,bhkv->bhv", q, C)
-    denom = torch.maximum(torch.abs(torch.einsum("bhk,bhk->bh", q, n)), torch.exp(-m_new))
+    num = einsum("bhk,bhkv->bhv", q, C)
+    denom = torch.maximum(torch.abs(einsum("bhk,bhk->bh", q, n)), torch.exp(-m_new))
     y = (num / denom[..., None]).reshape(B, di)
     return _mlstm_out(params, y, z, xin[:, 0], cfg)[:, None], {"C": C, "n": n, "m": m_new}
 

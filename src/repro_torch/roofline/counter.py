@@ -10,15 +10,24 @@ global-shape operations DTensor runs to propagate metadata are skipped):
 
 * flops: twice the multiply-adds of every local matrix product (``mm``,
   ``addmm``, ``bmm``, ``baddbmm``, which ``matmul``, ``einsum`` and the
-  linear layers reach), the reference's dot convention;
+  linear layers reach), the reference's dot convention. Under
+  ``torch.inference_mode()`` the mode sees composite operations whole
+  (``einsum``, ``matmul``, ``linear``: their ``CompositeImplicitAutograd``
+  kernel runs below the autograd keys that inference mode skips); it runs
+  their decomposition instead (on DTensors: of those DTensor has no
+  sharding strategy for, and of every composite inside those), so it
+  counts the same products, once, as under ``torch.no_grad()``;
 * bytes: each local operation's tensor inputs and outputs (views, aliases
-  and uninitialised allocations move nothing): eager torch fuses nothing,
-  so this bounds the reference's fused count from above;
+  and uninitialised allocations move nothing). Eager torch fuses nothing,
+  but it also keeps no copies XLA makes (layout changes, remat's
+  recomputations, scan carries): this is not a bound on the reference's
+  fused count either way (``DEVIATIONS.md``);
 * collectives: one record per collective, ``(kind, operand bytes, result
   bytes)``, from the functional collectives DTensor issues and the
   ``torch.distributed`` calls of the gossip (sends, all-gathers);
 * memory: the bytes of the storages allocated inside the mode and still
-  alive, and their peak.
+  alive (meta tensors hold none), and their peak; ``peak_sites`` attributes the live bytes at the
+  peak to the frames that allocated them (:meth:`OpCounter.top_sites`).
 
 There are no loops to weight: a Python loop runs every iteration.
 """
@@ -67,6 +76,23 @@ _PROPAGATION_FRAMES = ("_propagate_tensor_meta", "gen_fake_args")
 _PLACEMENT_FILE = "placement_types.py"
 
 
+def _composite(func) -> bool:
+    """Whether ``func`` has a ``CompositeImplicitAutograd`` kernel (a
+    decomposition into other aten operations)."""
+    key = torch._C.DispatchKey.CompositeImplicitAutograd
+    return func.namespace != "prim" and func.has_kernel_for_dispatch_key(key)
+
+
+def _dtensor_rule(func) -> bool:
+    """Whether DTensor propagates ``func`` itself (a composite it has a
+    sharding strategy for, such as ``reshape``, is left to it whole)."""
+    from torch.distributed.tensor import DTensor
+
+    prop = DTensor._op_dispatcher.sharding_propagator
+    return (func in prop.op_strategy_funcs or func in prop.op_to_rules
+            or func in getattr(prop, "op_single_dim_strategy_funcs", {}))
+
+
 def _tensors(obj):
     if isinstance(obj, torch.Tensor):
         yield obj
@@ -111,11 +137,27 @@ def _caller() -> str:
     return ""
 
 
+def _site() -> str:
+    """``file:function:line`` of the innermost frame of the program (a
+    ``repro_torch`` module other than this one and the layout hooks of
+    ``models/sharding.py``) that is running the current operation."""
+    f = sys._getframe(3)
+    while f is not None:
+        name = f.f_code.co_filename
+        if "repro_torch" in name and not name.endswith(("counter.py", "sharding.py")):
+            short = name[name.rindex("repro_torch") + len("repro_torch") + 1:]
+            return f"{short}:{f.f_code.co_name}:{f.f_lineno}"
+        f = f.f_back
+    return "?"
+
+
 class OpCounter(TorchDispatchMode):
     """Counts flops, bytes, collectives and live storage bytes of the local
-    operations run inside it (see the module docstring)."""
+    operations run inside it (see the module docstring). With
+    ``sites=True`` it also keeps the live bytes by allocation site and, at
+    each new peak, a copy of them: ``peak_sites``."""
 
-    def __init__(self):
+    def __init__(self, sites: bool = False):
         super().__init__()
         self.flops = 0.0
         self.bytes = 0.0
@@ -123,15 +165,24 @@ class OpCounter(TorchDispatchMode):
         self.collectives: list = []
         self.live = 0
         self.peak = 0
+        self.sites = sites
+        self.live_sites: dict = {}
+        self.peak_sites: dict = {}
         self._seen: set = set()
         self._declined = None
+        self._nested = 0
+        self._gathering = False
 
-    def _free(self, key, nbytes):
+    def _free(self, key, nbytes, site):
         self._seen.discard(key)
         self.live -= nbytes
+        if site is not None:
+            self.live_sites[site] -= nbytes
 
     def _track(self, out):
         for t in _tensors(out):
+            if t.device.type == "meta":  # no memory
+                continue
             st = t.untyped_storage()
             key = id(st)
             if key in self._seen:
@@ -139,8 +190,20 @@ class OpCounter(TorchDispatchMode):
             nbytes = st.nbytes()
             self._seen.add(key)
             self.live += nbytes
-            self.peak = max(self.peak, self.live)
-            weakref.finalize(st, self._free, key, nbytes)
+            site = None
+            if self.sites:
+                site = _site()
+                self.live_sites[site] = self.live_sites.get(site, 0) + nbytes
+            if self.live > self.peak:
+                self.peak = self.live
+                if self.sites:
+                    self.peak_sites = {k: v for k, v in self.live_sites.items() if v}
+            weakref.finalize(st, self._free, key, nbytes, site)
+
+    def top_sites(self, k: int = 10) -> list:
+        """The ``k`` sites holding the most live bytes at the peak, as
+        ``(site, bytes)``, largest first (needs ``sites=True``)."""
+        return sorted(self.peak_sites.items(), key=lambda kv: -kv[1])[:k]
 
     def _dtensor_call(self, func, args, kwargs):
         """A DTensor-level call, run by DTensor with this mode active (so its
@@ -157,9 +220,15 @@ class OpCounter(TorchDispatchMode):
                 return func(*args, **kwargs)
         except (RuntimeError, NotImplementedError):
             self._declined = None
-            with self:
-                args = [a.redistribute(a.device_mesh, [Replicate()] * a.device_mesh.ndim)
-                        if isinstance(a, DTensor) else a for a in args]
+            if self._gathering:  # the gather itself failed: no second rerun
+                raise
+            self._gathering = True
+            try:
+                with self:
+                    args = [a.redistribute(a.device_mesh, [Replicate()] * a.device_mesh.ndim)
+                            if isinstance(a, DTensor) else a for a in args]
+            finally:
+                self._gathering = False
             self._declined = func
             with self:
                 return func(*args, **kwargs)
@@ -172,7 +241,19 @@ class OpCounter(TorchDispatchMode):
         from torch._subclasses.fake_tensor import FakeTensor, unset_fake_temporarily
 
         kwargs = kwargs or {}
-        if any(issubclass(t, DTensor) for t in types):
+        dtensor = any(issubclass(t, DTensor) for t in types)
+        if _composite(func) and (not dtensor or self._nested or not _dtensor_rule(func)):
+            # Whole under inference mode: counted as its parts, all the way
+            # down inside a composite DTensor has no rule for (as no_grad).
+            self._nested += 1
+            try:
+                with self:
+                    out = func.decompose(*args, **kwargs)
+            finally:
+                self._nested -= 1
+            if out is not NotImplemented:
+                return out
+        if dtensor:
             if self._declined is func:  # the call _dtensor_call made: DTensor's
                 self._declined = None
                 return NotImplemented

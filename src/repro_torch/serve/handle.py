@@ -228,13 +228,18 @@ class ServeHandle:
     # -- publication -------------------------------------------------------
     @classmethod
     def for_engine(cls, engine, spec: ServeSpec | None = None) -> "ServeHandle":
-        """A handle bound to a live engine, ready for ``run(serve=...)``.
+        """A handle bound to a live engine, ready for ``run(serve=...)``
+        (not an engine one shard a rank: ROADMAP A9c).
 
         When the engine carries an arrival scenario with an explicit
         attachment map and the spec names no neighbours, the arrival map
         becomes the cold-start default: pending arrivals are then served
         with exactly the neighbours they will warm-start from at admission.
         """
+        if getattr(engine, "rank", None) is not None:
+            raise NotImplementedError(
+                "serving a sharded engine one shard a rank is ROADMAP item A9c; serve the "
+                "stacked engine (no group) or a checkpoint entry of the ranks")
         spec = ServeSpec.coerce(spec)
         arrival = getattr(getattr(engine, "scenario", None), "arrival", None)
         if spec.neighbors is None and arrival is not None and arrival.attach:

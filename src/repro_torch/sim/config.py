@@ -10,11 +10,13 @@ there a jitted ``lax.scan``, here a captured CUDA graph replayed on the
 card.
 
 The sharded engine's fields (``partition_mode``, ``relabel``,
-``coords``, ``exchange``, ``partition``, ``devices``) are live; its S
-shards are stacked on ``device``, so ``devices`` may name that one
-device only (several distinct devices are ROADMAP item A9b, and raise
-``NotImplementedError`` naming it). ``graph_update`` and
-``drift_threshold`` drive dynamic topology in both engines.
+``coords``, ``exchange``, ``partition``, ``devices``) are live. Its S
+shards are stacked on ``device``, or held one a process: ``devices`` a
+1-D ``torch.distributed`` ``DeviceMesh`` named ``"shards"`` (the
+reference's ``Mesh(devices, ("shards",))``) puts shard ``rank`` on this
+process's ``device``. A list of several devices raises: in the port one
+process drives one device. ``graph_update`` and ``drift_threshold``
+drive dynamic topology in both engines.
 """
 
 from __future__ import annotations
@@ -75,8 +77,10 @@ class EngineConfig:
       defaults; bare strings coerce with a deprecation warning);
     * ``partition``: a prebuilt ``GraphPartition`` to reuse;
     * ``devices``: None, or a list naming ``device`` alone: the S shards
-      are stacked on one device. More than one distinct device raises
-      ``NotImplementedError`` naming ROADMAP item A9b.
+      are stacked on one device; or a 1-D ``DeviceMesh`` whose dimension
+      is named ``"shards"``: one shard a rank of it, on ``device``. A
+      list of more than one distinct device raises
+      ``NotImplementedError``: one process drives one device.
 
     Dynamic topology (both engines; an engine is dynamic when
     ``graph_update`` is set or the scenario has arrivals):
@@ -115,14 +119,20 @@ class EngineConfig:
         if int(self.steps_per_chunk) < 1:
             raise ValueError(f"steps_per_chunk must be >= 1, got {self.steps_per_chunk!r}")
         resolve_device(self.device, "EngineConfig.device")
-        if self.devices is not None:
+        if self.devices is not None and hasattr(self.devices, "mesh_dim_names"):
+            names = tuple(self.devices.mesh_dim_names or ())
+            if names != ("shards",):
+                raise ValueError(
+                    f"EngineConfig.devices as a DeviceMesh must be 1-D with its dimension "
+                    f"named 'shards' (one shard a rank), got dimensions {names}")
+        elif self.devices is not None:
             named = {_device_key(d) for d in self.devices}
             if len(named) > 1:
                 raise NotImplementedError(
-                    f"EngineConfig.devices names {len(named)} devices; a sharded engine "
-                    "across several devices is ROADMAP item A9b (the torch.distributed "
-                    "exchange backend), not ported yet: the port stacks all shards on "
-                    "EngineConfig.device"
+                    f"EngineConfig.devices names {len(named)} devices, but in the port one "
+                    "process drives one device: stack the shards on EngineConfig.device, "
+                    "or run one process a device and give EngineConfig.devices a 1-D "
+                    "DeviceMesh named 'shards' (one shard a rank)"
                 )
             if named and named != {_device_key(self.device)}:
                 raise ValueError(
@@ -159,11 +169,19 @@ def resolve_config(config: EngineConfig | None, overrides: dict) -> EngineConfig
 def make_engine(update, config: EngineConfig | None = None, *, shards=None, **overrides):
     """Build the right engine for ``shards``: None/0 -> the single-device
     :class:`AsyncEngine`, otherwise :class:`ShardedAsyncEngine` with that
-    many shards (stacked on ``device``). ``overrides`` replace fields of
-    ``config``."""
+    many shards: one a rank when ``devices`` is a ``"shards"`` mesh or a
+    default process group of more than one rank is initialized (the
+    shard count and the group's size must agree), else stacked on
+    ``device``. ``overrides`` replace fields of ``config``."""
     from repro_torch.sim.engine import AsyncEngine, ShardedAsyncEngine
 
     cfg = resolve_config(config, overrides)
     if not shards:
         return AsyncEngine(update, config=cfg)
-    return ShardedAsyncEngine(update, num_shards=int(shards), config=cfg)
+    group = None
+    if not hasattr(cfg.devices, "get_group"):
+        import torch.distributed as dist
+
+        if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
+            group = dist.group.WORLD
+    return ShardedAsyncEngine(update, num_shards=int(shards), config=cfg, group=group)

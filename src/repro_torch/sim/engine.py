@@ -53,6 +53,7 @@ sharded relayout) drops the graphs, which are captured again at the next
 from __future__ import annotations
 
 import dataclasses
+import logging
 import math
 from typing import NamedTuple
 
@@ -60,7 +61,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.graph import TopologyState, as_csr, csr_from_coo, neighbor_counts
-from repro_torch.core.mixing import sharded_mix_op
+from repro_torch.core.mixing import GroupCollective, sharded_mix_op
 from repro_torch.core.model_propagation import propagation_rows_from
 from repro_torch.device import resolve_device
 from repro_torch.kernels.fused_row_update import MAX_M, MAX_P
@@ -1029,26 +1030,35 @@ class AsyncEngine:
 
 
 # ---------------------------------------------------------------------------
-# The sharded engine: S agent blocks stacked on one device
+# The sharded engine: S agent blocks stacked on one device, or one a rank
 # ---------------------------------------------------------------------------
 
 
-class ShardedSimState(NamedTuple):
-    """Sharded engine state: the S shards' leaves stacked (S, ...) on the
-    engine's device, each updated in place by the slot."""
+def rank_seed(seed: int, rank: int, *more: int) -> int:
+    """The seed of rank ``rank``'s generator in a sharded engine one shard
+    a rank: the first word of numpy's ``SeedSequence((seed, rank, *more))``
+    (a restore that has no stream for the rank adds the entry's step)."""
+    return int(np.random.SeedSequence((int(seed), int(rank), *map(int, more)))
+               .generate_state(1)[0])
 
-    Theta: torch.Tensor  # (S, R, p) agent blocks: a view of slab's first S * R rows
-    active: torch.Tensor  # (S, R) bool churn state (padding rows: False)
-    generator: torch.Generator  # the engine's random stream (all shards)
-    ustate: object  # LocalUpdate state: () or (S, R) tiles of its (n,) leaf
-    applied: torch.Tensor  # (S,) int64
-    dropped: torch.Tensor  # (S,) int64
-    messages: torch.Tensor  # (S,) float32
-    ptr: torch.Tensor  # (S,) int64 slot counter (identical across shards)
-    slab: torch.Tensor  # (S * (R + Hmax), p): the owned rows (Theta), then the halo rows
-    ef: torch.Tensor | None = None  # (S, Bmax, p) error-feedback accumulator of the
+
+class ShardedSimState(NamedTuple):
+    """Sharded engine state: the leaves of the L shards this process holds
+    stacked (L, ...) on the engine's device (L = S stacked, 1 per rank),
+    each updated in place by the slot."""
+
+    Theta: torch.Tensor  # (L, R, p) agent blocks: a view of slab's first L * R rows
+    active: torch.Tensor  # (L, R) bool churn state (padding rows: False)
+    generator: torch.Generator  # the engine's random stream (all its shards)
+    ustate: object  # LocalUpdate state: () or (L, R) tiles of its (n,) leaf
+    applied: torch.Tensor  # (L,) int64
+    dropped: torch.Tensor  # (L,) int64
+    messages: torch.Tensor  # (L,) float32
+    ptr: torch.Tensor  # (L,) int64 slot counter (identical across shards)
+    slab: torch.Tensor  # (L * (R + Hmax), p): the owned rows (Theta), then the halo rows
+    ef: torch.Tensor | None = None  # (L, Bmax, p) error-feedback accumulator of the
     # compressed halo exchange (None unless the ExchangeSpec threads one)
-    metrics: object = None  # dict of (S, ...) device counters (None: metrics off)
+    metrics: object = None  # dict of (L, ...) device counters (None: metrics off)
 
 
 class ShardedAsyncEngine:
@@ -1092,11 +1102,33 @@ class ShardedAsyncEngine:
     and re-lays the state out; the slab's halo part (and on a repartition
     the owned part) changes shape, so every swap drops the captured
     graphs. Refused: per-edge delays (as in the reference).
+
+    **One shard a process** (the reference's one shard a device): given
+    ``group``, a ``torch.distributed`` process group of S ranks, or
+    ``EngineConfig.devices`` a 1-D ``DeviceMesh`` named ``"shards"`` of S
+    ranks (:func:`make_engine` also takes an initialized default group of
+    S ranks), this process holds shard ``rank`` alone, on
+    ``EngineConfig.device``. Every rank cuts the same partition on the
+    host (deterministic numpy from the same graph) and keeps its row of
+    it: the slot is the stacked slot with a local shard axis of length
+    L = 1, its exchange ``ShardedMixOp.for_rank`` over a
+    :class:`GroupCollective`. Its generator is seeded from (seed, rank)
+    (:func:`rank_seed`), so forced wake sets give the stacked engine's
+    bits and sampled runs its distribution. Counters stay per shard in
+    the slot and are gathered across the ranks when read
+    (:meth:`shards_of`, :meth:`metrics_snapshot`, ``run``'s result);
+    :meth:`global_theta` all-gathers the owned blocks. Chunks are captured
+    where the group's collective can be (NCCL); on a gloo group the
+    exchange is staged through the host and every slot runs eagerly
+    (``capture_mode`` says which). Dynamic topology, serving and the
+    phase programs across ranks are ROADMAP item A9c.
     """
 
     def __init__(self, update: LocalUpdate, *, num_shards: int, config: EngineConfig | None = None,
-                 **kw):
+                 group=None, **kw):
         cfg = resolve_config(config, kw)
+        if group is None and cfg.devices is not None and hasattr(cfg.devices, "get_group"):
+            group = cfg.devices.get_group("shards")  # a 1-D DeviceMesh ("shards",)
         self.config = cfg
         self.update = update
         self.device = resolve_device(cfg.device, "EngineConfig.device")
@@ -1147,6 +1179,25 @@ class ShardedAsyncEngine:
         self.smix = sharded_mix_op(self.part, exchange=self.exchange_spec)
         self.exchange_method = self.smix.method
         self.num_shards = self.part.num_shards
+        self.group, self.rank = group, None
+        if group is not None:
+            import torch.distributed as dist
+
+            size = dist.get_world_size(group)
+            if size != self.num_shards:
+                raise ValueError(
+                    f"a sharded engine of {self.num_shards} shards one a rank needs a group "
+                    f"of that many ranks; this group has {size}")
+            if self.dynamic:
+                raise NotImplementedError(
+                    "dynamic topology across ranks (set_topology, admit, a repartition "
+                    "moving rows between ranks) is ROADMAP item A9c; stack the shards "
+                    "on one device (no group) for a dynamic run")
+            self.rank = dist.get_rank(group)
+            self.smix = self.smix.for_rank(self.rank, GroupCollective(group))
+        # The shards this process holds: all S stacked, or its rank's.
+        self._shards = np.arange(self.num_shards) if self.rank is None else np.array([self.rank])
+        self.local_shards = len(self._shards)
 
         self.rates = clocks.normalize_rates(cfg.rates, self.n)
         self.tau = clocks.slot_duration(self.rates, cfg.slot_wakes)
@@ -1193,11 +1244,23 @@ class ShardedAsyncEngine:
             self._phases = halo + ("gather_mix", "row_update", "scatter", "finalize")
         self._phase_cache: dict = {}
         self._phase_scratch = None
-        self._graphs = ChunkGraphs(self) if self.device.type == "cuda" else None
+        self.capture_mode = "eager: not a CUDA device"
+        if self.device.type == "cuda":
+            if self.rank is not None and self.smix.collective.staged:
+                self.capture_mode = ("eager: the gloo group stages the halo exchange "
+                                     "through the host, which a CUDA graph cannot hold")
+            else:
+                self.capture_mode = "captured"
+        if self.rank is not None:
+            logging.getLogger(__name__).info(
+                "sharded engine rank %d of %d on %s over %s: %s", self.rank, self.num_shards,
+                self.device, self.smix.collective.backend, self.capture_mode)
+        self._graphs = ChunkGraphs(self) if self.capture_mode == "captured" else None
         self._rebuild_static()
 
     def _exchange_volume(self) -> ExchangeVolume:
-        """Per-shard static wire volume of the configured halo exchange."""
+        """Per-shard static wire volume of the configured halo exchange (the
+        shards this process holds)."""
         part, S = self.part, self.num_shards
         per_row = self.exchange_spec.payload_bytes_per_row(self.p)
         if self.smix.method == "p2p":
@@ -1212,12 +1275,13 @@ class ShardedAsyncEngine:
             rows = int(self.smix.border.shape[1]) * (S - 1)
             p2p_rows = p2p_bytes = None
         rows_shipped = np.full(S, rows, np.int32)
+        mine = self._shards  # this process's rows of the (S, ...) volumes
         return ExchangeVolume(
-            border_rows=np.asarray(part.border_sizes, np.int64).astype(np.int32),
-            rows_shipped=rows_shipped,
-            bytes_shipped=(rows_shipped * per_row).astype(np.float32),
-            p2p_rows=p2p_rows,
-            p2p_bytes=p2p_bytes,
+            border_rows=np.asarray(part.border_sizes, np.int64).astype(np.int32)[mine],
+            rows_shipped=rows_shipped[mine],
+            bytes_shipped=(rows_shipped * per_row).astype(np.float32)[mine],
+            p2p_rows=None if p2p_rows is None else p2p_rows[mine],
+            p2p_bytes=None if p2p_bytes is None else p2p_bytes[mine],
         )
 
     def _rebuild_static(self) -> None:
@@ -1234,13 +1298,14 @@ class ShardedAsyncEngine:
             self._graphs.reset()
         self._phase_cache.clear()  # the phase programs read the old tiles too
         self._phase_scratch = None
-        part, dev, S = self.part, self.device, self.num_shards
+        part, dev, S = self.part, self.device, self.local_shards
         R, B = part.rows_per_shard, self.batch_size
         self.rows_per_shard = R
-        owned = part.owned.reshape(-1).astype(np.int64)
+        owned = part.owned[self._shards].reshape(-1).astype(np.int64)
         real = owned < self.n
         self._owned = torch.as_tensor(owned, device=dev)
-        # Agent i's row of the (S * R, p) owned rows.
+        # Agent i's row of all S shards' (S * R, p) owned rows (per rank:
+        # of the blocks ``shards_of`` gathers).
         self._agent_rows = torch.as_tensor(
             part.shard_of.astype(np.int64) * R + part.local_of, device=dev)
         real_t = torch.as_tensor(real, device=dev)
@@ -1303,13 +1368,13 @@ class ShardedAsyncEngine:
 
     # -- state ------------------------------------------------------------
     def _state(self, Theta_rows, active, ustate) -> ShardedSimState:
-        """A state around the (S * R, p) owned rows, the (S, R) churn flags
+        """A state around the (L * R, p) owned rows, the (L, R) churn flags
         and the update state, everything else zero."""
-        dev, S, R = self.device, self.num_shards, self.rows_per_shard
+        dev, S, R = self.device, self.local_shards, self.rows_per_shard
         slab = torch.zeros((self.smix.slab_rows, self.p), dtype=self.dtype, device=dev)
         slab[: S * R] = Theta_rows
         gen = torch.Generator(device=dev)
-        gen.manual_seed(self._seed)
+        gen.manual_seed(self._seed if self.rank is None else rank_seed(self._seed, self.rank))
 
         def zeros(dt):
             return torch.zeros(S, dtype=dt, device=dev)
@@ -1329,14 +1394,14 @@ class ShardedAsyncEngine:
         )
 
     def _shard_leaf(self, x) -> torch.Tensor:
-        """An (n, ...) update-state leaf as its (S, R, ...) tiles."""
+        """An (n, ...) update-state leaf as its (L, R, ...) tiles."""
         x = x.to("cpu").numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
         if x.ndim == 0 or x.shape[0] != self.n:
             raise ValueError(
                 "sharded engine needs per-agent update-state leaves with "
                 f"leading dim n={self.n}, got shape {x.shape}"
             )
-        return torch.as_tensor(self.part.pad_rows(x)).to(self.device)
+        return torch.as_tensor(self.part.pad_rows(x)[self._shards]).to(self.device)
 
     def init_state(self, Theta0, seed: int | None = None) -> ShardedSimState:
         """Fresh sharded state from an (n, p) initial model matrix (original
@@ -1346,13 +1411,13 @@ class ShardedAsyncEngine:
         Theta = np.asarray(Theta0)
         if Theta.shape != (self.n, self.p):
             raise ValueError(f"Theta0 must be {(self.n, self.p)}, got {Theta.shape}")
-        S, R = self.num_shards, self.rows_per_shard
-        rows = torch.as_tensor(self.part.pad_rows(Theta)).to(self.device, self.dtype)
+        S, R, mine = self.local_shards, self.rows_per_shard, self._shards
+        rows = torch.as_tensor(self.part.pad_rows(Theta)[mine]).to(self.device, self.dtype)
         active_g = np.ones(self.n, bool)
         if self._pending:
             # Scheduled arrivals: inactive and edge-detached until admitted.
             active_g[sorted(self._pending)] = False
-        active = torch.as_tensor(self.part.pad_rows(active_g, fill=False))
+        active = torch.as_tensor(self.part.pad_rows(active_g, fill=False)[mine])
         ustate = self.update.init_state()
         if not (isinstance(ustate, tuple) and not ustate):
             ustate = self._shard_leaf(ustate)
@@ -1362,9 +1427,9 @@ class ShardedAsyncEngine:
         return state
 
     def _blank_state(self) -> ShardedSimState:
-        """An ``init_state``-shaped zero template built in the (S, R, ...)
+        """An ``init_state``-shaped zero template built in the (L, R, ...)
         tile space, never assembling an (n, p) host Theta."""
-        S, R, dev = self.num_shards, self.rows_per_shard, self.device
+        S, R, dev = self.local_shards, self.rows_per_shard, self.device
         ustate = self.update.init_state()
         if not (isinstance(ustate, tuple) and not ustate):
             ustate = torch.zeros((S, R) + tuple(ustate.shape[1:]), dtype=ustate.dtype, device=dev)
@@ -1382,7 +1447,7 @@ class ShardedAsyncEngine:
 
     # -- one stacked super-tick ---------------------------------------------
     def _compact(self, wake):
-        """Each shard's woken batch at static shape (S, B): ``AsyncEngine._compact``
+        """Each shard's woken batch at static shape (L, B): ``AsyncEngine._compact``
         over the (S, R) wake mask at once (a cumsum along R and a batched
         searchsorted). Returns ``(woken, slot_rows, valid, dropped)``, local
         rows (sentinel R in ``woken``; ``slot_rows`` B distinct in-range rows
@@ -1399,11 +1464,12 @@ class ShardedAsyncEngine:
         return woken, slot_rows, valid, total - nvalid
 
     def _slot(self, state: ShardedSimState, wake_mask, upto: str | None = None):
-        """One super-tick of all S shards, in place; ``wake_mask`` (S, R)
-        forces the wake set (None samples it). ``upto`` cuts it after a
-        named phase and returns that phase's live intermediates (the
-        reference's ``_slot_local(..., upto)``); None runs it all."""
-        S, R, dev = self.num_shards, self.rows_per_shard, self.device
+        """One super-tick of the L shards this process holds (all S, or its
+        rank's), in place; ``wake_mask`` (L, R) forces the wake set (None
+        samples it). ``upto`` cuts it after a named phase and returns that
+        phase's live intermediates (the reference's ``_slot_local(...,
+        upto)``); None runs it all."""
+        S, R, dev = self.local_shards, self.rows_per_shard, self.device
         gen = state.generator
         active_prev = active = state.active
         if wake_mask is None:
@@ -1491,7 +1557,7 @@ class ShardedAsyncEngine:
         """One super-tick with an explicit global (n,) wake set."""
         if isinstance(wake_mask, torch.Tensor):
             wake_mask = wake_mask.to("cpu").numpy()
-        mask = self.part.pad_rows(np.asarray(wake_mask, dtype=bool), fill=False)
+        mask = self.part.pad_rows(np.asarray(wake_mask, dtype=bool), fill=False)[self._shards]
         return self._slot(state, torch.as_tensor(mask).to(self.device))
 
     def advance(self, state: ShardedSimState, slots: int) -> ShardedSimState:
@@ -1507,16 +1573,27 @@ class ShardedAsyncEngine:
             state = self._slot(state, None)
         return state
 
+    def shards_of(self, t) -> torch.Tensor:
+        """A per-shard (L, ...) tensor of this process as all S shards'
+        (S, ...): itself when stacked; on a rank, every rank's gathered
+        in rank order (a collective: every rank calls it)."""
+        if self.rank is None:
+            return t
+        return self.smix.collective.all_gather(t).reshape((self.num_shards,) + tuple(t.shape[1:]))
+
     def _agent_theta(self, state: ShardedSimState) -> torch.Tensor:
         """The (n, p) models in agent order, gathered on the device."""
-        return state.Theta.reshape(-1, self.p)[self._agent_rows]
+        return self.shards_of(state.Theta).reshape(-1, self.p)[self._agent_rows]
 
     def global_theta(self, state: ShardedSimState) -> np.ndarray:
-        """Reassemble the (n, p) model matrix from the shard blocks."""
+        """Reassemble the (n, p) model matrix from the shard blocks (on a
+        rank: the owned blocks all-gathered, in original id order)."""
         return self._agent_theta(state).to("cpu").numpy()
 
     def _objective_value(self, state: ShardedSimState) -> float:
-        """The update's objective at ``state`` (recording hook)."""
+        """The update's objective at ``state`` (recording hook). On a rank
+        it is computed from the all-gathered models, the same on every
+        rank and the stacked engine's to the bit."""
         return self.update.objective(self._agent_theta(state))
 
     def _ptr_of(self, state: ShardedSimState) -> int:
@@ -1554,6 +1631,7 @@ class ShardedAsyncEngine:
         rebuild changed their shapes. The captured graphs are dropped
         (:meth:`_rebuild_static`).
         """
+        self._stacked_only("set_topology")
         if not self.dynamic:
             raise ValueError(
                 "static-topology engine; construct with "
@@ -1625,8 +1703,15 @@ class ShardedAsyncEngine:
         return state._replace(Theta=slab[: S * R].view(S, R, p), active=active, ustate=ustate,
                               slab=slab, ef=ef, metrics=metrics)
 
+    def _stacked_only(self, what: str) -> None:
+        if self.rank is not None:
+            raise NotImplementedError(
+                f"{what} on a sharded engine one shard a rank is ROADMAP item A9c; "
+                "stack the shards on one device (no group)")
+
     def _refresh_topology(self, state: ShardedSimState, round_index: int) -> ShardedSimState:
         """Fire one Dada edge-refresh round against the current models."""
+        self._stacked_only("_refresh_topology")
         gu = self.config.graph_update
         if gu is None:
             raise ValueError("no graph_update configured")
@@ -1642,6 +1727,7 @@ class ShardedAsyncEngine:
         through :meth:`set_topology`, so an admission can itself patch or
         repartition; the warm-started rows and flags are then written in
         place into whatever layout results."""
+        self._stacked_only("admit")
         arrival = self.scenario.arrival
         if arrival is None:
             raise ValueError("no arrival scenario configured")
@@ -1682,13 +1768,16 @@ class ShardedAsyncEngine:
         on a scratch copy of the state; same contract as
         :meth:`AsyncEngine.phase_program`. The halo's publish, collective
         and scatter are the three steps of ``ShardedMixOp.exchange_halo``."""
+        self._stacked_only("phase_program")
         return phase_program(self, upto)
 
     def metrics_snapshot(self, state: ShardedSimState) -> tuple:
         """Drain the device counters: ``(counters, derived)`` host dicts.
 
-        Counter leaves keep their leading (S,) shard axis; ``derived`` adds
-        the DP accountant's composed eps spend over the owned agents.
+        Counter leaves keep their leading (S,) shard axis (on a rank, every
+        rank's (1, ...) leaves gathered: a collective, every rank calls
+        it); ``derived`` adds the DP accountant's composed eps spend over
+        the owned agents.
         """
         if self._macc is None:
             raise ValueError(
@@ -1696,9 +1785,13 @@ class ShardedAsyncEngine:
                 "EngineConfig(metrics=True) (or a MetricsSpec)"
             )
         counters = self._macc.snapshot(state.metrics)
+        if self.rank is not None:
+            counters = {k: self.shards_of(torch.as_tensor(v).to(self.device)).to("cpu").numpy()
+                        for k, v in counters.items()}
         derived: dict = {}
         if self.metrics_spec.privacy and hasattr(self.update, "eps_spent"):
-            counts = self.part.unpad_rows(state.ustate.to("cpu", copy=True).numpy())
+            counts = self.part.unpad_rows(
+                self.shards_of(state.ustate).to("cpu", copy=True).numpy())
             eps = np.asarray(self.update.eps_spent(counts))
             derived["dp_eps_spent_mean"] = float(eps.mean())
             derived["dp_eps_spent_max"] = float(eps.max())
@@ -1744,18 +1837,18 @@ class ShardedAsyncEngine:
             checkpoint_dir=checkpoint_dir, checkpoint_keep_last=checkpoint_keep_last,
             snapshot_every=snapshot_every, serve=serve,
         )
-        part = self.part
+        part, every = self.part, self.shards_of  # on a rank: gathered across ranks
         ustate = state.ustate
         if isinstance(ustate, torch.Tensor):
-            ustate = part.unpad_rows(ustate.to("cpu", copy=True).numpy())
+            ustate = part.unpad_rows(every(ustate).to("cpu", copy=True).numpy())
         return SimResult(
             Theta=self.global_theta(state),
             objective=np.asarray(objective) if objective is not None else None,
-            messages=float(state.messages.sum()),
-            wakes_applied=int(state.applied.sum()),
-            wakes_dropped=int(state.dropped.sum()),
+            messages=float(every(state.messages).sum()),
+            wakes_applied=int(every(state.applied).sum()),
+            wakes_dropped=int(every(state.dropped).sum()),
             slots=self._ptr_of(state),
-            active=part.unpad_rows(state.active.to("cpu", copy=True).numpy()),
+            active=part.unpad_rows(every(state.active).to("cpu", copy=True).numpy()),
             update_state=ustate,
             state=state,
             report=report,

@@ -365,8 +365,9 @@ def test_config_overrides_and_later_slices(small):
     assert sharded.exchange_method == "p2p"
     again = make_engine(CDUpdate(port), cfg.replace(partition=sharded.part), shards=2)
     assert again.part is sharded.part
-    # Shards across several devices are A9b.
-    with pytest.raises(NotImplementedError, match="A9b"):
+    # One process drives one device: shards one a rank take a "shards"
+    # DeviceMesh, never a list of devices.
+    with pytest.raises(NotImplementedError, match="one process drives one device"):
         EngineConfig(device="cpu", devices=["cpu", "cuda:1"])
     arrivals = Scenario(arrival=ArrivalConfig(schedule=((2, (5,)),), attach_k=2))
     eng = AsyncEngine(CDUpdate(port), config=cfg.replace(scenario=arrivals))
