@@ -248,8 +248,10 @@ Phases, one line each (any failure ends the run with a non-zero code):
    xlstm-1.3b served at its full config (48 blocks, 42 mLSTM and 6
    sLSTM, d_model 2048, 4 heads, mLSTM heads of 1024, 3,426,883,584
    parameters, checked): 4 prompts of 2048 tokens through
-   ``bundle.prefill`` (a warm-up, 2 timed: the sLSTM's time loop is
-   host-bound), the aten operations of one sLSTM step and of one decode
+   ``bundle.prefill`` (a warm-up that captures the sLSTM scan's graphs,
+   then 2 turns of a prefill through the captured scan and one through
+   its eager loops, ``xlstm.eager_scan``: the logits must be equal bit
+   for bit), the aten operations of one sLSTM step and of one decode
    step, one prefill cut to 4 x 512 tokens traced (device ms in "mlstm"
    and "slstm" by kind, the idle share), then 64 greedy decode steps from
    ``init_cache`` timed one by one (2 more traced); (b) its P2P-DP
@@ -257,8 +259,10 @@ Phases, one line each (any failure ends the run with a non-zero code):
    (4 do not fit the card), 2 x 257 tokens each (two mLSTM chunks after
    the shift), m_i = 512, a traced round's device ms by range and block,
    the float32 routes on 2 blocks with ``slstm_every=2`` (remat on equal
-   to off, dense and sparse gossip against the roll, the DP clip read) and
-   the reduced rounds; (c) float32 at full width, 2 blocks: the prefill
+   to off, dense and sparse gossip against the roll, the DP clip read, the
+   DP round through the captured scan equal to the eager loops' on every
+   leaf, the noise replayed) and the reduced rounds, the sLSTM graphs'
+   capture seconds and replays; (c) float32 at full width, 2 blocks: the prefill
    of 2 x 256 tokens (the chunkwise mLSTM) against its own decode loop
    (the recurrent form, 1e-4), the reduced config on the card against the
    CPU (1e-5);
@@ -278,7 +282,10 @@ Phases, one line each (any failure ends the run with a non-zero code):
    measured peak prints beside the predicted argument + temp bytes; and
    the serve rows of llama3.2-1b x prefill_32k and decode_32k on 16x16:
    per-device flops within 5% of the JAX package's counts of the same
-   rows (2.556e13 and 3.383e9), temp under 80 GB;
+   rows (2.556e13 and 3.383e9), temp under 80 GB; two rows the dry-run
+   once refused, xlstm-1.3b x train_4k and grok-1-314b x decode_32k on
+   16x16 (flops, bytes, argument and temp bytes, trace seconds printed);
+   the dry-run's subprocesses start before phase 11;
 13. the sharded engine one shard a process on ``rgg500k_p100`` at S = 2
    (RCM, degree blocks, exchange ``auto``): (i) two worker processes on
    the card (``--rank-worker``) in a gloo group through a ``FileStore``,
@@ -409,6 +416,8 @@ BLOCK_RANGES = ("attention", "ffn")
 # with slstm_every = 2 (one mLSTM, one sLSTM).
 XLSTM_SERVE = dict(arch="xlstm-1.3b", seed=0, batch=4, prompt=2048, prefills=2,
                    traced_prompt=512, decode_steps=64, params=3_426_883_584)
+# Each timed prefill runs twice in turn: through the captured sLSTM scan
+# (the main path) and through its eager loops (``xlstm.eager_scan``).
 XLSTM_TRAIN = dict(TRAIN, arch="xlstm-1.3b", agents=2, seq=257)
 XLSTM_CUT = dict(num_layers=2, slstm_every=2)
 XLSTM_ROUTES = dict(TRAIN_ROUTES, **XLSTM_CUT, agents=2)
@@ -3401,6 +3410,24 @@ def train_routes(cfg, dev, n_rounds: int, t=TRAIN, r=TRAIN_ROUTES, tag="9") -> d
     noisy, _ = step(_clone_tree(start), {"tokens": tokens}, gen)
     clip_read = train_clip_read(start, roll, noisy, gen_state, gen.get_state(), clip, noise_scale,
                                 dev, t, A, tag)
+    if cfg.xlstm is not None:
+        # The same DP round, the noise replayed, through the sLSTM scan's
+        # eager loops: every agent's new parameters equal bit for bit.
+        from repro_torch.models import xlstm
+
+        replay = torch.Generator(device=dev)
+        replay.set_state(gen_state)
+        with xlstm.eager_scan():
+            eager, _ = step(_clone_tree(start), {"tokens": tokens}, replay)
+        gates["captured_equals_eager"] = all(
+            torch.equal(x, y) for (_, x), (_, y) in zip(tree_flatten_with_path(noisy),
+                                                        tree_flatten_with_path(eager)))
+        log(f"[{tag}] DP round through the captured sLSTM scan == through its eager loops "
+            f"(every agent's new parameters): {gates['captured_equals_eager']}")
+        if not gates["captured_equals_eager"]:
+            raise SystemExit(f"{cfg.name} training: the captured sLSTM scan's round differs "
+                             "from the eager loops'")
+        del eager
     del noisy, roll, start
     torch.cuda.empty_cache()
     log(f"[{tag}] float32 routes at full width, {cfg32.num_layers} layers: {fmt(gates)} "
@@ -3758,12 +3785,15 @@ def aten_ops(fn) -> dict:
     return dict(top=len(top), all=len(aten))
 
 
-def xlstm_serve(dev) -> dict:
+def xlstm_serve(dev, card: str) -> dict:
     """Phase 11 (a): serve xlstm-1.3b at its full width and depth (48
     blocks, 42 mLSTM and 6 sLSTM, d_model 2048), bfloat16, random weights
     from a seeded generator on the card. ``XLSTM_SERVE``'s prompts through
-    ``bundle.prefill`` (the forward's last-token logits): a warm-up, then
-    ``prefills`` timed (host clock around a synchronized call). The aten
+    ``bundle.prefill`` (the forward's last-token logits): a warm-up (it
+    captures the sLSTM scan's graphs), then ``prefills`` turns of two
+    timed calls (host clock around a synchronized call): through the
+    captured scan, then through its eager loops (``xlstm.eager_scan``);
+    the two must give the same logits bit for bit. The aten
     operations of one sLSTM time step and of one decode step. One prefill
     cut to ``traced_prompt`` tokens, timed, then traced (device ms by
     block, "mlstm" and "slstm", and kind; the idle share). Then greedy
@@ -3795,17 +3825,37 @@ def xlstm_serve(dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(z["seed"] + 1)
     B, S = z["batch"], z["prompt"]
     batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device=dev)}
-    bundle.prefill(model, batch)  # warm-up
+    t0 = time.perf_counter()
+    bundle.prefill(model, batch)  # warm-up: captures the sLSTM scan's graphs
     torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats(dev)
-    (logits, _), times = timed_calls(lambda: bundle.prefill(model, batch), z["prefills"])
+    times, eager_times = [], []
+    for _ in range(z["prefills"]):  # the captured scan and the eager loops in turns
+        (logits, _), ms = timed_calls(lambda: bundle.prefill(model, batch), 1)
+        times += ms
+        with xlstm.eager_scan():
+            (eager_logits, _), ms = timed_calls(lambda: bundle.prefill(model, batch), 1)
+        eager_times += ms
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     if logits.shape != (B, 1, cfg.padded_vocab) or not bool(torch.isfinite(logits).all()):
         raise SystemExit(f"{cfg.name} prefill: logits {tuple(logits.shape)} or not finite")
+    equal = torch.equal(logits, eager_logits)
     out = dict(params=n_params, batch=B, prompt=S,
                **rates("prefill_ms", "prefill_tokens_per_s", times, B * S),
+               **rates("eager_prefill_ms", "eager_prefill_tokens_per_s", eager_times, B * S),
+               warmup_s=warm_s, captured_equals_eager=equal,
                slstm_steps_per_prefill=len(model.slstm) * S, prefill_peak_gb=peak_gb)
-    log(f"[11] {cfg.name} prefill {B} x {S} ({z['prefills']} timed): {fmt(out)}")
+    out["eager_over_captured"] = out["eager_prefill_ms"] / out["prefill_ms"]
+    log(f"[11] {cfg.name} prefill {B} x {S} ({z['prefills']} turns, captured sLSTM scan then "
+        f"eager loops): {fmt(out)}")
+    log(f"[11] on {card}: prefill through the captured scan {out['prefill_ms']:.6g} ms, through "
+        f"the eager loops {out['eager_prefill_ms']:.6g} ms (median of {z['prefills']} each); "
+        f"logits equal bit for bit: {equal}")
+    if not equal:
+        raise SystemExit(f"{cfg.name} prefill: the captured sLSTM scan's logits differ from the "
+                         f"eager loops' (max |diff| "
+                         f"{float((logits.float() - eager_logits.float()).abs().max())})")
 
     # The aten operations of one sLSTM time step (the loop's body, its
     # inputs hoisted) and of one decode step.
@@ -3855,10 +3905,21 @@ def xlstm_serve(dev) -> dict:
                                        "step", out["decode_ms_per_step"])
     log(f"[11] {cfg.name} decode {B} x {steps} greedy steps from init_cache: "
         f"{fmt({k: v for k, v in out.items() if k.startswith('decode') and k != 'decode_trace'})}")
-    del model, bundle, warm, logits, step_logits, batch, short, r32, bias, state
+    del model, bundle, warm, logits, eager_logits, step_logits, batch, short, r32, bias, state
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+def scan_graph_stats() -> dict:
+    """The sLSTM scan's captured graphs so far, by (heads, batch, head
+    size): the lengths captured (forward and backward), the seconds the
+    captures took and the replays."""
+    from repro_torch.models import xlstm
+
+    return {f"H{k[0]}_B{k[1]}_hd{k[2]}": dict(lengths=sorted(g.forward_graphs),
+                                              capture_s=g.capture_s, replays=g.replays)
+            for k, g in xlstm.scan_graphs().items()}
 
 
 def xlstm_gates(dev) -> dict:
@@ -3924,11 +3985,14 @@ def xlstm_family(dev, launches: dict, card: str) -> dict:
     from repro_torch.kernels import ops
 
     ops.reset_launch_counts()
-    out = {"serve": xlstm_serve(dev)}
+    out = {"serve": xlstm_serve(dev, card)}
     memory("after serving xlstm-1.3b")
     out["train"] = p2p_train(XLSTM_TRAIN, XLSTM_ROUTES, dev, launches, card, {}, "11",
                              XLSTM_RANGES + TRAIN_RANGES)
     out["routes"] = xlstm_gates(dev)
+    out["slstm_graphs"] = scan_graph_stats()
+    log(f"[11] sLSTM scan graphs (chunks of the forward and the backward, by heads, batch "
+        f"and head size): {out['slstm_graphs']}")
     counts = {k: v for k, v in ops.launch_counts().items() if v}
     out["kernel_launches"] = counts
     log(f"[11] kernel launches across phase 11: {counts} (none may launch)")
@@ -3958,13 +4022,21 @@ DRYRUN_CALLS = {
                       "prefill_32k"],
     "16x16_decode": ["-m", "repro_torch.launch.dryrun", "--arch", "llama3.2-1b", "--shape",
                      "decode_32k"],
+    # Two rows the dry-run once refused: the sLSTM scan weighted by
+    # its trip count, and the MoE decode on the weights' own shards.
+    "xlstm_train_16x16": ["-m", "repro_torch.launch.dryrun", "--arch", "xlstm-1.3b", "--shape",
+                          "train_4k"],
+    "grok_decode_16x16": ["-m", "repro_torch.launch.dryrun", "--arch", "grok-1-314b", "--shape",
+                          "decode_32k"],
 }
+# The rows printed but not gated beyond a finished trace with positive counts.
+DRYRUN_PRINTED = ("xlstm_train_16x16", "grok_decode_16x16")
 DRYRUN_FLOPS_TOL = 0.05  # 16 x the 16x16 per-device flops against the (1, 1) row's
 # The serve rows' gates: per-device flops within DRYRUN_FLOPS_TOL of the
 # reference's count of the same row (ROADMAP C8, from the JAX package's
 # dry-run of llama3.2-1b on 16x16 on a CPU), and a temp an 80 GB card holds.
 DRYRUN_SERVE_FLOPS = {"16x16_prefill": 2.556e13, "16x16_decode": 3.383e9}
-DRYRUN_TIMEOUT_S = 300
+DRYRUN_TIMEOUT_S = 600  # from the start of phase 12; the calls start before phase 11
 
 
 def _free_port() -> int:
@@ -4103,15 +4175,14 @@ def mesh_round(dev, launches: dict, card: str) -> dict:
     return out
 
 
-def mesh_layer(dev, launches: dict, card: str) -> dict:
-    """Phase 12: the dry-run started in subprocesses, (a) on the card
-    meanwhile, then the dry-run's gates: the (1, 1) row's argument bytes
+def mesh_layer(dev, launches: dict, card: str, procs: dict) -> dict:
+    """Phase 12: the dry-run (``procs``, started in subprocesses before
+    phase 11), (a) on the card meanwhile, then the dry-run's gates: the (1, 1) row's argument bytes
     equal the card's input bytes; 16 x the 16x16 row's per-device flops
     within ``DRYRUN_FLOPS_TOL`` of the (1, 1) row's at the same per-agent
     batch; the ring gossip ships fewer collective bytes than the dense
     one; (a)'s measured peak beside the predicted argument + temp bytes."""
     t0 = time.perf_counter()
-    procs = dryrun_start(ROOT / "build" / "dryrun")
     out = {"mesh_round": mesh_round(dev, launches, card)}
     rows = dryrun_rows(procs)
     dr_s = time.perf_counter() - t0
@@ -4150,9 +4221,21 @@ def mesh_layer(dev, launches: dict, card: str) -> dict:
         f"dense {dense['collective_bytes_per_device']:.6g} B ({coll_ok}); on {card}: measured peak "
         f"{mr['peak_bytes']} B vs predicted argument + temp {predicted} B "
         f"(ratio {out['measured_over_predicted']:.6g}); phase wall {dr_s:.1f} s")
-    if not (args_ok and abs(flops_rel) <= DRYRUN_FLOPS_TOL and coll_ok and serve_ok):
+    printed = {label: dict(flops_per_device=rows[label]["flops_per_device"],
+                           bytes_per_device=rows[label]["bytes_per_device"],
+                           argument_bytes=rows[label]["memory"]["argument_size_in_bytes"],
+                           temp_bytes=rows[label]["memory"]["temp_size_in_bytes"],
+                           trace_s=rows[label]["trace_s"]) for label in DRYRUN_PRINTED}
+    out["formerly_refused"] = printed
+    for label, v in printed.items():
+        log(f"[12] formerly refused row {label}: {fmt(v)}")
+    printed_ok = all(v["flops_per_device"] > 0 and v["bytes_per_device"] > 0
+                     for v in printed.values())
+    if not (args_ok and abs(flops_rel) <= DRYRUN_FLOPS_TOL and coll_ok and serve_ok
+            and printed_ok):
         raise SystemExit(f"phase 12 dry-run gates failed: args {args_ok}, flops {flops_rel}, "
-                         f"ppermute < dense {coll_ok}, serve rows {serve}")
+                         f"ppermute < dense {coll_ok}, serve rows {serve}, "
+                         f"formerly refused {printed}")
     return out
 
 
@@ -4791,9 +4874,12 @@ def main() -> int:
     mark("10 transformer families")
 
     # [11] the xLSTM family, phase 10's memory released: xlstm-1.3b served
-    # and trained, the float32 routes; no kernel of ours may launch
+    # and trained, the float32 routes; no kernel of ours may launch. Phase
+    # 12's dry-run starts first, in subprocesses on the host's other cores
+    # (its xlstm-1.3b training row traces for minutes on a CPU)
     gc.collect()
     torch.cuda.empty_cache()
+    dryrun_procs = dryrun_start(ROOT / "build" / "dryrun")
     xl = xlstm_family(dev, launches, smi)
     mark("11 xLSTM family")
 
@@ -4802,7 +4888,7 @@ def main() -> int:
     # dry-run's rows and gates; no kernel of ours may launch
     gc.collect()
     torch.cuda.empty_cache()
-    mesh = mesh_layer(dev, launches, smi)
+    mesh = mesh_layer(dev, launches, smi, dryrun_procs)
     mark("12 mesh and launch layer")
 
     # [13] the sharded engine one shard a process: two gloo ranks on the

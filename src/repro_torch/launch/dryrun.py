@@ -25,8 +25,11 @@ local shards of the step's inputs, exact from the specs),
 ``output_size_in_bytes``, ``alias_size_in_bytes`` (outputs written into
 inputs: the round's parameters, the decode caches) and
 ``temp_size_in_bytes`` (the peak of live storages the step allocated).
-``lower_s``/``compile_s`` are ``trace_s``. A combination listed in
-``REFUSED`` is refused before tracing, with its reason.
+``lower_s``/``compile_s`` are ``trace_s``. Every (architecture x shape
+x mesh) combination is traced, as the reference compiles every one: the
+sLSTM time scan traces its distinct steps once, weighted by their count
+(``roofline/counter.py``), and so does a prefill's mLSTM inter-chunk
+loop, so an xlstm-1.3b row traces in minutes on a CPU.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama3.2-1b --shape train_4k
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all --both-meshes \\
@@ -63,30 +66,6 @@ from repro_torch.utils.tree import module_tree, tree_leaves
 
 SLIDING_WINDOW_500K = 8192
 DEFAULT_OUT = "results/dryrun_torch.jsonl"
-
-# Combinations refused before tracing, with the reason and the ROADMAP item.
-_SLSTM = ("refused: xlstm-1.3b's sLSTM time loop is 23 operations a step in Python, "
-          "{n} DTensor dispatches a trace; waits for a captured sLSTM scan (ROADMAP A15e)")
-_MOE_DECODE = ("refused: DTensor propagates the MoE router of a decode step's token groups "
-               "split over the data axes into shards of inconsistent shapes; waits for an "
-               "explicit expert-parallel layout (ROADMAP A15e)")
-REFUSED = {
-    ("xlstm-1.3b", "train_4k"): _SLSTM.format(n="about 1.7 M"),
-    ("xlstm-1.3b", "prefill_32k"): _SLSTM.format(n="about 4.5 M"),
-    ("granite-moe-3b-a800m", "decode_32k", "2x16x16"): _MOE_DECODE,
-    ("granite-moe-3b-a800m", "long_500k", "2x16x16"): _MOE_DECODE,
-    ("grok-1-314b", "decode_32k", "16x16"): _MOE_DECODE,
-    ("grok-1-314b", "decode_32k", "2x16x16"): _MOE_DECODE,
-}
-
-
-def refusal(arch: str, shape_name: str, multi_pod: bool, full: bool = True):
-    """The recorded reason ``arch`` x ``shape_name`` is not traced on the
-    single- or multi-pod mesh, or None. The trace-size refusals hold at the
-    arch's own config (``full``); the layout ones at any size."""
-    return (REFUSED.get((arch, shape_name)) if full else None) or REFUSED.get(
-        (arch, shape_name, "2x16x16" if multi_pod else "16x16"))
-
 
 def arch_config_for_shape(arch: str, shape_name: str):
     """Resolve the model config, applying the long-context attention policy."""
@@ -264,21 +243,20 @@ def mesh_name(shape) -> str:
 def run_one(arch: str, shape_name: str, multi_pod: bool = False, gossip="ppermute",
             p2p_on=True, dp_on=True, verbose=True, seq_parallel=False, cfg_overrides=None,
             moe_overrides=None, variant="", remat=True, cfg=None, mesh_shape=None,
-            global_batch=None, seq_len=None, sites=0):
+            global_batch=None, seq_len=None, sites=0, weight_loops=True):
     """Trace one combination's step on the production mesh (or on
     ``mesh_shape``, 2 or 3 dims named as the production meshes) and return
-    its row. Raises ``ValueError`` for a ``REFUSED`` combination (with a
-    ``cfg`` of its own, only for a refusal of the layout). ``sites > 0``
+    its row. ``sites > 0``
     adds ``peak_sites``: the ``sites`` allocation sites holding the most
-    bytes at the temp peak (``OpCounter.top_sites``)."""
+    bytes at the temp peak (``OpCounter.top_sites``). ``weight_loops``
+    False runs every step of the sLSTM scan under the counter, where the
+    default traces its distinct steps once, weighted by their count
+    (``OpCounter.weighted``)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.distributed.tensor.experimental import implicit_replication
 
     if mesh_shape is not None:  # the production axes of as many dims
         multi_pod = len(mesh_shape) == 3
-    why = refusal(arch, shape_name, multi_pod, full=cfg is None)
-    if why:
-        raise ValueError(f"{arch} x {shape_name}: {why}")
     shape, axes = PRODUCTION_SHAPES[bool(multi_pod)]
     shape = tuple(mesh_shape) if mesh_shape is not None else shape
     chips = int(np.prod(shape))
@@ -292,7 +270,7 @@ def run_one(arch: str, shape_name: str, multi_pod: bool = False, gossip="ppermut
     else:
         sharding.set_activation_axes(None)
     sharding.set_seq_axis("model" if seq_parallel else None)
-    counter = OpCounter(sites=sites > 0)
+    counter = OpCounter(sites=sites > 0, weight_loops=weight_loops)
     try:
         with FakeTensorMode(allow_non_fake_inputs=True), use_mesh(mesh):
             step, args, meta = input_specs(
@@ -380,7 +358,7 @@ def main(argv=None):
                 r = json.loads(line)
                 done.add((r["arch"], r["shape"], r["mesh"], r["gossip"]))
 
-    failures, refused = [], []
+    failures = []
     for arch in archs:
         for shape_name in shapes:
             for mp in meshes:
@@ -388,11 +366,6 @@ def main(argv=None):
                         else mesh_name(PRODUCTION_SHAPES[mp][0]))
                 if (arch, shape_name, name, args.gossip) in done:
                     print(f"skip {arch} x {shape_name} on {name} (done)")
-                    continue
-                why = refusal(arch, shape_name, len(name.split("x")) == 3)
-                if why:
-                    print(f"{arch} x {shape_name} on {name}: {why}")
-                    refused.append((arch, shape_name, name))
                     continue
                 try:
                     row = run_one(arch, shape_name, mp, gossip=args.gossip,
@@ -410,7 +383,7 @@ def main(argv=None):
         for f in failures:
             print(" ", f)
         return 1
-    print(f"dry-run: all combinations traced OK ({len(refused)} refused before tracing)")
+    print("dry-run: all combinations traced OK")
     return 0
 
 

@@ -30,7 +30,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ssm
-from repro_torch.models.sharding import constrain_batch
+from repro_torch.models.sharding import constrain_batch, replicate_features
 from repro_torch.models.layers import (
     Embedding,
     RMSNorm,
@@ -104,6 +104,7 @@ def _head(params: HybridLM):
 
 
 def _shared_block(cfg, shared: SharedAttention, x, positions, window):
+    x = replicate_features(x)  # on a mesh: heads split by column-parallel q, k, v
     h, _ = attn_mod.attention(shared.attn, rms_norm(shared.ln1, x, cfg.norm_eps), cfg,
                               positions=positions, window=window)
     x = x + h

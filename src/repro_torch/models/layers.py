@@ -134,14 +134,18 @@ def embed(p: Embedding, tokens):
 
 def unembed(p: Embedding, x):
     """Logits against the (tied) table: ``x @ table.T`` (on a mesh, ``x``
-    with whole features, ``sharding.replicate_features``; on a serving
-    mesh the vocab-split table's product on the local batch,
-    ``sharding.matmul``)."""
+    with whole features, ``sharding.replicate_features``; in a training
+    round the table gathered over the mesh dims that split its features
+    (FSDP) and ``x`` over those that split its vocab,
+    ``sharding.replicate_where_split``: vocab-split logits, never partial
+    sums; on a serving mesh the vocab-split table's product on the local
+    batch, ``sharding.matmul``)."""
     from repro_torch.models import sharding
 
     x = sharding.replicate_features(x)
     if sharding._ACT_AXES is None:
-        return x @ p.table.T
+        table = sharding.replicate_where_split(p.table, p.table, 1)
+        return sharding.replicate_where_split(x, table, 0) @ table.T
     return sharding.matmul(x, p.table.T)
 
 

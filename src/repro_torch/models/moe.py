@@ -30,7 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models.layers import Dense, _param, normal_
-from repro_torch.models.sharding import gather_unless_divides
+from repro_torch.models.sharding import einsum, gather_unless_divides, split_group
 
 
 class MoE(nn.Module):
@@ -119,12 +119,20 @@ def moe_ffn(params: MoE, x, cfg):
     xg, T = _groups(x, gs)
     r = route(params, xg, cfg)
 
-    xd = torch.einsum("gsec,gsd->gecd", r.dispatch.to(x.dtype), xg)  # (G, E, C, d)
-    h = F.silu(torch.einsum("gecd,edf->gecf", xd, params.gate)) * torch.einsum(
+    # The expert products on the weights' own shards (d_ff on "model", the
+    # reference's tensor-parallel experts): the layout hooks of
+    # models/sharding.py, the identity off a mesh. A decode step's single
+    # group, gathered for the router, is split again on its tokens.
+    xd = einsum("gsec,gsd->gecd", split_group(r.dispatch.to(x.dtype), 1),
+                split_group(xg, 1, 2))  # (G, E, C, d)
+    h = F.silu(einsum("gecd,edf->gecf", xd, params.gate)) * einsum(
         "gecd,edf->gecf", xd, params.up)
-    ye = torch.einsum("gecf,efd->gecd", h, params.down)  # (G, E, C, d)
-    y = torch.einsum("gsec,gecd->gsd", r.combine.to(x.dtype), ye)  # (G, gs, d)
-    y = y.reshape(-1, d)[:T].reshape(B, S, d)
+    ye = einsum("gecf,efd->gecd", h, params.down)  # (G, E, C, d)
+    y = einsum("gsec,gecd->gsd", split_group(r.combine.to(x.dtype), 1), ye)  # (G, gs, d)
+    y = y.reshape(-1, d)
+    if y.shape[0] != T:  # the last group's padding
+        y = y[:T]
+    y = y.reshape(B, S, d)
 
     # Load-balance loss (Switch/GShard): E * sum_e f_e * p_e.
     me = r.probs.mean(dim=(0, 1))  # mean router prob per expert

@@ -138,6 +138,32 @@ def gather_unless_divides(x, dim: int, n: int):
     return x.redistribute(mesh, [Replicate() if p.is_shard(dim) else p for p in x.placements])
 
 
+def split_group(t, tok_dim: int, feat_dim=None):
+    """On a serving mesh, ``t`` (one token group of a decode step, gathered
+    for the router: see :func:`gather_unless_divides`) split on its
+    tokens ``tok_dim`` over the activation axes and, with ``feat_dim``, on
+    its features over "model", where a split is replicated and the size
+    divides: local slices, no collective. That is GSPMD's layout of the
+    group; the expert products (``models/moe.py``, through :func:`einsum`)
+    then run on the local tokens and the weights' own shards. Identity
+    elsewhere."""
+    if _ACT_AXES is None or not isinstance(t, DTensor):
+        return t
+    mesh = t.device_mesh
+    names = mesh.mesh_dim_names or ()
+    want = list(t.placements)
+    act = [i for i, n in enumerate(names) if n in _axes_tuple(_ACT_AXES)]
+    size = int(np.prod([mesh.size(i) for i in act])) if act else 1
+    if act and t.shape[tok_dim] % size == 0 and all(want[i].is_replicate() for i in act):
+        for i in act:
+            want[i] = Shard(tok_dim)
+    if feat_dim is not None and "model" in names:
+        i = names.index("model")
+        if want[i].is_replicate() and t.shape[feat_dim] % mesh.size(i) == 0:
+            want[i] = Shard(feat_dim)
+    return _retarget(t, want)
+
+
 def contiguous_stride(shape) -> tuple:
     """The strides of a contiguous tensor of ``shape``, computed without
     making one (a meta tensor made inside the dry-run's counter would be
@@ -385,6 +411,35 @@ def replicate_features(x):
     return x if want == list(x.placements) else x.redistribute(x.device_mesh, want)
 
 
+def split_model(t, dim: int):
+    """``t``; a DTensor replicated over "model" split there on ``dim``
+    where the size divides: a local slice, no collective (the Mamba2
+    block's inputs split on their heads, as GSPMD splits them after the
+    packed input projection, which DTensor gathers to slice)."""
+    if not isinstance(t, DTensor):
+        return t
+    mesh = t.device_mesh
+    names = mesh.mesh_dim_names or ()
+    if "model" not in names:
+        return t
+    i = names.index("model")
+    dim = dim % t.ndim
+    if not t.placements[i].is_replicate() or t.shape[dim] % mesh.size(i):
+        return t
+    return _retarget(t, [Shard(dim) if j == i else p for j, p in enumerate(t.placements)])
+
+
+def replicate_where_split(x, w, dim: int):
+    """``x``; a DTensor gathered over each mesh dim that splits the DTensor
+    ``w`` on ``dim`` (the activation of a column-parallel product, such as
+    ``x @ table.T`` over a vocab-split table, which DTensor, choosing op by
+    op, may have left split on its batch there)."""
+    if not (isinstance(x, DTensor) and isinstance(w, DTensor)) or x.device_mesh != w.device_mesh:
+        return x
+    return _retarget(x, [Replicate() if wp.is_shard(dim) else xp
+                         for xp, wp in zip(x.placements, w.placements)])
+
+
 def batch_zeros(shape, dtype, device, dim=0):
     """``torch.zeros(shape)``; with an ambient mesh and activation axes set,
     a DTensor of zeros sharded on ``dim`` over them that holds only its
@@ -418,17 +473,42 @@ _register_pointwise(torch.ops.aten.log_sigmoid_forward.default, 2, 1)
 _register_pointwise(torch.ops.aten.log_sigmoid_backward.default, 1, 3)
 
 
+def _has_strategy(op) -> bool:
+    prop = DTensor._op_dispatcher.sharding_propagator
+    return (op in prop.op_strategy_funcs or op in prop.op_to_rules
+            or op in getattr(prop, "op_single_dim_strategy_funcs", {}))
+
+
 def _register_missing_identity():
     """``detach_`` of a redistributed parameter under inference mode: some
     torch versions (2.11) give DTensor no strategy for it."""
-    prop = DTensor._op_dispatcher.sharding_propagator
     op = torch.ops.aten.detach_.default
-    if op not in prop.op_strategy_funcs and op not in prop.op_to_rules and op not in getattr(
-            prop, "op_single_dim_strategy_funcs", {}):
+    if not _has_strategy(op):
         _register_pointwise(op, 1, 1)
 
 
 _register_missing_identity()
+
+
+def _flip_strategy(x, dims):
+    # Split on a dim it does not reverse, or replicated.
+    flipped = {d % x.ndim for d in dims}
+    return [([Replicate()], [Replicate(), None])] + [
+        ([Shard(d)], [Shard(d), None]) for d in range(x.ndim) if d not in flipped]
+
+
+def _register_missing_flip():
+    """``flip`` (the backward of ``cumsum``: the mLSTM's and Mamba2's
+    cumulative gates): some torch versions (2.11) give DTensor no strategy
+    for it."""
+    from torch.distributed.tensor.experimental import register_sharding
+
+    op = torch.ops.aten.flip.default
+    if not _has_strategy(op):
+        register_sharding(op)(_flip_strategy)
+
+
+_register_missing_flip()
 
 
 def _replicated_assert(cond, msg):

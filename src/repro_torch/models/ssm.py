@@ -24,7 +24,7 @@ from torch import nn
 
 from repro_torch.kernels import ops
 from repro_torch.models.layers import Dense, dense, normal_
-from repro_torch.models.sharding import einsum  # torch.einsum off a mesh
+from repro_torch.models.sharding import einsum, split_model  # the identity off a mesh
 
 
 def _dims(cfg):
@@ -111,11 +111,12 @@ def mamba2_forward(params: Mamba2, xin, cfg, use_kernel=None):
     z, x, Bssm, Cssm, dt = _split_proj(proj, di, N, nheads)
     conv_in = torch.cat([x, Bssm, Cssm], dim=-1)
     conv_out = F.silu(_causal_conv(conv_in, params.conv))
-    x = conv_out[..., :di]
+    # On a mesh the heads are split over "model" (local slices).
+    x = split_model(conv_out[..., :di], -1)
     Bssm = conv_out[..., di:di + N]
     Cssm = conv_out[..., di + N:]
 
-    dt = F.softplus(dt.to(f32) + params.dt_bias)  # (B, S, H)
+    dt = F.softplus(split_model(dt, -1).to(f32) + params.dt_bias)  # (B, S, H)
     A = -torch.exp(params.A_log)  # (H,) negative
     loga = dt * A  # per-step log decay, <= 0
 

@@ -4,8 +4,10 @@ and sLSTM (scalar memory, sequential) with exponential gating + stabilizers.
 Port of ``repro/models/xlstm.py``. The mLSTM forward is the chunkwise form
 (quadratic within chunks of ``cfg.xlstm.chunk`` positions, recurrent across
 them), its inter-chunk scan a Python loop over the chunks; the sLSTM
-forward is a Python loop over time where the reference has a ``lax.scan``.
-Both decode one token from an O(1) state.
+forward is one autograd Function over time (:class:`SLSTMScan`) where the
+reference has a ``lax.scan``: Python loops on the CPU, captured CUDA
+graphs of ``SCAN_CHUNK`` steps on the card, forward and backward. Both
+decode one token from an O(1) state.
 
 Cast points, as in the reference: the projections run in the model type;
 ``q``, ``k``, ``v`` and the gates are float32 (``igate``/``fgate`` and the
@@ -19,7 +21,7 @@ and ``max(dim)`` do not, so neither appears here. The sLSTM's
 sets the stabilizer (``n = exp(0) = 1`` on its largest lane). The
 stabilizers are differentiated through, as in the reference.
 
-The sLSTM time loop hoists out of the step what gives the same values:
+The sLSTM time scan hoists out of the step what gives the same values:
 the float32 cast of the recurrent weights ``r`` and of the input
 projection, laid out heads first once a call, so that a step is 23
 operations; the bias is still added after the recurrent term,
@@ -28,7 +30,9 @@ operations; the bias is still added after the recurrent term,
 
 from __future__ import annotations
 
+import contextlib
 import math
+import time
 
 import torch
 import torch.nn.functional as F
@@ -36,6 +40,7 @@ from torch import nn
 
 from repro_torch.models.layers import Dense, RMSNorm, dense, normal_, rms_norm
 from repro_torch.models.sharding import einsum  # torch.einsum off a mesh
+from repro_torch.roofline.counter import active_counter
 
 F32 = torch.float32
 
@@ -100,6 +105,27 @@ def _mlstm_out(params: MLSTM, y, z, xin, cfg):
     return dense(params.down, y * F.silu(z))
 
 
+_MLSTM_STATE = ("C", "n", "m")
+
+
+def _mlstm_chunk_state(consts, xs, state):
+    """The state after one chunk from the state entering it: C (B, H, hd,
+    hd), n (B, H, hd) and the stabilizer m (B, H); ``xs`` the chunk's
+    cumulative log forget gates, log input gates, keys, values and total
+    log forget gate; no ``consts`` (a scan step's signature)."""
+    cumc, igcc, kcc, vcc, totalc = xs
+    w = cumc[:, -1][:, None] - cumc + igcc  # (B, Q, H): exp weight of k_t v_t
+    m_loc = w.amax(dim=1)  # (B, H)
+    m_prev = state["m"] + totalc
+    m_new = torch.maximum(m_prev, m_loc)
+    scale_prev = torch.exp(m_prev - m_new)  # (B, H)
+    wexp = torch.exp(w - m_new[:, None, :])  # (B, Q, H)
+    C_loc = einsum("bqhk,bqhv->bhkv", wexp[..., None] * kcc, vcc)
+    n_loc = einsum("bqh,bqhk->bhk", wexp, kcc)
+    return {"C": scale_prev[:, :, None, None] * state["C"] + C_loc,
+            "n": scale_prev[:, :, None] * state["n"] + n_loc, "m": m_new}
+
+
 def mlstm_forward(params: MLSTM, xin, cfg):
     """Chunkwise-parallel mLSTM. xin: (B, S, d) -> (B, S, d); S must be a
     multiple of the chunk (or shorter than one)."""
@@ -126,29 +152,23 @@ def mlstm_forward(params: MLSTM, xin, cfg):
 
     # Inter-chunk: the state entering each chunk, carrying its own
     # stabilizer m. The state after the last chunk is not needed.
-    Cst = torch.zeros((B, H, hd, hd), dtype=F32, device=xin.device)
-    nst = torch.zeros((B, H, hd), dtype=F32, device=xin.device)
-    mst = torch.full((B, H), -1e30, dtype=F32, device=xin.device)
-    C_in, n_in, m_in = [Cst], [nst], [mst]
-    for c in range(nc - 1):
-        cumc, igcc, kcc = cum[:, c], igc[:, c], kc[:, c]
-        w = cumc[:, -1][:, None] - cumc + igcc  # (B, Q, H): exp weight of k_t v_t
-        m_loc = w.amax(dim=1)  # (B, H)
-        m_prev = mst + total[:, c]
-        m_new = torch.maximum(m_prev, m_loc)
-        scale_prev = torch.exp(m_prev - m_new)  # (B, H)
-        wexp = torch.exp(w - m_new[:, None, :])  # (B, Q, H)
-        C_loc = einsum("bqhk,bqhv->bhkv", wexp[..., None] * kcc, vc[:, c])
-        n_loc = einsum("bqh,bqhk->bhk", wexp, kcc)
-        Cst = scale_prev[:, :, None, None] * Cst + C_loc
-        nst = scale_prev[:, :, None] * nst + n_loc
-        mst = m_new
-        C_in.append(Cst)
-        n_in.append(nst)
-        m_in.append(mst)
-    C_in = torch.stack(C_in, dim=1)  # (B, nc, H, hd, hd)
-    n_in = torch.stack(n_in, dim=1)  # (B, nc, H, hd)
-    m_in = torch.stack(m_in, dim=1)  # (B, nc, H)
+    state = {"C": torch.zeros((B, H, hd, hd), dtype=F32, device=xin.device),
+             "n": torch.zeros((B, H, hd), dtype=F32, device=xin.device),
+             "m": torch.full((B, H), -1e30, dtype=F32, device=xin.device)}
+    if active_counter() is None:
+        entering = [state]
+        for c in range(nc - 1):
+            state = _mlstm_chunk_state((), (cum[:, c], igc[:, c], kc[:, c], vc[:, c],
+                                            total[:, c]), state)
+            entering.append(state)
+        C_in, n_in, m_in = (torch.stack([e[k] for e in entering], dim=1)
+                            for k in _MLSTM_STATE)
+    else:  # counted (the dry-run): one Function, its steps weighted (see MLSTMChunkScan)
+        after = MLSTMChunkScan.apply(*(t[:, :-1] for t in (cum, igc, kc, vc, total)),
+                                     *state.values()) if nc > 1 else ()
+        C_in, n_in, m_in = (torch.cat([state[k].unsqueeze(1), *after[i:i + 1]], dim=1)
+                            for i, k in enumerate(_MLSTM_STATE))
+    # C_in (B, nc, H, hd, hd), n_in (B, nc, H, hd), m_in (B, nc, H)
 
     # Stabilized combination of the intra and inter parts.
     finite = torch.isfinite(logD)
@@ -302,19 +322,371 @@ def _slstm_cell(params: SLSTM, cfg, xt, state):
     return _from_step(_slstm_step(r32, bias, _heads_first(xt, cfg), _to_step(state), one))
 
 
+# ---------------------------------------------------------------------------
+# The sLSTM time scan: one autograd Function
+# ---------------------------------------------------------------------------
+
+SCAN_CHUNK = 64  # steps a captured graph runs (K); a shorter tail has a graph of its own
+_STATE = ("c", "n", "h", "m")
+_CAPTURED = [True]  # False inside eager_scan()
+
+
+@contextlib.contextmanager
+def eager_scan():
+    """On the card, the scans started inside run their eager loops, forward
+    and backward (the yardstick of the captured graphs). A scan reads the
+    mode when its forward starts; its backward keeps it."""
+    _CAPTURED.append(False)
+    try:
+        yield
+    finally:
+        _CAPTURED.pop()
+
+
+def _same(t):
+    return t
+
+
+def _vjp(step, consts, xs_t, state, g_out):
+    """One step's vector-Jacobian product, by autograd of ``step(consts,
+    xs_t, state)`` recomputed on fresh leaves from its entering ``state``:
+    ``(g consts, g xs_t, g state)`` for the gradients ``g_out`` of its
+    output state (autograd's tie rules for ``amax`` and ``torch.maximum``,
+    as the plain loop's backward has them). Outer saved-tensor hooks (a
+    checkpoint's) are kept out."""
+    keys = tuple(state)
+    with torch.enable_grad(), torch.autograd.graph.saved_tensors_hooks(_same, _same):
+        c_in = [t.detach().requires_grad_() for t in consts]
+        x_in = [t.detach().requires_grad_() for t in xs_t]
+        st = {k: state[k].detach().requires_grad_() for k in keys}
+        out = step(c_in, x_in, st)
+        leaves = c_in + x_in + [st[k] for k in keys]
+        grads = torch.autograd.grad([out[k] for k in keys], leaves, [g_out[k] for k in keys],
+                                    allow_unused=True)
+    grads = [torch.zeros_like(v) if g is None else g for g, v in zip(grads, leaves)]
+    nc, nx = len(consts), len(xs_t)
+    return grads[:nc], grads[nc:nc + nx], dict(zip(keys, grads[nc + nx:]))
+
+
+def _stack_runs(runs, dim):
+    """``torch.stack`` along ``dim`` of each tensor of ``runs``, a list of
+    (tensor, n), repeated n times: one ``cat`` of expanded views, which
+    moves the bytes and allocates the storage the stack of every copy
+    would, with one operation for a weighted loop's repeated step."""
+    return torch.cat([t.unsqueeze(dim).expand(*t.shape[:dim], n, *t.shape[dim:])
+                      for t, n in runs], dim=dim)
+
+
+def _layout(*states) -> tuple:
+    """What decides how a step dispatches: each state tensor's type, shape,
+    dtype and placements (a DTensor's)."""
+    return tuple((type(v), tuple(v.shape), v.dtype, tuple(getattr(v, "placements", ())))
+                 for s in states for v in s.values())
+
+
+def _weighs(counter) -> bool:
+    return counter is not None and counter.weight_loops
+
+
+def _forward_runs(step, consts, xs, dim, state0, counter):
+    """A scan's output states, in order, as runs (state, n): n steps giving
+    that state; step t reads ``xs`` at index t of ``dim``. Under a counter
+    that weights loops, a step entering with the layout the previous step
+    entered with repeats it, and so does every later one: it is traced
+    once, weighted by the steps left, and its run stands for all of them."""
+    T = xs[0].shape[dim]
+    runs, state, prev = [], state0, None
+    for t in range(T):
+        key = _layout(state) if _weighs(counter) else None
+        xs_t = [x.select(dim, t) for x in xs]
+        if key is not None and key == prev:
+            with counter.weighted(T - t):
+                state = step(consts, xs_t, state)
+            return runs + [(state, T - t)]
+        prev = key
+        state = step(consts, xs_t, state)
+        runs.append((state, 1))
+    return runs
+
+
+def _backward_walk(step, consts, xs, dim, state0, outs, g_outs, counter):
+    """A scan's reverse walk from its stacked output states ``outs`` and
+    their gradients ``g_outs`` (a key may be missing: no gradient):
+    ``(g consts, g xs, g state0)``, the constants' gradients summed over
+    the steps from the last to the first. Under a counter that weights
+    loops, a step t >= 1 entering with the layouts (state and carried
+    gradient) step t + 1 entered with stands for steps t down to 1,
+    weighted by t; step 0 (from the initial state) is traced on its own."""
+    T = xs[0].shape[dim]
+    g = {k: torch.zeros_like(v) for k, v in state0.items()}
+    g_c = [torch.zeros_like(c) for c in consts]
+    g_xs, prev, t = [], None, T - 1
+    while t >= 0:
+        state = state0 if t == 0 else {k: outs[k].select(dim, t - 1) for k in state0}
+        key = _layout(state, g) if _weighs(counter) else None
+        n = t if key is not None and key == prev and t >= 1 else 1
+        prev = key
+        with counter.weighted(n) if n > 1 else contextlib.nullcontext():
+            g_out = {k: g[k] + g_outs[k].select(dim, t) if k in g_outs else g[k] for k in g}
+            gc_t, gx_t, g = _vjp(step, consts, [x.select(dim, t) for x in xs], state, g_out)
+            g_c = [a + b for a, b in zip(g_c, gc_t)]
+        g_xs.append((gx_t, n))
+        t -= n
+    g_xs = [_stack_runs([(gx[i], n) for gx, n in reversed(g_xs)], dim) for i in range(len(xs))]
+    return g_c, g_xs, g
+
+
+class MLSTMChunkScan(torch.autograd.Function):
+    """The mLSTM's inter-chunk recurrence as one Function, taken only under
+    an :class:`~repro_torch.roofline.counter.OpCounter` (the dry-run; a run
+    takes the plain loop): from the chunks' ``cum, igc, kc, vc, total``
+    (chunks on dim 1) and the entering state ``C0, n0, m0``, the state
+    after each chunk, stacked on dim 1. Its forward and its backward (each
+    step's VJP recomputed, :func:`_vjp`) weight repeated steps as
+    :class:`SLSTMScan` does, so a training row's 32 chunks a block and a
+    prefill's 255 are traced a few times each."""
+
+    @staticmethod
+    def forward(ctx, cum, igc, kc, vc, total, C0, n0, m0):
+        xs = (cum, igc, kc, vc, total)
+        state0 = dict(zip(_MLSTM_STATE, (C0, n0, m0)))
+        runs = _forward_runs(_mlstm_chunk_state, (), xs, 1, state0, active_counter())
+        outs = [_stack_runs([(s[k], n) for s, n in runs], 1) for k in _MLSTM_STATE]
+        ctx.save_for_backward(*xs, C0, n0, m0, *outs)
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, g_C, g_n, g_m):
+        saved = ctx.saved_tensors
+        xs, state0 = saved[:5], dict(zip(_MLSTM_STATE, saved[5:8]))
+        outs = dict(zip(_MLSTM_STATE, saved[8:]))
+        g_outs = dict(zip(_MLSTM_STATE, (g_C, g_n, g_m)))
+        _, g_xs, g0 = _backward_walk(_mlstm_chunk_state, (), xs, 1, state0, outs, g_outs,
+                                     active_counter())
+        return (*g_xs, g0["C"], g0["n"], g0["m"])
+
+
+def _slstm_scan_step(one):
+    """:func:`_slstm_step` as a scan step: ``consts`` (r32, bias), ``xs``
+    the step's input projection."""
+    return lambda consts, xs_t, state: _slstm_step(consts[0], consts[1], xs_t[0], state, one)
+
+
+class _ScanGraphs:
+    """The captured chunks of one (heads, batch, head size, device): for
+    each length L (``SCAN_CHUNK`` and the tails met), a forward graph of L
+    steps and a backward graph of their L reverse steps, all captured at
+    the first forward that needs that length, on a stream of their own
+    and in one memory pool, over static buffers: the weights, a chunk of
+    inputs and the carried state (forward); the chunk's entering states,
+    output gradients, the carried state gradient and the weight gradient
+    sums (backward). A replay runs on the caller's current stream; the
+    graph carries its state (or gradient) into the static carry, so the
+    chunks chain with copies of the inputs and outputs only."""
+
+    def __init__(self, H, B, hd, device):
+        f = dict(dtype=F32, device=device)
+        K = SCAN_CHUNK
+        with torch.inference_mode(False):
+            self.r32 = torch.zeros((H, hd, 4 * hd), **f)
+            self.bias = torch.zeros((H, 1, 4 * hd), **f)
+            self.one = torch.ones((), **f)
+            self.x = torch.zeros((H, B, K, 4 * hd), **f)
+            shapes = {"c": (H, B, hd), "n": (H, B, hd), "h": (H, B, hd), "m": (H, B, 1)}
+            self.carry = {k: torch.zeros(v, **f) for k, v in shapes.items()}
+            self.outs = {k: torch.zeros((H, B, K, v[-1]), **f) for k, v in shapes.items()}
+            self.ins = {k: torch.zeros((H, B, K, v[-1]), **f) for k, v in shapes.items()}
+            self.g_hs = torch.zeros((H, B, K, hd), **f)
+            self.g_x = torch.zeros((H, B, K, 4 * hd), **f)
+            self.g_carry = {k: torch.zeros(v, **f) for k, v in shapes.items()}
+            self.g_r = torch.zeros_like(self.r32)
+            self.g_b = torch.zeros_like(self.bias)
+        self.stream = torch.cuda.Stream(device)
+        self.forward_graphs: dict = {}
+        self.backward_graphs: dict = {}
+        self.pool = None
+        self.warm = False
+        self.capture_s = 0.0
+        self.replays = 0
+
+    def _forward_body(self, L):
+        st = dict(self.carry)
+        for i in range(L):
+            st = _slstm_step(self.r32, self.bias, self.x[:, :, i], st, self.one)
+            for k in _STATE:
+                self.outs[k][:, :, i].copy_(st[k])
+        for k in _STATE:
+            self.carry[k].copy_(st[k])
+
+    def _backward_body(self, L):
+        g = dict(self.g_carry)
+        for i in reversed(range(L)):
+            g_out = dict(g, h=g["h"] + self.g_hs[:, :, i])
+            (gr, gb), (gx,), g = _vjp(_slstm_scan_step(self.one), (self.r32, self.bias),
+                                      (self.x[:, :, i],),
+                                      {k: self.ins[k][:, :, i] for k in _STATE}, g_out)
+            self.g_r.add_(gr)
+            self.g_b.add_(gb)
+            self.g_x[:, :, i].copy_(gx)
+        for k in _STATE:
+            self.g_carry[k].copy_(g[k])
+
+    def ensure(self, lengths):
+        """Capture the forward and backward graphs of each length not yet
+        captured (after one eager warm-up step of each on the capture
+        stream). A failure raises; nothing runs eagerly in its place."""
+        from repro_torch.sim.capture import capture
+
+        todo = [L for L in lengths if L not in self.forward_graphs]
+        if not todo:
+            return
+        t0 = time.perf_counter()
+        current = torch.cuda.current_stream(self.stream.device)
+        self.stream.wait_stream(current)
+        with torch.inference_mode(False):
+            if not self.warm:
+                with torch.cuda.stream(self.stream):
+                    self._forward_body(1)
+                    self._backward_body(1)
+                self.warm = True
+            for L in todo:
+                try:
+                    for graphs, body in ((self.forward_graphs, self._forward_body),
+                                         (self.backward_graphs, self._backward_body)):
+                        graph, _, _ = capture(lambda: body(L), None, self.stream, self.pool)
+                        self.pool = self.pool or graph.pool()
+                        graphs[L] = graph
+                except Exception as e:
+                    raise RuntimeError(f"capturing {L} sLSTM step(s) as a CUDA graph failed: "
+                                       f"{e}") from e
+        current.wait_stream(self.stream)
+        self.capture_s += time.perf_counter() - t0
+
+    def forward(self, r32, bias, x, state0, keys):
+        """The steps' output states ``keys``, stacked (H, B, T, .), by replays."""
+        T = x.shape[2]
+        self.r32.copy_(r32)
+        self.bias.copy_(bias)
+        for k in _STATE:
+            self.carry[k].copy_(state0[k])
+        outs = {k: x.new_empty((*self.outs[k].shape[:2], T, self.outs[k].shape[-1]))
+                for k in keys}
+        for t0 in range(0, T, SCAN_CHUNK):
+            L = min(SCAN_CHUNK, T - t0)
+            self.x[:, :, :L].copy_(x[:, :, t0:t0 + L])
+            self.forward_graphs[L].replay()
+            self.replays += 1
+            for k in keys:
+                outs[k][:, :, t0:t0 + L].copy_(self.outs[k][:, :, :L])
+        return outs
+
+    def backward(self, r32, bias, x, state0, outs, g_hs):
+        """``(g r32, g bias, g x, g state0)`` by replays, chunks last to first."""
+        T = x.shape[2]
+        self.r32.copy_(r32)
+        self.bias.copy_(bias)
+        self.g_r.zero_()
+        self.g_b.zero_()
+        for k in _STATE:
+            self.g_carry[k].zero_()
+        g_x = torch.empty_like(x)
+        for t0 in reversed(range(0, T, SCAN_CHUNK)):
+            L = min(SCAN_CHUNK, T - t0)
+            self.x[:, :, :L].copy_(x[:, :, t0:t0 + L])
+            self.g_hs[:, :, :L].copy_(g_hs[:, :, t0:t0 + L])
+            for k in _STATE:
+                first = state0[k] if t0 == 0 else outs[k][:, :, t0 - 1]
+                self.ins[k][:, :, 0].copy_(first)
+                self.ins[k][:, :, 1:L].copy_(outs[k][:, :, t0:t0 + L - 1])
+            self.backward_graphs[L].replay()
+            self.replays += 1
+            g_x[:, :, t0:t0 + L].copy_(self.g_x[:, :, :L])
+        return (self.g_r.clone(), self.g_b.clone(), g_x,
+                {k: v.clone() for k, v in self.g_carry.items()})
+
+
+_GRAPHS: dict = {}  # (H, B, hd, device) -> _ScanGraphs
+
+
+def scan_graphs() -> dict:
+    """The captured scans by (heads, batch, head size, device)."""
+    return dict(_GRAPHS)
+
+
+def _graphs_for(x):
+    """The captured scans of ``x``'s key, every length its T needs
+    captured (at the forward: never inside the autograd engine's thread)."""
+    H, B, T, g_hd = x.shape
+    key = (H, B, g_hd // 4, x.device)
+    if key not in _GRAPHS:
+        _GRAPHS[key] = _ScanGraphs(H, B, g_hd // 4, x.device)
+    graphs = _GRAPHS[key]
+    graphs.ensure(sorted({min(SCAN_CHUNK, T), T % SCAN_CHUNK} - {0}))
+    return graphs
+
+
+class SLSTMScan(torch.autograd.Function):
+    """``hs`` (H, B, T, hd) of the sLSTM steps over ``x`` (H, B, T, 4 hd)
+    from the state ``c0, n0, h0, m0`` (:func:`_to_step`'s layout): the
+    reference's ``lax.scan`` of its cell. The forward keeps every step's
+    output state as the residual (the scan's stacked carries) where an
+    input needs a gradient, else only ``hs``; the
+    backward walks time in reverse, each step's vector-Jacobian product
+    by autograd of the step recomputed from its entering state
+    (:func:`_vjp`), the gradients of ``r32`` and ``bias`` summed over
+    the steps. On a CPU tensor (or inside :func:`eager_scan`) both walks
+    are Python loops; on a CUDA tensor they replay the captured chunks of
+    :class:`_ScanGraphs`. Under an :class:`~repro_torch.roofline.counter.OpCounter`
+    that weights loops, the distinct steps are traced once each, weighted
+    by the steps they stand for."""
+
+    @staticmethod
+    def forward(ctx, r32, bias, x, c0, n0, h0, m0, one):
+        state0 = {"c": c0, "n": n0, "h": h0, "m": m0}
+        counter = active_counter()
+        captured = x.device.type == "cuda" and _CAPTURED[-1] and counter is None
+        keys = _STATE if any(ctx.needs_input_grad) else ("h",)
+        if captured:
+            outs = _graphs_for(x).forward(r32, bias, x, state0, keys)
+        else:
+            runs = _forward_runs(_slstm_scan_step(one), (r32, bias), (x,), 2, state0, counter)
+            outs = {k: _stack_runs([(s[k], n) for s, n in runs], 2) for k in keys}
+        ctx.captured = captured
+        if keys == _STATE:
+            ctx.save_for_backward(r32, bias, x, c0, n0, h0, m0, one, outs["c"], outs["n"],
+                                  outs["h"], outs["m"])
+        return outs["h"]
+
+    @staticmethod
+    def backward(ctx, g_hs):
+        r32, bias, x, c0, n0, h0, m0, one, *rest = ctx.saved_tensors
+        state0 = {"c": c0, "n": n0, "h": h0, "m": m0}
+        outs = dict(zip(_STATE, rest))
+        if ctx.captured:
+            H, B, _, g_hd = x.shape
+            g_r, g_b, g_x, g0 = _GRAPHS[(H, B, g_hd // 4, x.device)].backward(
+                r32, bias, x, state0, outs, g_hs)
+        else:
+            (g_r, g_b), (g_x,), g0 = _backward_walk(_slstm_scan_step(one), (r32, bias), (x,), 2,
+                                                    state0, outs, {"h": g_hs}, active_counter())
+        return g_r, g_b, g_x, g0["c"], g0["n"], g0["h"], g0["m"], None
+
+
+def slstm_scan(r32, bias, x, state, one):
+    """:class:`SLSTMScan` of ``x`` (H, B, T, 4 hd) from ``state``
+    (:func:`_to_step`'s layout): ``hs`` (H, B, T, hd)."""
+    return SLSTMScan.apply(r32, bias, x, state["c"], state["n"], state["h"], state["m"], one)
+
+
 def slstm_forward(params: SLSTM, xin, cfg):
     """Sequential sLSTM over the sequence. xin: (B, S, d) -> (B, S, d)."""
     B, S, d = xin.shape
-    # Hoisted out of the time loop: the float32 weights and inputs, heads
-    # leading, one (H, B, 4 hd) input a step.
-    xs = _heads_first(dense(params.w_in, xin), cfg).unbind(2)
+    # Hoisted out of the time scan: the float32 weights and inputs, heads
+    # leading, (H, B, S, 4 hd).
+    x = _heads_first(dense(params.w_in, xin), cfg)
     r32, bias, one = _step_constants(params, xin.device)
-    state = _to_step(init_slstm_cache(cfg, B, xin.device))
-    hs = []
-    for xt in xs:
-        state = _slstm_step(r32, bias, xt, state, one)
-        hs.append(state["h"])
-    y = torch.stack(hs, dim=2).permute(1, 2, 0, 3).reshape(B, S, d).to(xin.dtype)
+    hs = slstm_scan(r32, bias, x, _to_step(init_slstm_cache(cfg, B, xin.device)), one)
+    y = hs.permute(1, 2, 0, 3).reshape(B, S, d).to(xin.dtype)
     y = rms_norm(params.norm, y, cfg.norm_eps)
     return dense(params.down, y)
 

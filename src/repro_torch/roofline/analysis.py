@@ -26,17 +26,19 @@ KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all", "collective
 
 def collective_bytes(records) -> dict:
     """Per-device collective traffic by kind from collective records
-    (``.kind``, ``.operand_bytes``, ``.result_bytes``), with ``_counts``."""
+    (``.kind``, ``.operand_bytes``, ``.result_bytes`` and ``.count``, the
+    collectives a record stands for), with ``_counts``."""
     out = dict.fromkeys(KINDS, 0)
     counts = dict.fromkeys(KINDS, 0)
     for r in records:
+        n = r.count
         if r.kind == "all-gather":
-            out[r.kind] += r.result_bytes
+            out[r.kind] += n * r.result_bytes
         elif r.kind == "all-reduce":
-            out[r.kind] += 2 * (r.operand_bytes or r.result_bytes)
+            out[r.kind] += n * 2 * (r.operand_bytes or r.result_bytes)
         else:
-            out[r.kind] += r.operand_bytes or r.result_bytes
-        counts[r.kind] += 1
+            out[r.kind] += n * (r.operand_bytes or r.result_bytes)
+        counts[r.kind] += n
     out["_counts"] = counts
     return out
 

@@ -29,11 +29,21 @@ global-shape operations DTensor runs to propagate metadata are skipped):
   alive (meta tensors hold none), and their peak; ``peak_sites`` attributes the live bytes at the
   peak to the frames that allocated them (:meth:`OpCounter.top_sites`).
 
-There are no loops to weight: a Python loop runs every iteration.
+Loops: a Python loop runs every iteration, except where the model
+weights one. The xLSTM's recurrences (``models/xlstm.py``: the sLSTM time
+scan ``SLSTMScan`` and the mLSTM's inter-chunk ``MLSTMChunkScan``), under
+a counter with ``weight_loops``, trace their distinct steps once each,
+forward and backward, inside :meth:`OpCounter.weighted`, which scales the
+flops, bytes, operations and collective records (``Collective.count``)
+counted inside it by the steps each stands for: the counterpart of
+``hlo_parse``'s ``known_trip_count`` weighting of a ``while`` body. Their
+stacked outputs and residuals are still made at full shape, so their
+bytes and storage count as the reference's stacked scan outputs do.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import sys
 import weakref
@@ -122,6 +132,17 @@ class Collective:
     kind: str
     operand_bytes: int
     result_bytes: int
+    count: int = 1  # the collectives this record stands for (a weighted loop's)
+
+
+def active_counter():
+    """The innermost :class:`OpCounter` on the dispatch-mode stack, or None."""
+    from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+
+    for mode in reversed(_get_current_dispatch_mode_stack()):
+        if isinstance(mode, OpCounter):
+            return mode
+    return None
 
 
 def _caller() -> str:
@@ -155,10 +176,15 @@ class OpCounter(TorchDispatchMode):
     """Counts flops, bytes, collectives and live storage bytes of the local
     operations run inside it (see the module docstring). With
     ``sites=True`` it also keeps the live bytes by allocation site and, at
-    each new peak, a copy of them: ``peak_sites``."""
+    each new peak, a copy of them: ``peak_sites``. ``weight_loops``: a
+    loop that can be weighted (the xLSTM's recurrences) traces its
+    distinct steps once each inside :meth:`weighted`; False runs every
+    step (the yardstick of the weighting)."""
 
-    def __init__(self, sites: bool = False):
+    def __init__(self, sites: bool = False, weight_loops: bool = True):
         super().__init__()
+        self.weight_loops = weight_loops
+        self.weight = 1
         self.flops = 0.0
         self.bytes = 0.0
         self.ops = 0
@@ -199,6 +225,17 @@ class OpCounter(TorchDispatchMode):
                 if self.sites:
                     self.peak_sites = {k: v for k, v in self.live_sites.items() if v}
             weakref.finalize(st, self._free, key, nbytes, site)
+
+    @contextlib.contextmanager
+    def weighted(self, n: int):
+        """Count what runs inside ``n`` times over: flops, bytes, operations
+        and collectives (live storage is counted once)."""
+        outer = self.weight
+        self.weight = outer * int(n)
+        try:
+            yield self
+        finally:
+            self.weight = outer
 
     def top_sites(self, k: int = 10) -> list:
         """The ``k`` sites holding the most live bytes at the peak, as
@@ -274,7 +311,8 @@ class OpCounter(TorchDispatchMode):
         name = func._schema.name.replace("::", ".")
         if name.startswith("prim.") or caller == "propagation":
             return out
-        self.ops += 1
+        w = self.weight
+        self.ops += w
         kind = COLLECTIVE_KINDS.get(name)
         if kind is not None:
             if name == "c10d._allgather_base_":
@@ -283,13 +321,13 @@ class OpCounter(TorchDispatchMode):
                 operand = result = _nbytes(args[0])
             else:
                 operand, result = _nbytes(args[0]), _nbytes(out)
-            self.collectives.append(Collective(kind, operand, result))
-            self.bytes += operand + result
+            self.collectives.append(Collective(kind, operand, result, w))
+            self.bytes += w * (operand + result)
         elif func in _MATMULS:
-            self.flops += matmul_flops(func, args)
-            self.bytes += _nbytes(args) + _nbytes(out)
+            self.flops += w * matmul_flops(func, args)
+            self.bytes += w * (_nbytes(args) + _nbytes(out))
         elif not func.is_view and name not in _NO_BYTES:
-            self.bytes += _nbytes(args) + _nbytes(kwargs) + _nbytes(out)
+            self.bytes += w * (_nbytes(args) + _nbytes(kwargs) + _nbytes(out))
         if not func.is_view:
             self._track(out)
         return out

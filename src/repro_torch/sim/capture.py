@@ -124,12 +124,13 @@ def load_state(src, dst) -> None:
 
 def capture(fn, generator, stream, pool=None):
     """Capture ``fn()`` as a CUDA graph on ``stream`` with ``generator``
-    registered; returns ``(graph, output, launches a replay)``. The
-    launches counted while capturing are taken back out (a capture
-    launches nothing). The garbage collector is off meanwhile: a graph it
-    destroyed would invalidate the capture."""
+    registered (None: ``fn`` draws nothing); returns ``(graph, output,
+    launches a replay)``. The launches counted while capturing are taken
+    back out (a capture launches nothing). The garbage collector is off
+    meanwhile: a graph it destroyed would invalidate the capture."""
     graph = torch.cuda.CUDAGraph()
-    graph.register_generator_state(generator)
+    if generator is not None:
+        graph.register_generator_state(generator)
     before = _build.launch_counts()
     current = torch.cuda.current_stream(stream.device)
     collecting = gc.isenabled()

@@ -28,6 +28,7 @@ another order than the plain version's; 1e-4 (``MODEL_TOL``) for whole
 Mamba2 blocks and models, whose float32 routes differ in many sums.
 """
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -1603,3 +1604,68 @@ def test_xlstm_reduced_forward_and_gradients_on_the_card_match_the_cpu(dev):
     _close(p_card.cpu(), p_cpu)
     for (name, a), (_, b) in zip(tree_flatten_with_path(g_card), tree_flatten_with_path(g_cpu)):
         _close(a.cpu(), b, MODEL_TOL)
+
+
+@pytest.mark.parametrize("T", [64, 150, 7])
+def test_slstm_captured_scan_equals_eager_bit_for_bit(dev, T):
+    """The sLSTM time scan (``xlstm.SLSTMScan``) at xlstm-1.3b's head shape
+    (4 heads of 512, batch 3): its captured graphs (chunks of
+    ``SCAN_CHUNK`` steps and a tail) against its eager loops inside
+    ``eager_scan()``, forward and backward, every output and gradient
+    equal bit for bit; the graphs replay, none is captured in the
+    backward."""
+    from repro_torch.models import xlstm
+
+    g = np.random.default_rng(T)
+    H, B, hd = 4, 3, 512
+
+    def t(*shape, scale=1.0):
+        return torch.tensor(g.normal(size=shape) * scale, dtype=torch.float32, device=dev)
+
+    r32, bias, x = t(H, hd, 4 * hd, scale=hd ** -0.5), t(H, 1, 4 * hd), t(H, B, T, 4 * hd)
+    state = {k: t(H, B, hd) for k in "cnh"}
+    state["m"] = t(H, B, 1)
+    w = t(H, B, T, hd)
+    one = torch.ones((), device=dev)
+    leaves = [r32, bias, x] + [state[k] for k in "cnhm"]
+    outs = []
+    for eager in (False, True):
+        inputs = [v.clone().requires_grad_() for v in leaves]
+        st = dict(zip("cnhm", inputs[3:]))
+        with xlstm.eager_scan() if eager else contextlib.nullcontext():
+            hs = xlstm.slstm_scan(*inputs[:3], st, one)
+        grads = torch.autograd.grad((hs * w).sum(), inputs)
+        outs.append((hs, grads))
+    graphs = xlstm.scan_graphs()[(H, B, hd, dev)]
+    assert set(graphs.forward_graphs) == set(graphs.backward_graphs) >= {min(T, 64)}
+    assert torch.equal(outs[0][0], outs[1][0])
+    for a, b in zip(outs[0][1], outs[1][1]):
+        assert torch.equal(a, b)
+    assert graphs.replays >= 2 * -(-T // xlstm.SCAN_CHUNK)
+
+
+def test_xlstm_captured_training_equals_eager_bit_for_bit(dev):
+    """xlstm-1.3b at full width cut to 2 blocks (``slstm_every=2``),
+    float32: the loss and every gradient of one agent's 2 x 129 tokens
+    (remat on, so the sLSTM block's forward runs again in the backward)
+    through the captured scan equal those through the eager loops."""
+    from repro_torch.core import spmd
+    from repro_torch.models import xlstm
+
+    cfg = get_config("xlstm-1.3b")
+    cfg = dataclasses.replace(cfg, num_layers=2, dtype="float32",
+                              xlstm=dataclasses.replace(cfg.xlstm, slstm_every=2))
+    bundle = build_model(cfg, device=dev)
+    params = bundle.init_agents(1, 0)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 2, 129),
+                           generator=torch.Generator(device=dev).manual_seed(3), device=dev)
+    outs = []
+    for eager in (False, True):
+        with xlstm.eager_scan() if eager else contextlib.nullcontext():
+            outs.append(spmd.agent_losses_and_grads(bundle, params, {"tokens": tokens}))
+    (l_cap, g_cap), (l_eager, g_eager) = outs
+    assert torch.equal(l_cap, l_eager)
+    from repro_torch.utils.tree import tree_leaves
+
+    for a, b in zip(tree_leaves(g_cap), tree_leaves(g_eager)):
+        assert torch.equal(a, b)

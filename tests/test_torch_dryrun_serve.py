@@ -15,6 +15,27 @@
 * The reduced llama training row's collective bytes by kind against the
   reference's, each ratio inside the bounds ``DEVIATIONS.md`` explains
   ("Collective bytes by kind").
+* C10, the recurrent families' counts: the reference's HLO parser takes
+  the larger branch of every ``lax.cond`` (``hlo_parse.py``), and both
+  recurrent stacks choose their block by ``lax.cond`` in the layer scan,
+  so it counts an mLSTM on every xLSTM layer and the shared attention on
+  every zamba2 layer, whatever the layer runs. Where every layer runs the
+  branch the reference counts (xLSTM all mLSTM; zamba2's shared block on
+  every layer) the port's per-device flops are within 5% of the
+  reference's for train, prefill and decode; the reference's count is the
+  same for every layer pattern; the mixed configs' count is the
+  reference's less, on each layer it over-counts, the branch difference
+  the port's uniform rows give (within 5%).
+* The sLSTM scan's weighting (``OpCounter.weighted``): the reduced xLSTM
+  train and prefill rows at 64 positions (4 mLSTM chunks, 64 sLSTM steps)
+  count the same flops and collective bytes by kind, exactly, and bytes
+  within 1%, whether the loops are weighted or run step by step.
+* The MoE decode (``models/moe.py``: the token group split on its tokens,
+  the expert products on the weights' own shards, d_ff on "model"): the
+  reduced granite-moe and grok decode rows within 5% of the reference's
+  flops on (4, 2); the formerly refused combinations' reduced
+  counterparts (granite-moe decode and long-context decode on (2, 2, 2),
+  grok decode on both meshes) trace.
 * The serve layout computes what the plain model computes: four gloo
   processes on a (2, 2) mesh (the cache split on its KV heads) and on a
   (1, 4) mesh (split on its positions) prefill and decode the reduced
@@ -41,6 +62,27 @@ BATCH, SEQ = 8, 16
 ROWS = [("llama3.2-1b", "prefill_32k"), ("llama3.2-1b", "decode_32k"),
         ("qwen1.5-4b", "prefill_32k"), ("qwen1.5-4b", "decode_32k")]
 TRAIN = ("llama3.2-1b", "train_4k")
+KINDS = ("train_4k", "prefill_32k", "decode_32k")
+# C10's configs: (name, arch, override of the reduced config's layer
+# pattern). The reduced xLSTM has 2 blocks (slstm_every 2: mLSTM, sLSTM),
+# the reduced zamba2 2 Mamba2 layers with the shared block after the
+# second (shared_attn_every 2).
+C10 = {"xlstm_mixed": ("xlstm-1.3b", {}), "xlstm_all_m": ("xlstm-1.3b", {"slstm_every": 3}),
+       "xlstm_all_s": ("xlstm-1.3b", {"slstm_every": 1}),
+       "zamba2_mixed": ("zamba2-1.2b", {}),
+       "zamba2_all_shared": ("zamba2-1.2b", {"shared_attn_every": 1}),
+       "zamba2_no_shared": ("zamba2-1.2b", {"shared_attn_every": 99})}
+# The reference's rows: every kind of the uniform configs; the mixed ones'
+# prefill and decode show its count is the uniform one's (its train rows,
+# 10 s of compile each, are taken as equal: the same count, CPU runs).
+C10_REF = {"xlstm_all_m": KINDS, "zamba2_all_shared": KINDS,
+           "xlstm_mixed": KINDS[1:], "zamba2_mixed": KINDS[1:]}
+MOE = ("granite-moe-3b-a800m", "grok-1-314b")
+# The reduced counterparts of the formerly refused MoE rows, by mesh.
+MOE_REFUSED = [("granite-moe-3b-a800m", "decode_32k", (2, 2, 2)),
+               ("granite-moe-3b-a800m", "long_500k", (2, 2, 2)),
+               ("grok-1-314b", "decode_32k", (2, 2, 2))]  # grok on (4, 2): the ratio row
+WEIGHT_SEQ = 64
 # Per-kind collective bytes of the reduced llama training row, port over
 # reference (DEVIATIONS.md "Collective bytes by kind"): the reference
 # counts an asynchronous collective-permute-start's (operand, result)
@@ -88,6 +130,36 @@ PORT_SCRIPT = textwrap.dedent(f"""
                            global_batch={BATCH}, seq_len={SEQ}, verbose=False,
                            sites=4 if shape == "train_4k" else 0)
         rows[arch + "|" + shape] = r
+    def variant(cfg, over):  # a C10 layer pattern
+        import dataclasses
+        if "slstm_every" in over:
+            return dataclasses.replace(cfg, xlstm=dataclasses.replace(cfg.xlstm, **over))
+        return dataclasses.replace(cfg, **over)
+    c10 = {{}}
+    for name, (arch, over) in {C10!r}.items():
+        for shape in {KINDS!r}:
+            c10[name + "|" + shape] = dryrun.run_one(
+                arch, shape, cfg=variant(get_reduced(arch, dtype="bfloat16"), over),
+                mesh_shape=(4, 2), global_batch={BATCH}, seq_len={SEQ},
+                verbose=False)["flops_per_device"]
+    weighted = {{}}
+    for shape in ("train_4k", "prefill_32k"):
+        for w in (True, False):
+            r = dryrun.run_one("xlstm-1.3b", shape, cfg=get_reduced("xlstm-1.3b", dtype="bfloat16"),
+                               mesh_shape=(4, 2), global_batch={BATCH}, seq_len={WEIGHT_SEQ},
+                               verbose=False, weight_loops=w)
+            weighted[shape + "|" + str(w)] = [r["flops_per_device"], r["bytes_per_device"],
+                                               r["collective_breakdown"], r["collective_ops"]]
+    moe = {{}}
+    for arch in {MOE!r}:
+        moe[arch + "|decode_32k|4x2"] = dryrun.run_one(
+            arch, "decode_32k", cfg=get_reduced(arch, dtype="bfloat16"), mesh_shape=(4, 2),
+            global_batch={BATCH}, seq_len={SEQ}, verbose=False)["flops_per_device"]
+    for arch, shape, mesh in {MOE_REFUSED!r}:
+        moe[arch + "|" + shape + "|" + "x".join(map(str, mesh))] = dryrun.run_one(
+            arch, shape, cfg=get_reduced(arch, dtype="bfloat16"), mesh_shape=mesh,
+            global_batch=1 if shape == "long_500k" else {BATCH}, seq_len={SEQ},
+            verbose=False)["flops_per_device"]
     # FakeTensor DTensors on the fake (4, 2) mesh: the same four products
     # counted under no_grad and under inference_mode.
     from torch._subclasses.fake_tensor import FakeTensorMode
@@ -112,7 +184,8 @@ PORT_SCRIPT = textwrap.dedent(f"""
                     fn()
                 fake[name].append([c.flops, c.bytes,
                                    [[k.kind, k.operand_bytes, k.result_bytes] for k in c.collectives]])
-    print("ROWS " + json.dumps({{"rows": rows, "fake": fake}}))
+    print("ROWS " + json.dumps({{"rows": rows, "fake": fake, "c10": c10, "weighted": weighted,
+                                "moe": moe}}))
 """)
 
 REF_SCRIPT = textwrap.dedent(f"""
@@ -132,7 +205,23 @@ REF_SCRIPT = textwrap.dedent(f"""
     rows = {{}}
     for arch, shape in {ROWS + [TRAIN]!r}:
         rows[arch + "|" + shape] = d.run_one(arch, shape, False, verbose=False)
-    print("ROWS " + json.dumps({{"rows": rows}}))
+    def variant(cfg, over):  # a C10 layer pattern
+        import dataclasses
+        if "slstm_every" in over:
+            return dataclasses.replace(cfg, xlstm=dataclasses.replace(cfg.xlstm, **over))
+        return dataclasses.replace(cfg, **over)
+    c10 = {{}}
+    for name, kinds in {C10_REF!r}.items():
+        arch, over = {C10!r}[name]
+        d.get_config = lambda a, over=over: variant(rc.get_reduced(a, dtype="bfloat16"), over)
+        for shape in kinds:
+            c10[name + "|" + shape] = d.run_one(arch, shape, False,
+                                                verbose=False)["flops_per_device"]
+    d.get_config = lambda arch: rc.get_reduced(arch, dtype="bfloat16")
+    moe = {{arch + "|decode_32k|4x2": d.run_one(arch, "decode_32k", False,
+                                                verbose=False)["flops_per_device"]
+           for arch in {MOE!r}}}
+    print("ROWS " + json.dumps({{"rows": rows, "c10": c10, "moe": moe}}))
 """)
 
 
@@ -151,11 +240,17 @@ def _rows(proc):
 
 
 @pytest.fixture(scope="module")
-def both():
-    """(port, reference) rows, the two subprocesses run side by side."""
+def both_all():
+    """(port, reference) results, the two subprocesses run side by side."""
     port = _start(PORT_SCRIPT)
     ref = _start(REF_SCRIPT, JAX_PLATFORMS="cpu")
-    return _rows(port), _rows(ref)["rows"]
+    return _rows(port), _rows(ref)
+
+
+@pytest.fixture(scope="module")
+def both(both_all):
+    """(port results, reference rows)."""
+    return both_all[0], both_all[1]["rows"]
 
 
 @pytest.mark.parametrize("op", ["einsum", "matmul", "linear", "bmm"])
@@ -195,6 +290,61 @@ def test_training_collective_bytes_by_kind(both):
     sizes = [b for _, b in sites]
     assert sizes == sorted(sizes, reverse=True) and 0 < sum(sizes) <= port["memory"][
         "temp_size_in_bytes"], sites
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_recurrent_rows_count_the_branch_each_layer_runs(both_all, kind):
+    """C10: the reference counts the larger ``lax.cond`` branch on every
+    layer (the same count for every layer pattern); where every layer runs
+    that branch the port is within 5% of it; the mixed configs are the
+    reference less the branch difference on each over-counted layer (the
+    port's uniform rows give the difference a layer), within 5%."""
+    port, ref = both_all[0]["c10"], both_all[1]["c10"]
+    p = {name: port[f"{name}|{kind}"] for name in C10}
+    r = {name: ref[f"{name}|{kind}"] for name in ("xlstm_all_m", "zamba2_all_shared")}
+    if kind == "train_4k":  # not run: the uniform count (see C10_REF)
+        r.update(xlstm_mixed=r["xlstm_all_m"], zamba2_mixed=r["zamba2_all_shared"])
+    else:
+        r.update(xlstm_mixed=ref[f"xlstm_mixed|{kind}"], zamba2_mixed=ref[f"zamba2_mixed|{kind}"])
+    assert r["xlstm_mixed"] == r["xlstm_all_m"], r
+    assert r["zamba2_mixed"] == r["zamba2_all_shared"], r
+    for name in ("xlstm_all_m", "zamba2_all_shared"):
+        assert abs(p[name] / r[name] - 1) <= 0.05, (name, kind, p[name] / r[name])
+    layers = 2  # the reduced configs' blocks
+    d_xlstm = (p["xlstm_all_m"] - p["xlstm_all_s"]) / layers  # mLSTM less sLSTM, a layer
+    d_zamba = (p["zamba2_all_shared"] - p["zamba2_no_shared"]) / layers  # the shared block
+    want = {"xlstm_mixed": r["xlstm_mixed"] - 1 * d_xlstm,  # one sLSTM layer
+            "zamba2_mixed": r["zamba2_mixed"] - 1 * d_zamba}  # one layer without the block
+    for name, w in want.items():
+        assert d_xlstm > 0 and d_zamba > 0 and abs(p[name] / w - 1) <= 0.05, (name, kind,
+                                                                              p[name] / w)
+
+
+@pytest.mark.parametrize("shape", ["train_4k", "prefill_32k"])
+def test_weighted_scan_counts_equal_every_step(both, shape):
+    """The reduced xLSTM rows at 64 positions: the weighted loops (the
+    sLSTM scan's steps; a prefill's mLSTM chunks) count the flops and the
+    collective bytes and operations by kind of the step-by-step run
+    exactly, and its bytes within 1%."""
+    (f_w, b_w, coll_w, ops_w) = both[0]["weighted"][f"{shape}|True"]
+    (f_e, b_e, coll_e, ops_e) = both[0]["weighted"][f"{shape}|False"]
+    assert f_w == f_e > 0
+    assert coll_w == coll_e and ops_w == ops_e
+    assert abs(b_w / b_e - 1) <= 0.01
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_decode_counts_the_reference_program(both_all, arch):
+    """The reduced MoE decode on (4, 2) within 5% of the reference's
+    per-device flops (the experts' d_ff on "model", no expert axis; the
+    token group split on its tokens), and the formerly refused
+    combinations' reduced counterparts trace with positive counts."""
+    port, ref = both_all[0]["moe"], both_all[1]["moe"]
+    key = f"{arch}|decode_32k|4x2"
+    assert abs(port[key] / ref[key] - 1) <= 0.05, (arch, port[key] / ref[key])
+    for a, shape, mesh in MOE_REFUSED:
+        if a == arch:
+            assert port[f"{a}|{shape}|{'x'.join(map(str, mesh))}"] > 0
 
 
 def _serve_worker(rank, world, path, out_dir):
