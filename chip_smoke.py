@@ -297,7 +297,21 @@ Phases, one line each (any failure ends the run with a non-zero code):
    slot beside the stacked captured one (two ranks on one card over a
    host-staged wire: not a multi-card figure); which gloo collectives
    take CUDA tensors (``--gloo-probe`` pairs); (ii) a one-rank NCCL group
-   at S = 1: captured == eager == stacked bit for bit, ms a captured slot;
+   at S = 1: captured == eager == stacked bit for bit, ms a captured slot,
+   each phase prefix captured == eager and the phase coverage within
+   ``PHASE_COVERAGE``; on the same two gloo ranks, against stacked S = 2
+   engines run here meanwhile: (iii) dynamic topology (phase 4d's refresh
+   and 1,000 arrivals: 37 forced slots, a refresh fired by hand, the
+   admission, 37 forced slots, a forced repartition): every owned row,
+   flag and counter and the live CSR equal, no kernel of ours launched,
+   each call's host seconds on each rank; (iv) serving the
+   ``sharded_fused`` ranks (``run(snapshot_every=16, serve=handle)``, a
+   request thread a rank issuing phase 4c's batches, reads collective
+   over the handle's own group): every 25th answer equal to its
+   recomputation from the pinned snapshot, phase 4c's lag limits, p50,
+   p99 and predictions/s; (v) every phase prefix's output on each rank
+   equal to the stacked engine's shard (every agent wakes, so the draws
+   depend on no generator), the ranks' phase coverage printed;
 14. a JSON line of every ported kernel (launches, error, times, bound),
    the phases' command seconds (each also printed as a ``[time]`` line
    when its phase ends), then the last line
@@ -4251,7 +4265,12 @@ def mesh_layer(dev, launches: dict, card: str, procs: dict) -> dict:
 RANKS = dict(shards=2, relabel="rcm", partition_mode="degree", mask_seed=13, slots=37,
              timed_windows=3, timed_slots=20, nccl_windows=3, nccl_slots=100)
 RANK_LEGS = ("sharded_fused", "sharded_unfused", "sharded_fused_bf16_ef")
-RANK_TIMEOUT_S = 400
+RANK_TIMEOUT_S = 900
+# (iv): windows of slots through run on the sharded_fused ranks, serving
+# off and on in turns; a fixed count of requests an on-window (the reads
+# are collectives: every rank issues the same ones), every 25th checked.
+RANK_SERVE = dict(window=320, turns=2, requests=50, check_every=25)
+RANK_DRIFT = -1.0  # (iii)'s last refresh: below any drift, so it repartitions
 
 
 def _rank_engine_kw(leg: str, c: dict) -> dict:
@@ -4281,6 +4300,203 @@ def _leaves(state) -> dict:
     if state.ef is not None:
         out["ef"] = state.ef
     return {k: v.detach().to("cpu").numpy() for k, v in out.items()}
+
+
+def _dyn_rank_kw(c: dict, arrival) -> dict:
+    """(iii)'s engine options: phase 4d's refresh and arrivals, the legs'
+    churn, phase 13's placement at S = 2, ``drift_threshold`` 0.25."""
+    from repro_torch.sim import ChurnConfig, GraphUpdate, Scenario
+
+    return dict(slot_wakes=c["slot_wakes"], seed=c["seed"], relabel=RANKS["relabel"],
+                partition_mode=RANKS["partition_mode"], drift_threshold=0.25,
+                graph_update=GraphUpdate(**DYN_GU),
+                scenario=Scenario(churn=ChurnConfig(leave_prob=0.01, rejoin_prob=0.2),
+                                  arrival=arrival))
+
+
+def _dyn_sequence(eng, c: dict, sync) -> tuple:
+    """(iii) on a dynamic engine, stacked or a rank: 37 forced slots, a
+    refresh fired by hand, the admission of every scheduled arrival, 37
+    forced slots, and a refresh with ``drift_threshold`` below any drift
+    (a repartition). Returns the state and each call's host seconds
+    (``set_topology`` timed inside the refresh and the admission)."""
+    import numpy as np
+
+    swaps = []
+    set_topology = eng.set_topology
+
+    def timed_swap(state, csr):
+        sync()
+        t0 = time.perf_counter()
+        state = set_topology(state, csr)
+        sync()
+        swaps.append(time.perf_counter() - t0)
+        return state
+
+    eng.set_topology = timed_swap
+    secs = {}
+
+    def timed(label, fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        secs[label] = time.perf_counter() - t0
+        secs[f"{label}_set_topology"] = swaps[-1]
+        return out
+
+    state = eng.init_state(np.zeros((c["n"], c["p"]), np.float32))
+    for mask in _rank_masks(c, RANKS):
+        state = eng.step(state, mask)
+    state = timed("refresh", lambda: eng._refresh_topology(state, 1))
+    ids = eng.scenario.arrival.all_ids()
+    state = timed("admit", lambda: eng.admit(state, ids))
+    for mask in _rank_masks(c, dict(RANKS, mask_seed=RANKS["mask_seed"] + 1)):
+        state = eng.step(state, mask)
+    eng.config = eng.config.replace(drift_threshold=RANK_DRIFT)
+    state = timed("repartition", lambda: eng._refresh_topology(state, 2))
+    sync()
+    del eng.set_topology
+    return state, secs
+
+
+def _leaf_hash(t) -> str:
+    """sha256 of a tensor's bytes, with its shape and dtype."""
+    import hashlib
+
+    import torch
+
+    a = t.detach().contiguous().to("cpu")
+    raw = a.reshape(-1).view(torch.uint8).numpy().tobytes()
+    return f"{hashlib.sha256(raw).hexdigest()[:24]}:{tuple(a.shape)}:{a.dtype}"
+
+
+def _prefix_hashes(eng, state) -> dict:
+    """Every phase prefix's output (``prefix_shards``) hashed leaf by leaf:
+    a per-shard leaf shard by shard (a rank: its one; stacked: each of the
+    S), the all-gather's pool whole."""
+    from repro_torch.sim.capture import prefix_shards
+
+    out = {}
+    for upto in list(eng.phase_names) + [None]:
+        pairs = prefix_shards(eng, upto, eng.phase_program(upto)(state))
+        out[str(upto)] = [[_leaf_hash(t[j]) for j in range(t.shape[0])] if per else _leaf_hash(t)
+                          for t, per in pairs]
+    return out
+
+
+def _phase_rank_kw(leg: str, c: dict) -> dict:
+    """(v)'s engine options: the leg's, without churn, and every agent
+    waking every slot (p = 1 - exp(-64) is 1.0 in float64), so a prefix's
+    output depends on no generator."""
+    from repro_torch.sim import Scenario
+
+    return dict(_rank_engine_kw(leg, c), slot_wakes=64.0 * c["n"], scenario=Scenario())
+
+
+def _phase_theta(c: dict):
+    """(v)'s seeded initial models (float32)."""
+    import numpy as np
+
+    return np.random.default_rng(7).normal(size=(c["n"], c["p"])).astype(np.float32)
+
+
+def _rank_recompute(reads, snap, ids, X, neighbors):
+    """(iv)'s recomputation of ``ids``' scores from the pinned snapshot:
+    every rank's tiles gathered (a collective on the handle's group), each
+    id's rows by its shard and local row, the Eq. 16 uniform average for
+    cold ids, in plain PyTorch."""
+    import numpy as np
+    import torch
+
+    tiles = reads.all_gather(snap.tiles)
+    tiles = tiles.reshape((-1,) + tuple(snap.tiles.shape[1:]))  # (S, R, p)
+    n = snap.shard_of.size
+    K = max(len(v) for v in neighbors.values())
+    gids = np.zeros((ids.size, K), np.int64)
+    w = np.zeros((ids.size, K), np.float32)
+    for b, i in enumerate(ids.tolist()):
+        nb = (i,) if i < n else neighbors[i]
+        gids[b, : len(nb)] = nb
+        w[b, : len(nb)] = 1.0 / len(nb)
+    dev = tiles.device
+    rows = tiles[torch.as_tensor(snap.shard_of[gids].astype(np.int64), device=dev),
+                 torch.as_tensor(snap.local_of[gids].astype(np.int64), device=dev)]
+    theta = (torch.as_tensor(w, device=dev).unsqueeze(-1) * rows).sum(dim=1)
+    return (theta * torch.as_tensor(X, device=dev)).sum(dim=-1).cpu().numpy()
+
+
+def _rank_serving(eng, state, sync) -> tuple:
+    """(iv) on a rank: windows of ``RANK_SERVE["window"]`` slots through
+    ``run``, serving off and on in turns; on: a trainer thread runs
+    ``run(snapshot_every=16, serve=handle)`` while this thread issues
+    ``RANK_SERVE["requests"]`` of phase 4c's batches (the same ids on
+    every rank, in the same order), every ``check_every``-th answer held
+    against :func:`_rank_recompute` when its snapshot is still the newest
+    every rank holds. Returns the rates, latencies, lags and checks."""
+    import threading
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch.serve import ServeHandle
+
+    handle = ServeHandle.for_engine(eng)
+    batches, neighbors = _serve_batches(eng.n, eng.p, np.random.default_rng(5))
+    W, E = RANK_SERVE["window"], SERVE["snapshot_every"]
+    rates, lat, lags, checked, equal = {"off": [], "on": []}, [], [], 0, True
+    for _ in range(RANK_SERVE["turns"]):
+        for mode in ("off", "on"):
+            dist.barrier()
+            sync()
+            t0 = time.perf_counter()
+            if mode == "off":
+                state = eng.run(None, W, state=state).state
+                sync()
+                rates[mode].append(W / (time.perf_counter() - t0))
+                continue
+            box = {}
+
+            def train():
+                box["result"] = eng.run(None, W, state=state, serve=handle, snapshot_every=E)
+
+            first = eng._ptr_of(state)
+            trainer = threading.Thread(target=train, name="trainer")
+            trainer.start()
+            for i in range(RANK_SERVE["requests"]):
+                while not handle.published or handle.version < first:
+                    time.sleep(1e-4)
+                ids, X = batches[i % len(batches)]
+                t1 = time.perf_counter()
+                res = handle.predict(ids, X, neighbors=neighbors)
+                lat.append(time.perf_counter() - t1)
+                lags.append((handle.version_lag_start[0], handle.counters()["serve_version_lag"]))
+                if i % RANK_SERVE["check_every"] == 0:
+                    snap = handle.snapshot()
+                    if snap.version == res.version:  # the same on every rank
+                        want = _rank_recompute(handle._reads, snap, ids, X, neighbors)
+                        equal &= bool(np.array_equal(res.values, want))
+                        checked += 1
+            trainer.join()
+            sync()
+            if "result" not in box:
+                raise SystemExit(f"phase 13 (iv) rank {eng.rank}: the trainer thread failed")
+            state = box["result"].state
+            rates[mode].append(W / (time.perf_counter() - t0))
+    r = max(rates["off"])
+    lat = np.asarray(lat)
+    start_lag, end_lag = np.asarray(lags).T
+    end_limit = E * (3 + 2 * np.floor(lat * r / E))
+    c = handle.counters()
+    out = dict(slots_per_s_off=rates["off"], slots_per_s_on=rates["on"], requests=int(lat.size),
+               checked=checked, equal=equal, p50_ms=float(np.percentile(lat, 50) * 1e3),
+               p99_ms=float(np.percentile(lat, 99) * 1e3),
+               predictions_per_s=float(SERVE["batch"] * lat.size / lat.sum()),
+               version_lag_start_max=int(start_lag.max()), version_lag_max=int(end_lag.max()),
+               end_over_limit_max=float((end_lag / end_limit).max()),
+               snapshots=c["serve_snapshots_published"], cold_rows=c["serve_cold_starts"],
+               start_ok=bool(0 <= start_lag.max() <= E), end_ok=bool((end_lag <= end_limit).all()))
+    return out, state
 
 
 GLOO_PROBES = ("all_gather_into_tensor", "all_reduce", "broadcast", "batch_isend_irecv")
@@ -4363,11 +4579,14 @@ def rank_worker(rank: int, world: int, store: str, out_dir: str) -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.checkpoint import restore, save_engine_checkpoint
     from repro_torch.kernels import ops
+    from repro_torch.obs import profile_supertick
     from repro_torch.sim import CDUpdate, make_engine, partition_graph
 
+    global DYN_GU, DYN_ARRIVALS, RANK_SERVE
     out = Path(out_dir)
     cfg = json.loads((out / "config.json").read_text())
     c, rk, dev = cfg["main"], cfg["ranks"], torch.device(cfg["device"])
+    DYN_GU, DYN_ARRIVALS, RANK_SERVE = cfg["dyn_gu"], cfg["dyn_arrivals"], cfg["rank_serve"]
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
@@ -4422,10 +4641,106 @@ def rank_worker(rank: int, world: int, store: str, out_dir: str) -> int:
             report[leg] = r
             del eng, fresh, state, back, a, b
             gc.collect()
+        # (iii) dynamic topology: no kernel of ours may launch
+        arrival, _seed = dynamic_arrivals(obj.graph)
+        eng = make_engine(CDUpdate(obj), shards=world, device=dev, **_dyn_rank_kw(c, arrival))
+        ops.reset_launch_counts()
+        state, secs = _dyn_sequence(eng, c, sync)
+        np.savez(out / f"dynamic_rank{rank}.npz", **_leaves(state))
+        report["dynamic"] = dict(seconds=secs, log=dict(eng.topology_log), csr=eng._csr.digest(),
+                                 launches={k: v for k, v in ops.launch_counts().items() if v},
+                                 method=eng.exchange_method, capture_mode=eng.capture_mode)
+        del eng, state
+        gc.collect()
+        # (iv) serving the sharded_fused ranks
+        eng = make_engine(CDUpdate(obj), shards=world, partition=part, device=dev,
+                          **_rank_engine_kw("sharded_fused", c))
+        state = eng.init_state(np.zeros((obj.n, obj.p), np.float32))
+        ops.reset_launch_counts()
+        report["serving"], state = _rank_serving(eng, state, sync)
+        report["serving"]["launches"] = {k: v for k, v in ops.launch_counts().items() if v}
+        prof = profile_supertick(eng, state)
+        report["coverage"] = dict(coverage=prof.coverage, phases_us={
+            k: v * 1e6 for k, v in prof.phases.items()}, measured_us=prof.measured_s * 1e6)
+        del eng, state
+        gc.collect()
+        # (v) the phase prefixes, every agent waking
+        report["phases"] = {}
+        for leg in ("sharded_fused", "sharded_unfused"):
+            eng = make_engine(CDUpdate(obj), shards=world, partition=part, device=dev,
+                              **_phase_rank_kw(leg, c))
+            state = eng.init_state(_phase_theta(c))
+            report["phases"][leg] = dict(hashes=_prefix_hashes(eng, state),
+                                         names=list(eng.phase_names), batch=eng.batch_size)
+            del eng, state
+            gc.collect()
     finally:
         dist.destroy_process_group()
     (out / f"rank{rank}.json").write_text(json.dumps(report, default=str))
     return 0
+
+
+def _nccl_serving(cap, stk, state) -> dict:
+    """(ii)'s serving read on the handle's own one-rank NCCL group: a
+    trainer thread runs ``RANK_SERVE["window"]`` captured slots through
+    ``run(snapshot_every=16, serve=handle)`` (the engine group's NCCL
+    chunks) while this thread issues ``RANK_SERVE["requests"]`` of phase
+    4c's batches (the handle group's NCCL reads), each on a pinned
+    snapshot and held against :func:`_rank_recompute` of it; then the
+    final state published on this handle and its models on a handle of
+    the stacked S = 1 engine, whose ``predict`` and ``rows`` it must
+    equal. Returns the checks, p50 and p99 ms and the state reached."""
+    import threading
+
+    import numpy as np
+
+    from repro_torch.serve import ServeHandle
+
+    E = SERVE["snapshot_every"]
+    handle = ServeHandle.for_engine(cap)
+    batches, neighbors = _serve_batches(cap.n, cap.p, np.random.default_rng(5))
+    box = {}
+
+    def train():
+        box["result"] = cap.run(None, RANK_SERVE["window"], state=state, serve=handle,
+                                snapshot_every=E)
+
+    first = cap._ptr_of(state)
+    trainer = threading.Thread(target=train, name="trainer")
+    trainer.start()
+    lat, equal = [], True
+    for i in range(RANK_SERVE["requests"]):
+        while not handle.published or handle.version < first:
+            time.sleep(1e-4)
+        ids, X = batches[i % len(batches)]
+        t1 = time.perf_counter()
+        snap = handle.snapshot()
+        res = handle.predict(ids, X, neighbors=neighbors, at=snap)
+        lat.append(time.perf_counter() - t1)
+        want = _rank_recompute(handle._reads, snap, ids, X, neighbors)
+        equal &= bool(np.array_equal(res.values, want))
+    trainer.join()
+    if "result" not in box:
+        raise SystemExit("phase 13 (ii): the serving leg's trainer thread failed")
+    state = box["result"].state
+    version = cap._ptr_of(state)
+    stacked = ServeHandle.for_engine(stk)
+    handle.publish(state, version=version)
+    stacked.publish(stk.init_state(cap.global_theta(state)), version=version)
+    ids, X = batches[0]
+    got, want = (h.predict(ids, X, neighbors=neighbors) for h in (handle, stacked))
+    rows = [h.rows(ids, neighbors=neighbors) for h in (handle, stacked)]
+    final = dict(predict=bool(np.array_equal(got.values, want.values)),
+                 rows=bool(np.array_equal(rows[0].values, rows[1].values)),
+                 version=bool(got.version == want.version == rows[0].version == version))
+    if not (equal and all(final.values())):
+        raise SystemExit(f"phase 13 (ii): serving on NCCL, answers == recomputed {equal}, "
+                         f"== the stacked handle {final}")
+    lat = np.asarray(lat)
+    return dict(requests=int(lat.size), equal=equal, stacked=final,
+                p50_ms=float(np.percentile(lat, 50) * 1e3),
+                p99_ms=float(np.percentile(lat, 99) * 1e3),
+                snapshots=handle.counters()["serve_snapshots_published"]), state
 
 
 def _nccl_leg(obj, dev, card: str) -> dict:
@@ -4439,7 +4754,9 @@ def _nccl_leg(obj, dev, card: str) -> dict:
     from torch.distributed.device_mesh import init_device_mesh
 
     from repro_torch.kernels import ops
+    from repro_torch.obs import profile_supertick
     from repro_torch.sim import CDUpdate, EngineConfig, ShardedAsyncEngine, partition_graph
+    from repro_torch.sim.capture import clone_state, prefix_shards
 
     part = partition_graph(obj.graph, 1, mode=RANKS["partition_mode"], relabel=RANKS["relabel"])
     kw = dict(_rank_engine_kw("sharded_fused", MAIN), partition=part, device=dev)
@@ -4476,13 +4793,35 @@ def _nccl_leg(obj, dev, card: str) -> dict:
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3 / RANKS["nccl_slots"])
         timed = {k: v for k, v in ops.launch_counts().items() if v}
+        # Each phase prefix captured (the program) against the same prefix
+        # run eagerly on a clone of the state (the generator's position too).
+        prefix_equal = {}
+        for upto in list(cap.phase_names) + [None]:
+            got = prefix_shards(cap, upto, cap.phase_program(upto)(sc))
+            want = prefix_shards(cap, upto, cap._slot(clone_state(sc), None, upto=upto))
+            prefix_equal[str(upto)] = len(got) == len(want) and all(
+                torch.equal(g, w) for (g, _), (w, _) in zip(got, want))
+        prof = profile_supertick(cap, sc)
+        if not all(prefix_equal.values()) or not \
+                PHASE_COVERAGE[0] <= prof.coverage <= PHASE_COVERAGE[1]:
+            raise SystemExit(f"phase 13 (ii): captured prefixes == eager {prefix_equal}, coverage "
+                             f"{prof.coverage:.4f} outside {PHASE_COVERAGE}")
+        serving, sc = _nccl_serving(cap, stk, sc)
     finally:
         dist.destroy_process_group()
     out = dict(equal_bits=True, launches=launches, timed_launches=timed,
-               ms_per_slot=spread(times), backend="nccl", capture_mode=cap.capture_mode)
+               ms_per_slot=spread(times), backend="nccl", capture_mode=cap.capture_mode,
+               prefixes_equal=prefix_equal, coverage=prof.coverage,
+               phases_us={k: v * 1e6 for k, v in prof.phases.items()}, serving=serving)
     log(f"[13] (ii) on {card}: one-rank NCCL, S = 1 fused, captured == eager == stacked S = 1 "
         f"for {RANKS['slots']} slots, bit for bit; launches {launches}; ms a slot (captured, "
-        f"{RANKS['nccl_windows']} windows of {RANKS['nccl_slots']}) {fmt(out['ms_per_slot'])}")
+        f"{RANKS['nccl_windows']} windows of {RANKS['nccl_slots']}) {fmt(out['ms_per_slot'])}; "
+        f"each phase prefix captured == eager bit for bit; phase coverage {prof.coverage:.4f} "
+        f"(us a phase {fmt(out['phases_us'])}); serving on the handle's NCCL group beside the "
+        f"captured trainer: {serving['requests']} requests == recomputed, the final "
+        f"publication's predict and rows == the stacked handle's, p50 "
+        f"{serving['p50_ms']:.3f} ms, p99 {serving['p99_ms']:.3f} ms a batch of "
+        f"{SERVE['batch']}")
     return out
 
 
@@ -4505,8 +4844,9 @@ def rank_engines(dev, launches: dict, card: str) -> dict:
         shutil.rmtree(out_dir)
     out_dir.mkdir(parents=True)
     store = out_dir / "store"
-    (out_dir / "config.json").write_text(json.dumps({"main": MAIN, "ranks": RANKS,
-                                                     "device": str(dev)}))
+    (out_dir / "config.json").write_text(json.dumps({
+        "main": MAIN, "ranks": RANKS, "device": str(dev), "dyn_gu": DYN_GU,
+        "dyn_arrivals": DYN_ARRIVALS, "rank_serve": RANK_SERVE}))
     env = dict(os.environ, OMP_NUM_THREADS="2")
     probes = gloo_probes_start(out_dir) if dev.type == "cuda" else {}
     procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--rank-worker",
@@ -4527,6 +4867,23 @@ def rank_engines(dev, launches: dict, card: str) -> dict:
             for mask in _rank_masks(c, RANKS):
                 state = eng.step(state, mask)
             stacked[leg] = (eng, _leaves(state))
+        # (iii) and (v) on stacked S = 2 engines, while the ranks run theirs
+        arrival, _seed = dynamic_arrivals(obj.graph)
+        dyn = ShardedAsyncEngine(CDUpdate(obj), num_shards=world, device=dev,
+                                 **_dyn_rank_kw(c, arrival))
+        state, dyn_secs = _dyn_sequence(dyn, c, torch.cuda.synchronize
+                                        if dev.type == "cuda" else (lambda: None))
+        dyn_want = dict(leaves=_leaves(state), csr=dyn._csr.digest(), log=dict(dyn.topology_log),
+                        seconds=dyn_secs)
+        del dyn, state
+        gc.collect()
+        prefix_want = {}
+        for leg in ("sharded_fused", "sharded_unfused"):
+            eng = ShardedAsyncEngine(CDUpdate(obj), num_shards=world, partition=part, device=dev,
+                                     **_phase_rank_kw(leg, c))
+            prefix_want[leg] = _prefix_hashes(eng, eng.init_state(_phase_theta(c)))
+            del eng
+            gc.collect()
         texts = []
         for p in procs:
             try:
@@ -4597,11 +4954,89 @@ def rank_engines(dev, launches: dict, card: str) -> dict:
         torch.cuda.empty_cache()
     log(f"[13] gloo collectives on CUDA tensors (torch {torch.__version__}): "
         f"{result['gloo_cuda']}")
+    result.update(_rank_dynamic_gate(reports, dyn_want, out_dir, card),
+                  serving=_rank_serving_gate(reports, card),
+                  phases=_rank_phase_gate(reports, prefix_want, card))
+    for rep in reports:
+        for k, v in rep["serving"]["launches"].items():
+            launches[k] = launches.get(k, 0) + v
     result["nccl"] = _nccl_leg(obj, dev, card)
     for k, v in result["nccl"]["launches"].items():
         launches[k] = launches.get(k, 0) + v
     result["seconds"] = time.perf_counter() - t0
     return result
+
+
+def _rank_dynamic_gate(reports, want: dict, out_dir: Path, card: str) -> dict:
+    """(iii)'s gates: every rank's owned rows, flags and counters, its live
+    CSR (sha256) and topology log equal the stacked S = 2 engine's, and no
+    kernel of ours launched; prints each call's host seconds by rank."""
+    import numpy as np
+
+    equal, csr, launched = True, True, {}
+    for r, rep in enumerate(reports):
+        got = dict(np.load(out_dir / f"dynamic_rank{r}.npz"))
+        equal &= all(np.array_equal(v[r:r + 1], got[k]) for k, v in want["leaves"].items())
+        d = rep["dynamic"]
+        csr &= d["csr"] == want["csr"] and d["log"] == want["log"]
+        launched.update({f"rank{r}:{k}": v for k, v in d["launches"].items()})
+    out = dict(equal_bits=bool(equal), csr_equal=bool(csr), launches=launched,
+               log=want["log"], seconds=[rep["dynamic"]["seconds"] for rep in reports],
+               stacked_seconds=want["seconds"], method=reports[0]["dynamic"]["method"])
+    log(f"[13] (iii) dynamic on {card}: 2 gloo ranks == stacked S = 2 (37 forced slots, a refresh, "
+        f"{out['log']['arrivals']} arrivals admitted, 37 forced slots, a forced repartition): "
+        f"owned rows, flags, counters equal {out['equal_bits']}, live CSR and topology log equal "
+        f"{out['csr_equal']}; log {fmt(out['log'])}; launches of ours {launched or 'none'}; host "
+        f"s by rank {[fmt(s) for s in out['seconds']]}; stacked {fmt(out['stacked_seconds'])}")
+    if not (equal and csr) or launched:
+        raise SystemExit(f"phase 13 (iii): ranks == stacked {equal}, CSR and log {csr}, "
+                         f"launches {launched}")
+    return {"dynamic": out}
+
+
+def _rank_serving_gate(reports, card: str) -> dict:
+    """(iv)'s gates on every rank: the checked answers equal their
+    recomputation, phase 4c's lag limits; prints p50, p99, predictions/s."""
+    out = [rep["serving"] for rep in reports]
+    for r, s in enumerate(out):
+        scalars = {k: v for k, v in s.items() if not isinstance(v, (list, dict))}
+        log(f"[13] (iv) serving rank {r} on {card}: sharded_fused, {RANK_SERVE['window']}-slot "
+            f"windows off and on in turns, snapshot_every={SERVE['snapshot_every']}, batch "
+            f"{SERVE['batch']}: {fmt(scalars)} slots/s off "
+            f"{[round(x, 2) for x in s['slots_per_s_off']]} on "
+            f"{[round(x, 2) for x in s['slots_per_s_on']]}")
+        if not (s["equal"] and s["checked"] >= RANK_SERVE["turns"] and s["start_ok"]
+                and s["end_ok"]):
+            raise SystemExit(f"phase 13 (iv) rank {r}: answers equal {s['equal']} ({s['checked']} "
+                             f"checked), start lag {s['version_lag_start_max']} within "
+                             f"{SERVE['snapshot_every']} {s['start_ok']}, end lag within its limit "
+                             f"{s['end_ok']} ({s['end_over_limit_max']:.3f} of it)")
+    return {"ranks": out}
+
+
+def _rank_phase_gate(reports, want: dict, card: str) -> dict:
+    """(v)'s gate: every phase prefix's output on each rank equals the
+    stacked S = 2 engine's shard (sha256 leaf by leaf); prints the ranks'
+    phase coverage (not gated: an eager rank is host-bound)."""
+    out = {}
+    for leg, stacked in want.items():
+        equal = {}
+        for upto, leaves in stacked.items():
+            equal[upto] = all(
+                len(rep["phases"][leg]["hashes"][upto]) == len(leaves) and all(
+                    (g[0] == w[r]) if isinstance(w, list) else (g == w)
+                    for g, w in zip(rep["phases"][leg]["hashes"][upto], leaves))
+                for r, rep in enumerate(reports))
+        out[leg] = equal
+        if not all(equal.values()):
+            raise SystemExit(f"phase 13 (v) {leg}: prefixes on the ranks == stacked {equal}")
+    cov = [rep["coverage"] for rep in reports]
+    log(f"[13] (v) phase prefixes on {card}: every prefix of sharded_fused and sharded_unfused "
+        f"(every agent waking) on each gloo rank == the stacked S = 2 engine's shard, bit for bit; "
+        f"the ranks' phase coverage (eager, host-bound, not gated) "
+        f"{[round(x['coverage'], 4) for x in cov]}, us a phase "
+        f"{[fmt(x['phases_us']) for x in cov]}")
+    return {"equal": out, "coverage": cov}
 
 
 def memory(when: str) -> None:

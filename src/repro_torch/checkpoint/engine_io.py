@@ -23,7 +23,9 @@ exactly:
   rewrites them) and are not saved. An engine one shard a rank writes the
   same entry together: each rank its own ``shard_<rank>.npz``, rank 0
   the rest after a barrier (the counters, the error feedback and every
-  rank's generator state, ``generators``, gathered), then the manifest.
+  rank's generator state, ``generators``, gathered; a dynamic run's
+  ``topology.npz`` once, the live graph being the same on every rank),
+  then the manifest.
 
 Restore checks the manifest's fingerprint (graph sha256, n, p, dtype, an
 :class:`repro_torch.sim.EngineConfig` digest, topology version) before

@@ -287,6 +287,27 @@ class GroupCollective:
         dist.all_gather_into_tensor(out, wire.view(-1), group=self.group)
         return out.view(self.size, *send.shape).to(send.device)
 
+    def all_reduce(self, t, op: str = "sum"):
+        """``t`` reduced over the members (``"sum"`` or ``"min"``), a new
+        tensor on ``t``'s device (on an NCCL group ``t`` must be on the
+        member's card)."""
+        import torch.distributed as dist
+
+        wire = self._out(t.contiguous()).clone()
+        dist.all_reduce(wire, op=dist.ReduceOp.SUM if op == "sum" else dist.ReduceOp.MIN,
+                        group=self.group)
+        return wire.to(t.device)
+
+    def broadcast_object(self, obj):
+        """Member 0's ``obj`` (a picklable host object) on every member; the
+        others' ``obj`` is ignored."""
+        import torch.distributed as dist
+
+        box = [obj]
+        dist.broadcast_object_list(box, src=dist.get_global_rank(self.group, 0),
+                                   group=self.group)
+        return box[0]
+
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class ShardedMixOp:

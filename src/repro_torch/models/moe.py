@@ -30,7 +30,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models.layers import Dense, _param, normal_
-from repro_torch.models.sharding import einsum, gather_unless_divides, split_group
+from repro_torch.models.sharding import (batch_axes, einsum, gather_unless_divides,
+                                         split_group, whole_positions)
 
 
 class MoE(nn.Module):
@@ -115,20 +116,25 @@ def moe_ffn(params: MoE, x, cfg):
     B, S, d = x.shape
     E = mcfg.num_experts
     gs = min(mcfg.group_size, B * S)
-    x = gather_unless_divides(x, 0, -(-B * S // gs))  # identity off a mesh
+    # On a mesh the tokens group along the batch's split, and a training
+    # round's layer takes the serving mesh's token rules over the axes that
+    # split its batch (the identity off a mesh; models/sharding.py).
+    x = whole_positions(x)
+    axes = batch_axes(x)
+    x = gather_unless_divides(x, 0, -(-B * S // gs))
     xg, T = _groups(x, gs)
     r = route(params, xg, cfg)
 
     # The expert products on the weights' own shards (d_ff on "model", the
-    # reference's tensor-parallel experts): the layout hooks of
-    # models/sharding.py, the identity off a mesh. A decode step's single
-    # group, gathered for the router, is split again on its tokens.
-    xd = einsum("gsec,gsd->gecd", split_group(r.dispatch.to(x.dtype), 1),
-                split_group(xg, 1, 2))  # (G, E, C, d)
-    h = F.silu(einsum("gecd,edf->gecf", xd, params.gate)) * einsum(
-        "gecd,edf->gecf", xd, params.up)
-    ye = einsum("gecf,efd->gecd", h, params.down)  # (G, E, C, d)
-    y = einsum("gsec,gecd->gsd", split_group(r.combine.to(x.dtype), 1), ye)  # (G, gs, d)
+    # reference's tensor-parallel experts). A decode step's single group,
+    # gathered for the router, is split again on its tokens.
+    xd = einsum("gsec,gsd->gecd", split_group(r.dispatch.to(x.dtype), 1, axes=axes),
+                split_group(xg, 1, 2, axes=axes), axes=axes)  # (G, E, C, d)
+    h = F.silu(einsum("gecd,edf->gecf", xd, params.gate, axes=axes)) * einsum(
+        "gecd,edf->gecf", xd, params.up, axes=axes)
+    ye = einsum("gecf,efd->gecd", h, params.down, axes=axes)  # (G, E, C, d)
+    y = einsum("gsec,gecd->gsd", split_group(r.combine.to(x.dtype), 1, axes=axes), ye,
+               axes=axes)  # (G, gs, d)
     y = y.reshape(-1, d)
     if y.shape[0] != T:  # the last group's padding
         y = y[:T]

@@ -110,13 +110,26 @@ def _constrain(x, dim, axes):
 
 
 def constrain_seq(x, dim=1):
-    """Shard the sequence dim of an activation (B, S, d) over the TP axis.
-    Without sequence parallelism, a DTensor residual stream is kept with
-    whole features (``replicate_features``): Megatron's layout, which
-    GSPMD finds by propagation and DTensor, choosing op by op, does not."""
-    if _SEQ_AXIS is None:
-        return replicate_features(x)
-    return _constrain(x, dim, (_SEQ_AXIS,))
+    """A DTensor residual stream (B, S, d) kept with whole features
+    (``replicate_features``): Megatron's layout, which GSPMD finds by
+    propagation and DTensor, choosing op by op, does not. With sequence
+    parallelism also split on its sequence over the TP axis where that
+    divides, its batch split over the other mesh dims kept (Megatron's
+    sequence-parallel residual beside data parallelism; a batch gathered
+    over "data" would repeat every rank's work there)."""
+    x = replicate_features(x)
+    if _SEQ_AXIS is None or _MESH is None or not isinstance(x, DTensor):
+        return x
+    names = x.device_mesh.mesh_dim_names or ()
+    if _SEQ_AXIS not in names or x.ndim <= dim:
+        return x
+    i = names.index(_SEQ_AXIS)
+    size = x.device_mesh.size(i)
+    if size <= 1 or x.shape[dim] % size != 0 or x.shape[dim] < size:
+        return x
+    want = list(x.placements)
+    want[i] = Shard(dim)
+    return _retarget(x, want)
 
 
 def constrain_batch(x, dim=0):
@@ -138,21 +151,54 @@ def gather_unless_divides(x, dim: int, n: int):
     return x.redistribute(mesh, [Replicate() if p.is_shard(dim) else p for p in x.placements])
 
 
-def split_group(t, tok_dim: int, feat_dim=None):
+def whole_positions(x):
+    """``x`` (B, S, ...); a DTensor split on its positions (dim 1)
+    gathered there (a training round's residual, which DTensor may leave
+    split on its sequence over "model", or the sequence-parallel one,
+    whose batch split :func:`constrain_seq` keeps), so that the MoE's
+    token groups of the flattened (B * S) tokens follow the batch's
+    split: each rank routes, dispatches and combines its own groups,
+    where a group straddling two ranks replicates all of them. Identity
+    off a mesh."""
+    if not isinstance(x, DTensor) or not any(p.is_shard(1) for p in x.placements):
+        return x
+    return _retarget(x, [Replicate() if p.is_shard(1) else p for p in x.placements])
+
+
+def batch_axes(x):
+    """The activation axes of a layer on ``x`` (B, ...): the launcher's
+    where it set them (a serving mesh), else the mesh dims that split
+    ``x``'s batch (a training round), else None. A training round's MoE
+    passes them to :func:`split_group` and :func:`einsum`, which then lay
+    its token groups and expert products out as on a serving mesh: each
+    rank dispatches and combines its own groups and the experts' operands
+    meet on the weights' shards (GSPMD's layout of the reference's MoE),
+    where DTensor's own strategies computed the dispatch of every group
+    on every rank (the reduced silo training row counted 1.42x the
+    reference's flops)."""
+    if _ACT_AXES is not None or not isinstance(x, DTensor):
+        return _ACT_AXES
+    names = x.device_mesh.mesh_dim_names or ()
+    axes = tuple(n for n, p in zip(names, x.placements) if p.is_shard(0))
+    return axes or None
+
+
+def split_group(t, tok_dim: int, feat_dim=None, axes=None):
     """On a serving mesh, ``t`` (one token group of a decode step, gathered
     for the router: see :func:`gather_unless_divides`) split on its
-    tokens ``tok_dim`` over the activation axes and, with ``feat_dim``, on
-    its features over "model", where a split is replicated and the size
-    divides: local slices, no collective. That is GSPMD's layout of the
-    group; the expert products (``models/moe.py``, through :func:`einsum`)
-    then run on the local tokens and the weights' own shards. Identity
-    elsewhere."""
-    if _ACT_AXES is None or not isinstance(t, DTensor):
+    tokens ``tok_dim`` over the activation axes (``axes``, by default the
+    launcher's) and, with ``feat_dim``, on its features over "model",
+    where a split is replicated and the size divides: local slices, no
+    collective. That is GSPMD's layout of the group; the expert products
+    (``models/moe.py``, through :func:`einsum`) then run on the local
+    tokens and the weights' own shards. Identity elsewhere."""
+    axes = _ACT_AXES if axes is None else axes
+    if axes is None or not isinstance(t, DTensor):
         return t
     mesh = t.device_mesh
     names = mesh.mesh_dim_names or ()
     want = list(t.placements)
-    act = [i for i, n in enumerate(names) if n in _axes_tuple(_ACT_AXES)]
+    act = [i for i, n in enumerate(names) if n in _axes_tuple(axes)]
     size = int(np.prod([mesh.size(i) for i in act])) if act else 1
     if act and t.shape[tok_dim] % size == 0 and all(want[i].is_replicate() for i in act):
         for i in act:
@@ -259,7 +305,7 @@ def matmul(x, w):
                               stride=contiguous_stride(shape))
 
 
-def einsum(eq: str, *ops):
+def einsum(eq: str, *ops, axes=None):
     """``torch.einsum(eq, *ops)``; on a mesh, computed on the local shards,
     mesh dim by mesh dim, where the split operands are split on one index
     letter. A replicated operand that has the letter is sliced to the
@@ -269,9 +315,11 @@ def einsum(eq: str, *ops):
     on the largest operand's (the others gathered there, as a decode query
     meets its cache: the small operand moves), operands pending a sum are
     reduced first, and a plain tensor beside DTensors is taken as
-    replicated (as DTensor's implicit replication takes it). Other layouts
-    go to DTensor (a training round's, as before the serving rules)."""
-    serving = _ACT_AXES is not None
+    replicated (as DTensor's implicit replication takes it); ``axes``
+    (:func:`batch_axes`) applies these rules where the launcher set no
+    activation axes. Other layouts go to DTensor (a training round's, as
+    before the serving rules)."""
+    serving = _ACT_AXES is not None or axes is not None
     meshes = {t.device_mesh for t in ops if isinstance(t, DTensor)}
     if len(meshes) != 1 or not (serving or all(isinstance(t, DTensor) for t in ops)):
         return torch.einsum(eq, *ops)

@@ -30,6 +30,25 @@ Ids not yet in the swarm (scheduled-but-pending arrivals, or ids beyond
 Eq. 16 confidence-zero neighbour average, the warm start
 ``ArrivalConfig`` applies at admission, folded into the same gather as a
 K-neighbour weighted row instead of a K = 1 self row.
+
+Over an engine one shard a rank (:class:`repro_torch.sim.ShardedAsyncEngine`
+with a process group) each rank publishes its own ``(1, R, p)`` tiles
+and nothing is gathered. A read is then a collective on a process group
+of the handle's own (``dist.new_group`` over the engine's ranks, so the
+trainer's halo exchange and a request thread's reads never share one):
+every rank calls it with the same ids, the version served is the newest
+that every rank holds (a MIN all-reduce, on the engine's device, of
+each rank's newest published one, which its ring must still hold; the
+read waits on the card for its copy where that is still running, so no
+request starts behind the newest version every rank has published; a
+read that
+cannot be served, because a rank has published nothing, a ring no
+longer holds that version or the pinned versions differ, raises on
+every rank, the failure decided by the same collectives), each rank
+fills the rows of the ``(B, K)`` gather plan that it owns (cold-start
+neighbours included, zeros elsewhere), and a sum all-reduce assembles
+the ``(B, K, p)`` rows that the Eq. 16 combine and the dot then read, so
+every rank returns the same answer, the stacked engine's to the bit.
 """
 
 from __future__ import annotations
@@ -43,6 +62,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.core.mixing import GroupCollective
 from repro_torch.obs.metrics import serve_counters_init
 
 
@@ -153,6 +173,13 @@ class SnapshotStore:
         latest one where none has: the reader's stream then waits for it)."""
         return self.read()[1]
 
+    def at_version(self, version: int) -> ThetaSnapshot | None:
+        """The ring's snapshot of ``version`` (None if the ring no longer
+        holds it)."""
+        with self._lock:
+            ring = [snap for snap in self._ring if snap is not None]
+        return next((snap for snap in ring if snap.version == version), None)
+
     def read(self) -> tuple:
         """``(latest version, newest ready snapshot)``, read under one lock
         so a reader's lag is counted against the version that was newest
@@ -183,21 +210,30 @@ class ServeResult(NamedTuple):
     cold: np.ndarray  # (B,) bool: True where the row was Eq. 16 synthesized
 
 
-def _gather_rows(tiles, sids, lids, w):
-    """Gather + Eq. 16 combine: ``(B, K)`` routed rows -> ``(B, p)`` float32.
+def _take_rows(tiles, sids, lids, dtype, shard=None):
+    """The ``(B, K, p)`` routed rows of the tiles in ``dtype``; with
+    ``shard`` (a rank's ``(1, R, p)`` tiles) the rows that shard owns,
+    zeros elsewhere. Touches exactly the B * K routed rows."""
+    if shard is None:
+        return tiles[sids, lids].to(dtype)
+    mine = (sids == shard).unsqueeze(-1)
+    rows = tiles[0, torch.where(sids == shard, lids, 0)].to(dtype)
+    return torch.where(mine, rows, torch.zeros((), dtype=dtype, device=rows.device))
+
+
+def _combine(rows, w):
+    """Eq. 16 combine: ``(B, K, p)`` routed rows -> ``(B, p)`` float32.
 
     The reference's ``einsum("bk,bkp->bp")``, written as a product and a
     sum over K: no matmul, so no TF32 setting rounds a row, and a warm
     row (K = 1 self row of weight 1, padding weight 0) is its snapshot
-    row bit for bit. Touches exactly B * K rows of the tiles.
+    row bit for bit.
     """
-    rows = tiles[sids, lids].to(w.dtype)  # (B, K, p)
     return (w.unsqueeze(-1) * rows).sum(dim=1)
 
 
-def _score_rows(tiles, sids, lids, w, X):
-    """Gather, combine and a per-row dot: ``(B,)`` scores."""
-    theta = _gather_rows(tiles, sids, lids, w)
+def _score(theta, X):
+    """The per-row dot of combined rows with the features: ``(B,)``."""
     return (theta * X.to(theta.dtype)).sum(dim=-1)
 
 
@@ -218,6 +254,7 @@ class ServeHandle:
         self.p = int(p)
         self._store = store
         self._engine = None
+        self._reads = None  # the handle's GroupCollective over a per-rank engine's ranks
         self._lock = threading.Lock()
         self._counters = serve_counters_init()
         self._streams: dict = {}  # device -> the stream predict reads on
@@ -228,18 +265,19 @@ class ServeHandle:
     # -- publication -------------------------------------------------------
     @classmethod
     def for_engine(cls, engine, spec: ServeSpec | None = None) -> "ServeHandle":
-        """A handle bound to a live engine, ready for ``run(serve=...)``
-        (not an engine one shard a rank: ROADMAP A9c).
+        """A handle bound to a live engine, ready for ``run(serve=...)``.
+
+        Over an engine one shard a rank every rank calls this (it makes the
+        handle's own process group over the engine's ranks with
+        ``dist.new_group``, which every process of the default group
+        calls) and then every read, with the same ids (see the module
+        docstring).
 
         When the engine carries an arrival scenario with an explicit
         attachment map and the spec names no neighbours, the arrival map
         becomes the cold-start default: pending arrivals are then served
         with exactly the neighbours they will warm-start from at admission.
         """
-        if getattr(engine, "rank", None) is not None:
-            raise NotImplementedError(
-                "serving a sharded engine one shard a rank is ROADMAP item A9c; serve the "
-                "stacked engine (no group) or a checkpoint entry of the ranks")
         spec = ServeSpec.coerce(spec)
         arrival = getattr(getattr(engine, "scenario", None), "arrival", None)
         if spec.neighbors is None and arrival is not None and arrival.attach:
@@ -247,6 +285,12 @@ class ServeHandle:
                 spec, neighbors={int(k): tuple(v) for k, v in arrival.attach.items()})
         handle = cls(SnapshotStore(spec.buffers), spec, n=engine.n, p=engine.p)
         handle._engine = engine
+        if getattr(engine, "rank", None) is not None:
+            import torch.distributed as dist
+
+            group = dist.new_group(ranks=dist.get_process_group_ranks(engine.group),
+                                   backend=dist.get_backend(engine.group))
+            handle._reads = GroupCollective(group)
         return handle
 
     def publish(self, state, version: int | None = None) -> None:
@@ -320,8 +364,10 @@ class ServeHandle:
     # -- the read path -----------------------------------------------------
     def snapshot(self) -> ThetaSnapshot:
         """Pin the newest ready version for a multi-call consistent read
-        (pass it back via ``predict(..., at=snap)``)."""
-        return self._store.latest_ready
+        (pass it back via ``predict(..., at=snap)``; over a per-rank engine
+        a collective: this rank's snapshot of the newest version every rank
+        holds)."""
+        return self._choose(None)[1]
 
     @property
     def version(self) -> int:
@@ -392,8 +438,44 @@ class ServeHandle:
     def _choose(self, at):
         """The newest published version at the request's start and the
         snapshot that serves it (the newest ready one, or the pinned ``at``)."""
+        if self._reads is not None:
+            return self._choose_across(at)
         latest, ready = self._store.read()
         return latest, (ready if at is None else at)
+
+    def _choose_across(self, at):
+        """:meth:`_choose` over a per-rank engine, a collective on the
+        handle's group: the newest version every rank has published (or
+        the pinned ``at``, the same version on every rank), whose copy the
+        read waits for on the reader's stream where it is still running,
+        and the newest every rank has published. One MIN all-reduce of
+        (version, -version, latest), -1 where a rank has published
+        nothing; a second of a found flag where the ranks' newest versions
+        differ. A read that cannot be served raises on every rank."""
+        reads, store = self._reads, self._store
+        newest = store._latest
+        snap = newest if at is None else at
+        mine = [-1, 1, -1] if snap is None or newest is None else \
+            [snap.version, -snap.version, newest.version]
+        device = self._engine.device  # the member's card on an NCCL group
+        lo, neg_hi, latest = (int(v) for v in reads.all_reduce(
+            torch.tensor(mine, dtype=torch.int64, device=device), "min"))
+        hi = -neg_hi
+        if lo < 0 or latest < 0:
+            raise RuntimeError(f"a rank of the handle's group has {_unpublished()}")
+        if at is not None and lo != hi:
+            raise RuntimeError(f"the pinned snapshots differ across the ranks (versions {lo} "
+                               f"to {hi}); pin them with snapshot(), which every rank calls")
+        if lo == hi:
+            return latest, snap
+        snap = store.at_version(lo)
+        held = reads.all_reduce(torch.tensor([snap is not None], dtype=torch.int64,
+                                             device=device), "min")
+        if not int(held[0]):
+            raise RuntimeError(
+                f"version {lo}, the newest every rank holds, is no longer in the ring of "
+                f"{len(store._ring)} snapshots of a rank; raise ServeSpec.buffers")
+        return latest, snap
 
     def _reader_stream(self, device):
         with self._lock:
@@ -409,13 +491,17 @@ class ServeHandle:
         event), and the tiles are marked as used there so the allocator
         keeps them until the read is done."""
         tiles = snap.tiles
+        reads = self._reads
 
         def compute():
             sids, lids, w = (torch.from_numpy(a).to(tiles.device) for a in plan)
-            if X is None:
-                out = _gather_rows(tiles, sids, lids, w)
-            else:
-                out = _score_rows(tiles, sids, lids, w, torch.from_numpy(X).to(tiles.device))
+            if reads is None:
+                rows = _take_rows(tiles, sids, lids, w.dtype)
+            else:  # this rank's rows of the plan, the others' summed in
+                rows = reads.all_reduce(_take_rows(tiles, sids, lids, w.dtype, reads.rank))
+            out = _combine(rows, w)
+            if X is not None:
+                out = _score(out, torch.from_numpy(X).to(tiles.device))
             return out.to("cpu").numpy()
 
         if not tiles.is_cuda:

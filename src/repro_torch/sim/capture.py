@@ -64,7 +64,9 @@ on a clone of the state it is first given and kept out of the chunk's
 graphs, with the clone's own generator registered; ``load`` copies a
 state (its generator's seed and offset included) into the clone. A
 prefix never touches the state it was given or that state's generator.
-On the CPU a prefix runs eagerly on the clone.
+On the CPU, and on a rank of a sharded engine whose gloo group stages
+the exchange through the host (``capture_mode``), a prefix runs eagerly
+on the clone.
 
 A capture that fails raises; nothing carries on eagerly.
 """
@@ -274,7 +276,7 @@ class PhaseProgram:
         scratch = eng._phase_scratch
         if scratch is None:
             eng._phase_scratch = scratch = clone_state(state)
-        if eng.device.type == "cuda" and self.graph is None:
+        if self.graph is None and _captures(eng):
             self._capture(scratch)
         load_state(state, scratch)
 
@@ -310,6 +312,13 @@ class PhaseProgram:
             ) from e
 
 
+def _captures(engine) -> bool:
+    """Whether ``engine``'s slots are captured: on a CUDA device, unless
+    its ``capture_mode`` says eager (a rank of a gloo group)."""
+    return engine.device.type == "cuda" and \
+        getattr(engine, "capture_mode", "captured") == "captured"
+
+
 def phase_program(engine, upto) -> PhaseProgram:
     """The engine's cached :class:`PhaseProgram` for ``upto`` (None: the
     full slot); an unknown phase raises the reference's ``ValueError``."""
@@ -318,3 +327,44 @@ def phase_program(engine, upto) -> PhaseProgram:
     if upto not in engine._phase_cache:
         engine._phase_cache[upto] = PhaseProgram(engine, upto)
     return engine._phase_cache[upto]
+
+
+def prefix_shards(engine, upto: str | None, out) -> list:
+    """A sharded engine's phase prefix output as ``(tensor, per_shard)``
+    pairs, for comparisons: a per-shard tensor has a leading axis over
+    the L shards this process holds (flat (L * B, ...) rows, the slab's
+    owned and halo parts and a p2p buffer's offset segments cut so), and
+    one that is not is the all-gather's pool, which every shard holds
+    whole. So a rank's prefix compares leaf by leaf with the stacked
+    engine's: its per-shard leaves with the stacked leaves' row
+    ``rank``, its pool with the whole pool."""
+    L, R = engine.local_shards, engine.rows_per_shard
+    smix = engine.smix
+
+    def cut(t):  # flat (L * X, ...) rows -> (L, X, ...)
+        return t.reshape((L, -1) + tuple(t.shape[1:]))
+
+    def segments(t):  # a p2p buffer: offset by offset, (L * P_d, ...) each
+        sizes = [L * int(dst.shape[1]) for dst in smix.p2p_dst]
+        if not sizes:
+            return t.reshape((L, 0) + tuple(t.shape[1:]))
+        return torch.cat([cut(x) for x in torch.split(t, sizes)], dim=1)
+
+    if upto in ("halo_publish", "halo_collective"):
+        live = [t for t in out if t is not None]
+        if smix.method == "p2p":
+            return [(segments(t), True) for t in live]
+        if upto == "halo_publish":
+            return [(t, True) for t in live]
+        # the pool, (S, Bmax, ...) in either form
+        return [(t.reshape((engine.num_shards, -1) + tuple(t.shape[-1:])), False) for t in live]
+    if upto == "halo_scatter":
+        return [(out[: L * R].view(L, R, -1), True),
+                (out[L * R:].view(L, smix.halo_width, -1), True)]
+    if upto in (None, "finalize"):
+        leaves = [out.Theta, out.active, out.applied, out.dropped, out.messages, out.ptr]
+        leaves += [t for t in (out.ef, out.ustate) if isinstance(t, torch.Tensor)]
+        return [(t, True) for t in leaves]
+    flat = L * engine.batch_size  # the woken rows' leaves, (L * B, ...)
+    outs = out if isinstance(out, tuple) else (out,)
+    return [(cut(t) if t.dim() and t.shape[0] == flat != L else t, True) for t in outs]

@@ -1120,8 +1120,24 @@ class ShardedAsyncEngine:
     :meth:`global_theta` all-gathers the owned blocks. Chunks are captured
     where the group's collective can be (NCCL); on a gloo group the
     exchange is staged through the host and every slot runs eagerly
-    (``capture_mode`` says which). Dynamic topology, serving and the
-    phase programs across ranks are ROADMAP item A9c.
+    (``capture_mode`` says which).
+
+    Dynamic topology one shard a rank keeps one graph on every rank: the
+    live CSR, the pending arrivals, the topology log and the partition
+    are host state, the same on every rank to the bit. A refresh runs
+    :meth:`GraphUpdate.refresh` on rank 0 alone, on the all-gathered
+    models, and broadcasts the new CSR over the group, so no host's
+    thread count can split the graph; an admission's attach edges come
+    from the same numpy stream on every rank. Every rank then patches or
+    cuts the partition itself (deterministic given the graph). A
+    repartition gathers the per-agent leaves (models, churn flags, the
+    update state) across the ranks and keeps this rank's row of the new
+    layout; an admission writes only the warm rows, flags and churn
+    rejoin probabilities of the agents this rank holds. Every rank calls
+    these methods (and :meth:`set_topology` with the same graph) at the
+    same slots, as ``run`` does. The phase programs run the per-rank
+    slot cut after a phase (on every rank: the halo exchange is a
+    collective), eagerly on a gloo group, captured on an NCCL one.
     """
 
     def __init__(self, update: LocalUpdate, *, num_shards: int, config: EngineConfig | None = None,
@@ -1188,11 +1204,6 @@ class ShardedAsyncEngine:
                 raise ValueError(
                     f"a sharded engine of {self.num_shards} shards one a rank needs a group "
                     f"of that many ranks; this group has {size}")
-            if self.dynamic:
-                raise NotImplementedError(
-                    "dynamic topology across ranks (set_topology, admit, a repartition "
-                    "moving rows between ranks) is ROADMAP item A9c; stack the shards "
-                    "on one device (no group) for a dynamic run")
             self.rank = dist.get_rank(group)
             self.smix = self.smix.for_rank(self.rank, GroupCollective(group))
         # The shards this process holds: all S stacked, or its rank's.
@@ -1631,7 +1642,6 @@ class ShardedAsyncEngine:
         rebuild changed their shapes. The captured graphs are dropped
         (:meth:`_rebuild_static`).
         """
-        self._stacked_only("set_topology")
         if not self.dynamic:
             raise ValueError(
                 "static-topology engine; construct with "
@@ -1662,15 +1672,17 @@ class ShardedAsyncEngine:
         self.topology_log["edges_added"] += added
         self.topology_log["edges_removed"] += removed
 
-        S, p = self.num_shards, self.p
-        owned = state.slab[: S * self.rows_per_shard]
+        L, p = self.local_shards, self.p
+        owned = state.slab[: L * self.rows_per_shard]
         ustate = state.ustate
         if relayout:
-            # Ownership changed: every per-agent leaf through agent order.
-            at = self._agent_rows
-            owned, active = owned[at], state.active.reshape(-1)[at]
+            # Ownership changed: every per-agent leaf through agent order,
+            # all S blocks gathered (on a rank: from every rank).
+            at, every = self._agent_rows, self.shards_of
+            owned = every(state.Theta).reshape(-1, p)[at]
+            active = every(state.active).reshape(-1)[at]
             if isinstance(ustate, torch.Tensor):
-                ustate = ustate.reshape((-1,) + tuple(ustate.shape[2:]))[at]
+                ustate = every(ustate).reshape((-1,) + tuple(ustate.shape[2:]))[at]
         self.part = new_part
         self.smix = self.smix.rebound(new_part)
         self.exchange_method = self.smix.method
@@ -1693,30 +1705,46 @@ class ShardedAsyncEngine:
         if same_structure:
             return state._replace(ef=ef, metrics=metrics)
         if relayout:
-            owned, active = self._to_layout(owned), self._to_layout(active).view(S, R)
+            owned, active = self._to_layout(owned), self._to_layout(active).view(L, R)
             if isinstance(ustate, torch.Tensor):
-                ustate = self._to_layout(ustate).view((S, R) + tuple(ustate.shape[1:]))
+                ustate = self._to_layout(ustate).view((L, R) + tuple(ustate.shape[1:]))
         else:
             active = state.active
         slab = torch.zeros((self.smix.slab_rows, p), dtype=self.dtype, device=self.device)
-        slab[: S * R] = owned
-        return state._replace(Theta=slab[: S * R].view(S, R, p), active=active, ustate=ustate,
+        slab[: L * R] = owned
+        return state._replace(Theta=slab[: L * R].view(L, R, p), active=active, ustate=ustate,
                               slab=slab, ef=ef, metrics=metrics)
 
-    def _stacked_only(self, what: str) -> None:
-        if self.rank is not None:
-            raise NotImplementedError(
-                f"{what} on a sharded engine one shard a rank is ROADMAP item A9c; "
-                "stack the shards on one device (no group)")
+    def _held(self, ids):
+        """The agents of ``ids`` this process holds: their positions in
+        ``ids`` and their rows of its (L * R) owned rows, as device indices
+        (stacked: all of them)."""
+        ids = np.asarray(ids, dtype=np.int64)
+        shard = self.part.shard_of[ids].astype(np.int64)
+        local = self.part.local_of[ids].astype(np.int64)
+        if self.rank is None:
+            pos, rows = np.arange(ids.size), shard * self.rows_per_shard + local
+        else:
+            pos = np.flatnonzero(shard == self.rank)
+            rows = local[pos]
+        return (torch.as_tensor(pos, device=self.device),
+                torch.as_tensor(rows, device=self.device))
 
     def _refresh_topology(self, state: ShardedSimState, round_index: int) -> ShardedSimState:
-        """Fire one Dada edge-refresh round against the current models."""
-        self._stacked_only("_refresh_topology")
+        """Fire one Dada edge-refresh round against the current models (on
+        a rank: rank 0 refreshes on the gathered models and broadcasts the
+        graph, which every rank then swaps in)."""
         gu = self.config.graph_update
         if gu is None:
             raise ValueError("no graph_update configured")
-        new_csr = gu.refresh(self._csr, self._agent_theta(state), round_index=round_index,
-                             allowed=_allowed(self.n, self._pending))
+        theta = self._agent_theta(state)  # a collective on a rank
+        new_csr = None
+        if self.rank in (None, 0):
+            new_csr = gu.refresh(self._csr, theta, round_index=round_index,
+                                 allowed=_allowed(self.n, self._pending))
+        del theta
+        if self.rank is not None:
+            new_csr = self.smix.collective.broadcast_object(new_csr)
         state = self.set_topology(state, new_csr)
         self.topology_log["edge_refreshes"] += 1
         return state
@@ -1726,8 +1754,8 @@ class ShardedAsyncEngine:
         counterpart: attach, warm start, activate). The attach edges go
         through :meth:`set_topology`, so an admission can itself patch or
         repartition; the warm-started rows and flags are then written in
-        place into whatever layout results."""
-        self._stacked_only("admit")
+        place into whatever layout results (on a rank: those of the agents
+        it holds)."""
         arrival = self.scenario.arrival
         if arrival is None:
             raise ValueError("no arrival scenario configured")
@@ -1736,20 +1764,21 @@ class ShardedAsyncEngine:
         if missing:
             raise ValueError(f"agents {missing} are not pending arrivals")
         rng = np.random.default_rng((arrival.seed, self._ptr_of(state)))
-        active_g = state.active.reshape(-1)[self._agent_rows].to("cpu").numpy()
+        active_g = self.shards_of(state.active).reshape(-1)[self._agent_rows].to("cpu").numpy()
         rows, cols, vals = _arrival_edges(arrival, ids, np.flatnonzero(active_g), rng)
         state = self.set_topology(state, _attach_edges(self._csr, rows, cols, vals))
-        at = self._agent_rows[torch.as_tensor(ids, dtype=torch.long, device=self.device)]
+        pos, at = self._held(ids)
         if arrival.warm_start:
             warm = _warm_start_rows(self._csr, self._agent_theta(state), ids,
                                     arrival.warm_rounds)
-            state.slab.index_copy_(0, at, torch.as_tensor(warm).to(self.device, self.dtype))
+            warm = torch.as_tensor(warm).to(self.device, self.dtype)[pos]
+            state.slab.index_copy_(0, at, warm)
         state.active.view(-1).index_fill_(0, at, True)
         self._pending -= set(ids)
         if self._rejoin is not None:
             # Admitted agents regain their churn rejoin probability.
-            self._rejoin.view(-1).index_copy_(0, at, torch.as_tensor(
-                self._rejoin_v[list(ids)], dtype=torch.float32).to(self.device))
+            rejoin = torch.as_tensor(self._rejoin_v[list(ids)], dtype=torch.float32)
+            self._rejoin.view(-1).index_copy_(0, at, rejoin.to(self.device)[pos])
         self.topology_log["arrivals"] += len(ids)
         return state
 
@@ -1767,8 +1796,10 @@ class ShardedAsyncEngine:
         """The sampled stacked slot cut after phase ``upto`` (None = full),
         on a scratch copy of the state; same contract as
         :meth:`AsyncEngine.phase_program`. The halo's publish, collective
-        and scatter are the three steps of ``ShardedMixOp.exchange_halo``."""
-        self._stacked_only("phase_program")
+        and scatter are the three steps of ``ShardedMixOp.exchange_halo``.
+        On a rank the prefix is the per-rank slot's (every rank runs the
+        same prefixes: the exchange is a collective), eager on a gloo group
+        (``capture_mode``), captured on an NCCL one."""
         return phase_program(self, upto)
 
     def metrics_snapshot(self, state: ShardedSimState) -> tuple:

@@ -36,6 +36,12 @@
   flops on (4, 2); the formerly refused combinations' reduced
   counterparts (granite-moe decode and long-context decode on (2, 2, 2),
   grok decode on both meshes) trace.
+* C12, the silo layout's training count: the reduced grok-1-314b
+  train_4k row on (4, 2), one agent on ("data", "model"), within 5% of
+  the reference's per-device flops, with and without the
+  sequence-parallel residual (a subprocess pair of its own, started
+  beside the others': the MoE groups dispatched on the rank that holds
+  their tokens, not on every rank).
 * The serve layout computes what the plain model computes: four gloo
   processes on a (2, 2) mesh (the cache split on its KV heads) and on a
   (1, 4) mesh (split on its positions) prefill and decode the reduced
@@ -225,6 +231,40 @@ REF_SCRIPT = textwrap.dedent(f"""
 """)
 
 
+SILO_PORT = textwrap.dedent(f"""
+    import json, torch
+    torch.set_num_threads(1)
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch import dryrun
+    rows = {{}}
+    for seq_parallel in (False, True):
+        r = dryrun.run_one("grok-1-314b", "train_4k", cfg=get_reduced("grok-1-314b", dtype="bfloat16"),
+                           mesh_shape=(4, 2), global_batch={BATCH}, seq_len={SEQ}, verbose=False,
+                           seq_parallel=seq_parallel)
+        rows[str(seq_parallel)] = r["flops_per_device"]
+    print("ROWS " + json.dumps(rows))
+""")
+
+SILO_REF = textwrap.dedent(f"""
+    import os
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+    import dataclasses, json
+    import jax, numpy as np
+    from jax.sharding import Mesh
+    import repro.configs as rc
+    import repro.launch.dryrun as d
+    d.make_production_mesh = lambda multi_pod=False: Mesh(
+        np.array(jax.devices()[:8]).reshape(4, 2), ("data", "model"))
+    d.get_config = lambda arch: rc.get_reduced(arch, dtype="bfloat16")
+    d.SHAPES = {{k: dataclasses.replace(v, global_batch={BATCH}, seq_len={SEQ})
+                for k, v in d.SHAPES.items()}}
+    rows = {{str(sp): d.run_one("grok-1-314b", "train_4k", False, verbose=False,
+                               seq_parallel=sp)["flops_per_device"] for sp in (False, True)}}
+    print("ROWS " + json.dumps(rows))
+""")
+_SILO: dict = {}  # the silo pair, started beside both_all's
+
+
 def _start(script, **env):
     env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1", **env)
     env.pop("CUDA_VISIBLE_DEVICES", None)
@@ -244,7 +284,15 @@ def both_all():
     """(port, reference) results, the two subprocesses run side by side."""
     port = _start(PORT_SCRIPT)
     ref = _start(REF_SCRIPT, JAX_PLATFORMS="cpu")
+    _SILO.update(port=_start(SILO_PORT), ref=_start(SILO_REF, JAX_PLATFORMS="cpu"))
     return _rows(port), _rows(ref)
+
+
+@pytest.fixture(scope="module")
+def silo_train(both_all):
+    """(port, reference) per-device flops of the reduced grok-1-314b
+    train_4k row on (4, 2), by ``seq_parallel`` ("False", "True")."""
+    return _rows(_SILO["port"]), _rows(_SILO["ref"])
 
 
 @pytest.fixture(scope="module")
@@ -420,3 +468,21 @@ def test_serve_layout_computes_the_plain_model(tmp_path):
         rep = json.loads((tmp_path / f"rank{r}.json").read_text())
         assert rep["2x2"]["err"] <= 1e-5 and rep["1x4"]["err"] <= 1e-5, rep
         assert rep["1x4"]["seq_split"] and not rep["2x2"]["seq_split"], rep
+
+
+def test_silo_training_row_counts_the_reference_program(silo_train):
+    """C12: the reduced grok-1-314b train_4k row on (4, 2), one agent on
+    ("data", "model"), within 5% of the reference's per-device flops (it
+    counted 1.42x while every rank dispatched every token group)."""
+    port, ref = (rows["False"] for rows in silo_train)
+    assert ref > 0 and abs(port / ref - 1) <= 0.05, port / ref
+
+
+def test_sequence_parallel_silo_row_counts_the_reference_program(silo_train):
+    """The same row with the sequence-parallel residual (the hill-climb's
+    seqpar variants): within 5% of the reference's per-device flops. The
+    residual keeps its batch split over "data" beside its sequence split
+    over "model" (it counted 1.41x while the batch was gathered there, and
+    every rank dispatched every token group)."""
+    port, ref = (rows["True"] for rows in silo_train)
+    assert ref > 0 and abs(port / ref - 1) <= 0.05, port / ref

@@ -257,14 +257,18 @@ def test_group_collective_over_gloo_is_the_stacked_pool_and_roll(tmp_path):
 def _refusals(rank, world):
     from torch.distributed.device_mesh import init_device_mesh
 
-    from repro_torch.sim import CDUpdate, EngineConfig, GraphUpdate, make_engine
+    from repro_torch.sim import (CDUpdate, DelayConfig, EngineConfig, GraphUpdate, Scenario,
+                                 make_engine)
 
     obj = quad(24)
     out = {}
     for name, call in {
         "size": lambda: make_engine(CDUpdate(obj), shards=world + 1, device="cpu"),
-        "dynamic": lambda: make_engine(CDUpdate(obj), shards=world, device="cpu",
-                                       graph_update=GraphUpdate(every=2)),
+        "delay": lambda: make_engine(CDUpdate(obj), shards=world, device="cpu",
+                                     scenario=Scenario(delay=DelayConfig(max_delay=2))),
+        "fused_dynamic": lambda: make_engine(CDUpdate(obj), shards=world, device="cpu",
+                                             dtype=torch.float32, fused=True,
+                                             graph_update=GraphUpdate(every=2)),
         "mesh_name": lambda: EngineConfig(device="cpu", devices=init_device_mesh(
             "cpu", (world,), mesh_dim_names=("agents",))),
     }.items():
@@ -276,24 +280,21 @@ def _refusals(rank, world):
     mesh = init_device_mesh("cpu", (world,), mesh_dim_names=("shards",))
     eng = make_engine(CDUpdate(obj), EngineConfig(device="cpu", devices=mesh), shards=world)
     out["mesh_rank"] = eng.rank
-    from repro_torch.serve import ServeHandle
-
-    for name, call in (("phase_program", eng.phase_program),
-                       ("serve", lambda: ServeHandle.for_engine(eng))):
-        try:
-            call()
-            out[name] = "no error"
-        except NotImplementedError as e:
-            out[name] = str(e)
+    dyn = make_engine(CDUpdate(obj), shards=world, device="cpu", graph_update=GraphUpdate(every=2))
+    out["dynamic_rank"] = dyn.rank
     return out
 
 
 def test_rank_engine_refusals(tmp_path):
-    """A group of another size, dynamic topology across ranks, a mesh not
-    named "shards", the per-rank phase programs and serving raise, naming
-    why; a "shards" mesh hands each rank its shard."""
+    """What still refuses one shard a rank: a group of another size,
+    per-edge delays, ``fused=True`` on a dynamic run (each as the stacked
+    engine refuses it) and a mesh not named "shards", each naming why; a
+    "shards" mesh hands each rank its shard, and a dynamic engine builds
+    on the ranks."""
     for rank, r in enumerate(spawn(_refusals, 2, tmp_path)):
         assert r["size"].startswith("ValueError") and "that many ranks" in r["size"]
-        assert r["dynamic"].startswith("NotImplementedError") and "A9c" in r["dynamic"]
+        assert r["delay"].startswith("NotImplementedError") and "delays" in r["delay"]
+        assert r["fused_dynamic"].startswith("ValueError") and "static-topology" in \
+            r["fused_dynamic"]
         assert r["mesh_name"].startswith("ValueError") and "'shards'" in r["mesh_name"]
-        assert "A9c" in r["phase_program"] and "A9c" in r["serve"] and r["mesh_rank"] == rank
+        assert r["mesh_rank"] == rank and r["dynamic_rank"] == rank
