@@ -141,7 +141,12 @@ Phases, one line each (any failure ends the run with a non-zero code):
    timed prefills, each of which must launch ``ssm_chunk`` once per layer,
    38 times; one more traced with torch.profiler: device time by block
    and kernel kind, device idle share), then 64 greedy ``bundle.decode``
-   steps (2 more traced: device time and idle share per step); and two
+   steps (2 more traced: device time and idle share per step), in turns
+   with 64 steps of the captured decode (``models.DecodeGraph``) from a
+   copy of the same cache (:func:`decode_turns`: every step's logits and
+   the final caches equal bit for bit, one capture for every position, no
+   kernel launch of ours; captured ms a step beside eager, the capture's
+   seconds, the recurrent states' copy, 2 replays traced); and two
    correctness gates on a float32 instance of the same
    config: the prefill of 2 x 256 tokens against the same tokens fed one
    at a time through decode, and the prefill through the kernel against
@@ -226,7 +231,8 @@ Phases, one line each (any failure ends the run with a non-zero code):
    tokens through ``bundle.prefill`` into caches of 2048 + 64 positions (a
    warm-up, 3 timed, one traced: device ms by block, "attention" and
    "ffn", and by kind, the idle share), then 64 greedy decode steps
-   continuing the caches (2 more traced); (b) its P2P-DP training round at
+   continuing the caches (2 more traced) in turns with the captured decode
+   (phase 6's :func:`decode_turns`); (b) its P2P-DP training round at
    full width and depth with phase 9's traffic and gates (4 agents, 2 x
    2049 tokens each, ring of rolls, alpha 0.9, mu 0.5, remat, DP noise of
    eps_bar 1 over 4 rounds, m_i = 4096; the noise read from the warm-up
@@ -254,7 +260,8 @@ Phases, one line each (any failure ends the run with a non-zero code):
    for bit), the aten operations of one sLSTM step and of one decode
    step, one prefill cut to 4 x 512 tokens traced (device ms in "mlstm"
    and "slstm" by kind, the idle share), then 64 greedy decode steps from
-   ``init_cache`` timed one by one (2 more traced); (b) its P2P-DP
+   ``init_cache`` timed one by one (2 more traced) in turns with the
+   captured decode (phase 6's :func:`decode_turns`); (b) its P2P-DP
    training round at full width and depth with phase 9's gates, 2 agents
    (4 do not fit the card), 2 x 257 tokens each (two mLSTM chunks after
    the shift), m_i = 512, a traced round's device ms by range and block,
@@ -981,21 +988,87 @@ def timed_calls(fn, n: int):
     return out, times
 
 
-def greedy_decode(bundle, model, token, caches, positions):
-    """Greedy decode steps from ``token`` (B, 1) at ``positions``, each
-    timed alone (host clock around a synchronized step): the last step's
-    logits and each step's milliseconds."""
+def decode_turns(label, tag, bundle, model, token, caches, positions, trace_dir: Path):
+    """Greedy decode steps at ``positions`` from ``token`` (B, 1), eager
+    (``bundle.decode``) and captured (``models.DecodeGraph``) in turns,
+    each leg on its own copy of ``caches`` with its own greedy tokens,
+    every step timed alone (host clock around a synchronized step). The
+    captured leg's first step is its warm-up and capture, timed apart
+    (``capture_s``); the rest are replays. Gates: every step's logits and
+    the final caches equal bit for bit (``torch.equal``), one capture for
+    every position, no kernel launch of ours. Then the bytes and device ms
+    of the recurrent states' copies into the graph's buffers (the step
+    returns new states: CUDA events, the median of 5 runs of 5), and
+    ``DECODE_TRACED`` replays at the last positions traced (device ms and
+    idle share a step). Returns the eager leg's last logits, its step ms
+    and the captured leg's report."""
     import torch
 
-    step_ms = []
+    from repro_torch.kernels import ops
+    from repro_torch.models import DecodeGraph
+    from repro_torch.utils.tree import tree_leaves
+
+    before = ops.launch_counts()
+    eager = _clone_tree(caches)
+    graph = DecodeGraph(bundle, model, caches)
+    tok_e = tok_c = token
+    eager_ms, captured_ms, unequal = [], [], []
     for pos in positions:
+        given = eager
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        logits, caches = bundle.decode(model, token, caches, pos)
-        token = logits[:, -1].argmax(dim=-1, keepdim=True)
+        logits, eager = bundle.decode(model, tok_e, eager, pos)
+        tok_e = logits[:, -1].argmax(dim=-1, keepdim=True)
         torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-    return logits, step_ms
+        t1 = time.perf_counter()
+        got, _ = graph(tok_c, pos)
+        tok_c = got[:, -1].argmax(dim=-1, keepdim=True)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        eager_ms.append((t1 - t0) * 1e3)
+        if pos != positions[0]:  # the first is the warm-up and capture
+            captured_ms.append((t2 - t1) * 1e3)
+        if not torch.equal(logits, got):
+            unequal.append(pos)
+    caches_equal = all(torch.equal(a, b)
+                       for a, b in zip(tree_leaves(eager), tree_leaves(graph.caches), strict=True))
+    launched = {k: v - before[k] for k, v in ops.launch_counts().items() if v != before[k]}
+    n = len(positions)
+    out = dict(steps=n, captures=graph.captures, capture_s=graph.capture_s,
+               captured_equals_eager=not unequal and caches_equal,
+               **rates("captured_ms_per_step", "captured_tokens_per_s", captured_ms,
+                       token.shape[0]))
+    out["eager_over_captured"] = statistics.median(eager_ms) / out["captured_ms_per_step"]
+    moved = [a for a, b in zip(tree_leaves(eager), tree_leaves(given), strict=True) if a is not b]
+    out["state_copy_bytes"] = 2 * sum(t.numel() * t.element_size() for t in moved)
+    if moved:
+        dst = [torch.empty_like(t) for t in moved]
+
+        def copy_states():
+            for src, d in zip(moved, dst):
+                d.copy_(src)
+
+        out["state_copy_ms"] = time_ms(copy_states, calls=5, runs=5)
+        del dst
+    log(f"[{tag}] {label} decode {token.shape[0]} x {n} greedy steps, eager and captured in "
+        f"turns: eager {fmt(spread(eager_ms))} ms/step; captured {fmt(out)}")
+    if unequal or not caches_equal:
+        raise SystemExit(f"{label} decode: the captured step differs from the eager one at "
+                         f"positions {unequal}; final caches equal: {caches_equal}")
+    if graph.captures != 1:
+        raise SystemExit(f"{label} decode: {graph.captures} captures for {n} positions, not 1")
+    if launched:
+        raise SystemExit(f"{label} decode launched kernels of ours: {launched}")
+
+    def traced_steps():
+        for pos in positions[-DECODE_TRACED:]:
+            graph(tok_c, pos)
+
+    events, wall_ms = traced(traced_steps, trace_dir / f"trace_{label}_captured_decode.json")
+    out["trace"] = report_trace(f"{label} captured decode", events, wall_ms, DECODE_TRACED,
+                                "step", out["captured_ms_per_step"])
+    del graph, eager, given
+    return logits, eager_ms, out
 
 
 # The kernel each path of phase 4 must launch in every window (dp_clip_noise
@@ -2128,7 +2201,8 @@ def zamba2_serve(dev, launches: dict) -> dict:
     and read just after: each must launch ``ssm_chunk`` once per layer.
     One more prefill is traced. Decode: ``decode_steps`` greedy steps from
     the prefill's argmax tokens on a fresh cache, each step timed (after a
-    2-step warm-up on its own cache). Then the float32 gates (see
+    2-step warm-up on its own cache), in turns with the captured decode
+    (:func:`decode_turns`). Then the float32 gates (see
     :func:`zamba2_gates`). Fails on a count, shape, non-finite value or gate."""
     import torch
 
@@ -2198,8 +2272,9 @@ def zamba2_serve(dev, launches: dict) -> dict:
                         device_ops_per_step=len(dev_events) / DECODE_TRACED)
     del warm
     steps = z["decode_steps"]
-    step_logits, step_ms = greedy_decode(bundle, model, first,
-                                         bundle.init_cache(model, B, steps + 1), range(steps))
+    step_logits, step_ms, out["captured_decode"] = decode_turns(
+        "zamba2", "6", bundle, model, first, bundle.init_cache(model, B, steps + 1), range(steps),
+        _build.build_dir() / "traces")
     if not bool(torch.isfinite(step_logits).all()):
         raise SystemExit("zamba2 decode: logits not finite")
     out.update(decode_steps=steps, **rates("decode_ms_per_step", "decode_tokens_per_s", step_ms, B))
@@ -3555,7 +3630,8 @@ def family_serve(spec: dict, dev) -> dict:
     kernel kind; the device idle share). Then 2 warm-up and
     ``DECODE_TRACED`` traced greedy decode steps on the warm-up prefill's
     caches, and ``decode_steps`` timed greedy steps continuing the last
-    timed prefill's caches. An MoE model also reports the share of its
+    timed prefill's caches, in turns with the captured decode
+    (:func:`decode_turns`). An MoE model also reports the share of its
     (token, choice) pairs that capacity kept, in one more prefill and in
     8 decode steps (:class:`_RoutingProbe`). Fails on a shape, a
     non-finite value or a decode past the cache."""
@@ -3619,7 +3695,9 @@ def family_serve(spec: dict, dev) -> dict:
         for pos in range(S + 2, S + 2 + DECODE_TRACED):
             bundle.decode(model, first, warm_caches, pos)
 
-    step_logits, step_ms = greedy_decode(bundle, model, first, caches, range(S, S + steps))
+    step_logits, step_ms, out["captured_decode"] = decode_turns(
+        label, "10", bundle, model, first, caches, range(S, S + steps),
+        _build.build_dir() / "traces")
     if step_logits.shape != (B, 1, cfg.padded_vocab) or not bool(torch.isfinite(step_logits).all()):
         raise SystemExit(f"{label} decode: logits {tuple(step_logits.shape)} or not finite")
     out.update(decode_steps=steps, **rates("decode_ms_per_step", "decode_tokens_per_s", step_ms, B))
@@ -3813,7 +3891,8 @@ def xlstm_serve(dev, card: str) -> dict:
     block, "mlstm" and "slstm", and kind; the idle share). Then greedy
     decode steps from ``init_cache`` (the reference's recurrent serving):
     2 warm-up and ``DECODE_TRACED`` traced on a cache of their own, then
-    ``decode_steps`` timed one by one. Fails on a parameter count, a
+    ``decode_steps`` timed one by one, in turns with the captured decode
+    (:func:`decode_turns`). Fails on a parameter count, a
     shape or a non-finite logit."""
     import torch
 
@@ -3908,8 +3987,9 @@ def xlstm_serve(dev, card: str) -> dict:
             _, state = bundle.decode(model, first, state, pos)
 
     steps = z["decode_steps"]
-    step_logits, step_ms = greedy_decode(bundle, model, first, bundle.init_cache(model, B, steps),
-                                         range(steps))
+    step_logits, step_ms, out["captured_decode"] = decode_turns(
+        cfg.name, "11", bundle, model, first, bundle.init_cache(model, B, steps), range(steps),
+        _build.build_dir() / "traces")
     if step_logits.shape != (B, 1, cfg.padded_vocab) or not bool(torch.isfinite(step_logits).all()):
         raise SystemExit(f"{cfg.name} decode: logits {tuple(step_logits.shape)} or not finite")
     out.update(decode_steps=steps, **rates("decode_ms_per_step", "decode_tokens_per_s", step_ms, B))

@@ -179,11 +179,14 @@ def prefill_into_cache(cfg, cache, k, v, seq_len: int):
     return cache
 
 
-def decode_attention(params: Attention, x, cfg, cache, pos: int):
-    """One-token decode. x: (B, 1, d); pos: the absolute position (an int).
+def decode_attention(params: Attention, x, cfg, cache, pos: int | torch.Tensor):
+    """One-token decode. x: (B, 1, d); pos: the absolute position, an int
+    or a 0-d integer tensor on ``x``'s device (one program for every
+    position: :class:`~repro_torch.models.decode_graph.DecodeGraph`).
 
     Writes the token's K (RoPE applied) and V into ``cache`` in place and
-    returns ``(y, cache)``.
+    returns ``(y, cache)``. An int past the end of a full cache raises
+    here; a tensor is never read on the host, so its caller checks it.
     """
     B = x.shape[0]
     hd = cfg.resolved_head_dim
@@ -191,7 +194,11 @@ def decode_attention(params: Attention, x, cfg, cache, pos: int):
     q = _split_heads(dense(params.q, x), H, hd)
     k = _split_heads(dense(params.k, x), KV, hd)
     v = _split_heads(dense(params.v, x), KV, hd)
-    posv = torch.full((1,), pos, dtype=torch.int32, device=x.device)
+    on_device = isinstance(pos, torch.Tensor)
+    if on_device:
+        posv = pos.reshape(1).to(torch.int32)
+    else:
+        posv = torch.full((1,), pos, dtype=torch.int32, device=x.device)
     q = apply_rope(q, posv, cfg.rope_theta)
     k = apply_rope(k, posv, cfg.rope_theta)
     # The cache's layout (compact, or repeated: ``REPEAT_KV_IN_CACHE`` when
@@ -200,7 +207,9 @@ def decode_attention(params: Attention, x, cfg, cache, pos: int):
     k, v = _repeat_kv(k, heads // KV), _repeat_kv(v, heads // KV)
 
     size = cache["k"].shape[1]
-    if cfg.sliding_window:
+    if on_device:  # the slot on the device: a (1,) long index
+        slot = (pos % size if cfg.sliding_window else pos).reshape(1).long()
+    elif cfg.sliding_window:
         slot = pos % size
     elif not 0 <= pos < size:
         raise ValueError(f"pos={pos} is outside the cache of {size} positions")
@@ -208,7 +217,7 @@ def decode_attention(params: Attention, x, cfg, cache, pos: int):
         slot = pos
     set_position(cache["k"], slot, k[:, 0])  # on a mesh: the rank holding the slot
     set_position(cache["v"], slot, v[:, 0])
-    cache["slot_pos"][slot] = pos
+    set_position(cache["slot_pos"], slot, posv[0], dim=0)
 
     kr = _repeat_kv(cache["k"], H // heads)
     vr = _repeat_kv(cache["v"], H // heads)

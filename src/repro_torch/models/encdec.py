@@ -198,7 +198,7 @@ def prefill(params: EncDecLM, embeds, tokens, cfg, max_len=None):
     return unembed(head(params), x), caches
 
 
-def decode_step(params: EncDecLM, token, cfg, caches, pos: int):
+def decode_step(params: EncDecLM, token, cfg, caches, pos: int | torch.Tensor):
     """token (B, 1) at ``pos`` -> (logits (B, 1, vocab), caches); the
     self-attention caches are written in place."""
     x = embed(params.embed, token)

@@ -186,7 +186,7 @@ def init_cache(params: HybridLM, cfg, batch, max_len):
     }
 
 
-def decode_step(params: HybridLM, token, cfg, caches, pos: int):
+def decode_step(params: HybridLM, token, cfg, caches, pos: int | torch.Tensor):
     """token (B, 1) at absolute position ``pos`` -> (logits (B, 1, vocab),
     caches). The Mamba2 states are new tensors; the KV caches are written
     in place."""

@@ -32,6 +32,7 @@ layout.
 from __future__ import annotations
 
 import dataclasses
+import operator
 from typing import Callable
 
 import numpy as np
@@ -49,7 +50,7 @@ class ModelBundle:
     init: Callable  # (seed) -> params (an nn.Module on ``device``)
     loss: Callable  # (params, batch) -> scalar
     prefill: Callable  # (params, batch) -> (last-token logits, caches; hybrid: aux)
-    decode: Callable  # (params, token, caches, pos) -> (logits, caches)
+    decode: Callable  # (params, token, caches, pos: int or 0-d tensor) -> (logits, caches)
     init_cache: Callable  # (params, batch_size, max_len) -> caches
     bind: Callable  # (one agent's parameter tree) -> params over its storage
     device: torch.device
@@ -162,10 +163,21 @@ def build_model(cfg: ModelConfig, remat: bool = True, device="cuda") -> ModelBun
         bind=lambda tree: transformer.bind(cfg, tree), device=dev)
 
 
+_INT_TYPES = (torch.uint8, torch.int8, torch.int16, torch.int32, torch.int64)
+
+
 def _decode(step, cfg, dev):
     @torch.inference_mode()
     def decode(params, token, caches, pos):
-        return step(params, torch.as_tensor(token, device=dev).long(), cfg, caches, int(pos))
+        """``pos``: an int, or a 0-d integer tensor on the bundle's device
+        (the captured decode's), passed on unread."""
+        if isinstance(pos, torch.Tensor):
+            if pos.dim() != 0 or pos.dtype not in _INT_TYPES or pos.device != dev:
+                raise ValueError(f"pos must be an int or a 0-d integer tensor on {dev}, got a "
+                                 f"{pos.dtype} tensor of shape {tuple(pos.shape)} on {pos.device}")
+        else:
+            pos = operator.index(pos)
+        return step(params, torch.as_tensor(token, device=dev).long(), cfg, caches, pos)
 
     return decode
 

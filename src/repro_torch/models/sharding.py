@@ -412,12 +412,21 @@ def embedding(table, tokens):
     return y.redistribute(mesh, [Replicate() if p.is_partial() else p for p in out])
 
 
-def set_position(t, pos: int, value, dim: int = 1):
+def set_position(t, pos, value, dim: int = 1):
     """``t[:, pos] = value`` along ``dim`` (``value`` has ``t``'s shape
-    without ``dim``), in place. On a DTensor split on ``dim`` (a decode
+    without ``dim``), in place. ``pos`` is an int, or a (1,) or 0-d long
+    tensor on ``t``'s device, written through ``index_copy_`` (no host
+    read: a captured decode). On a DTensor split on ``dim`` (a decode
     cache split on its positions) only the rank whose slice holds ``pos``
     writes, into its local shard: DTensor's own ``__setitem__`` there
-    writes nothing."""
+    writes nothing. That needs ``pos`` on the host: the mesh decode takes
+    an int, and a tensor there raises."""
+    if isinstance(pos, torch.Tensor):
+        if isinstance(t, DTensor):
+            raise ValueError("a position tensor on a DTensor cache: the mesh decode is eager "
+                             "and takes its position as an int")
+        t.index_copy_(dim, pos.reshape(1), value.unsqueeze(dim).to(t.dtype))
+        return
     index = (slice(None),) * dim + (pos,)
     if not isinstance(t, DTensor) or not any(p.is_shard(dim) for p in t.placements):
         t[index] = value

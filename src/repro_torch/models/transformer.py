@@ -163,7 +163,7 @@ def prefill(params: TransformerLM, tokens, cfg, max_len=None):
     return unembed(head(params), x), caches
 
 
-def decode_step(params: TransformerLM, token, cfg, caches, pos: int):
+def decode_step(params: TransformerLM, token, cfg, caches, pos: int | torch.Tensor):
     """token (B, 1) at absolute position ``pos`` -> (logits (B, 1, vocab),
     caches), each layer's cache written in place."""
     x = embed(params.embed, token)

@@ -143,7 +143,7 @@ def init_cache(params: XLSTMLM, cfg, batch, max_len):
             "slstm": [xlstm.init_slstm_cache(cfg, batch, dev) for _ in params.slstm]}
 
 
-def decode_step(params: XLSTMLM, token, cfg, caches, pos):
+def decode_step(params: XLSTMLM, token, cfg, caches, pos: int | torch.Tensor):
     """token (B, 1) -> (logits (B, 1, vocab), caches): new states, the
     inputs left as they were. ``pos`` is unused, as in the reference."""
     x = embed(params.embed, token)

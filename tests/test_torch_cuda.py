@@ -1669,3 +1669,50 @@ def test_xlstm_captured_training_equals_eager_bit_for_bit(dev):
 
     for a, b in zip(tree_leaves(g_cap), tree_leaves(g_eager)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "granite-moe-3b-a800m", "chameleon-34b",
+                                  "seamless-m4t-medium", "zamba2-1.2b", "xlstm-1.3b"])
+def test_decode_graph_replays_equal_the_eager_decode_bit_for_bit(dev, arch):
+    """Each route's reduced config in bfloat16: 12 greedy steps through
+    ``DecodeGraph`` (one capture, then a replay a position) and through
+    ``bundle.decode``, each from its own copy of the same caches (an
+    attention family's from a prefill of 8 tokens): every step's logits
+    and the final caches ``torch.equal``; one capture serves every
+    position; the graph's caches are the ones it was given; no kernel of
+    ours launches."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import DecodeGraph
+    from repro_torch.models.encdec import enc_len
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    cfg = get_reduced(arch)
+    bundle = build_model(cfg, device=dev)
+    model = bundle.init(0)
+    B, S, steps = 2, 8, 12
+    gen = torch.Generator(device=dev).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device=dev)
+    if cfg.family in ("hybrid", "ssm"):
+        caches, start = bundle.init_cache(model, B, steps), 0
+        first = tokens[:, :1]
+    else:
+        batch = {"tokens": tokens}
+        if cfg.is_encdec:
+            batch["embeds"] = torch.randn((B, enc_len(S), cfg.d_model), generator=gen,
+                                          device=dev)
+        logits, caches = bundle.prefill(model, batch, max_len=S + steps)
+        first, start = logits[:, -1].argmax(dim=-1, keepdim=True), S
+    eager = tree_map(torch.clone, caches)
+    graph = DecodeGraph(bundle, model, caches)
+    before = ops.launch_counts()
+    tok_e = tok_c = first
+    for pos in range(start, start + steps):
+        want, eager = bundle.decode(model, tok_e, eager, pos)
+        got, out = graph(tok_c, pos)
+        assert torch.equal(got, want), pos
+        assert out is caches
+        tok_e = want[:, -1].argmax(dim=-1, keepdim=True)
+        tok_c = got[:, -1].argmax(dim=-1, keepdim=True)
+    assert graph.captures == 1
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(caches), tree_leaves(eager)))
+    assert ops.launch_counts() == before
