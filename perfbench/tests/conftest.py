@@ -1,0 +1,9 @@
+"""The benchmark's CPU tests: the repository root and ``src`` on the path."""
+
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+for p in (str(ROOT / "src"), str(ROOT)):
+    if p not in sys.path:
+        sys.path.insert(0, p)
