@@ -36,6 +36,8 @@ import os
 import numpy as np
 import torch
 
+from repro_torch.obs.trace import span
+
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class AgentGraph:
@@ -262,29 +264,30 @@ class CSRGraph:
     data: np.ndarray  # (nnz,) float64
 
     def __post_init__(self):
-        indptr = np.asarray(self.indptr)
-        indices = np.asarray(self.indices)
-        data = np.asarray(self.data)
-        if indptr.ndim != 1 or indices.shape != data.shape or indices.ndim != 1:
-            raise ValueError("malformed CSR arrays")
-        if indptr[0] != 0 or indptr[-1] != len(indices) or np.any(np.diff(indptr) < 0):
-            raise ValueError("malformed indptr")
-        if np.any(data < 0.0):
-            raise ValueError("weights must be non-negative")
-        n = len(indptr) - 1
-        if len(indices) and (indices.min() < 0 or indices.max() >= n):
-            raise ValueError("column index out of range")
-        rows = self.row_ids()
-        if np.any(indices == rows):
-            raise ValueError("weights must have zero diagonal")
-        # Symmetry: the transpose has the same sorted (row, col, val) triples.
-        order_t = np.lexsort((rows, indices))
-        if not (
-            np.array_equal(indices[order_t], rows)
-            and np.array_equal(rows[order_t], indices)
-            and np.allclose(data[order_t], data, atol=1e-10)
-        ):
-            raise ValueError("weights must be symmetric")
+        with span("graph.validate"):
+            indptr = np.asarray(self.indptr)
+            indices = np.asarray(self.indices)
+            data = np.asarray(self.data)
+            if indptr.ndim != 1 or indices.shape != data.shape or indices.ndim != 1:
+                raise ValueError("malformed CSR arrays")
+            if indptr[0] != 0 or indptr[-1] != len(indices) or np.any(np.diff(indptr) < 0):
+                raise ValueError("malformed indptr")
+            if np.any(data < 0.0):
+                raise ValueError("weights must be non-negative")
+            n = len(indptr) - 1
+            if len(indices) and (indices.min() < 0 or indices.max() >= n):
+                raise ValueError("column index out of range")
+            rows = self.row_ids()
+            if np.any(indices == rows):
+                raise ValueError("weights must have zero diagonal")
+            # Symmetry: the transpose has the same sorted (row, col, val) triples.
+            order_t = np.lexsort((rows, indices))
+            if not (
+                np.array_equal(indices[order_t], rows)
+                and np.array_equal(rows[order_t], indices)
+                and np.allclose(data[order_t], data, atol=1e-10)
+            ):
+                raise ValueError("weights must be symmetric")
 
     @property
     def n(self) -> int:

@@ -32,6 +32,7 @@ import torch
 from repro_torch.core.graph import as_csr, dense_weights, sparse_crossover
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
+from repro_torch.obs.trace import span
 
 
 def kernel_auto(Theta) -> bool:
@@ -57,8 +58,9 @@ class MixOp:
         cache = self.__dict__.setdefault("_tables", {})
         key = (name, resolve_device(device), dtype)
         if key not in cache:
-            host = np.ascontiguousarray(getattr(self, name))
-            cache[key] = torch.as_tensor(host).to(device=key[1], dtype=dtype)
+            with span("mix.tables", sync=key[1], table=name):
+                host = np.ascontiguousarray(getattr(self, name))
+                cache[key] = torch.as_tensor(host).to(device=key[1], dtype=dtype)
         return cache[key]
 
     def all(self, Theta, use_kernel: bool | None = None):

@@ -31,6 +31,7 @@ from repro_torch.core.graph import AgentGraph, CSRGraph
 from repro_torch.core.graph import confidences as _confidences
 from repro_torch.core.mixing import mix_op
 from repro_torch.device import resolve_device
+from repro_torch.obs.trace import span
 
 # ---------------------------------------------------------------------------
 # Loss zoo
@@ -187,7 +188,8 @@ class Objective:
     @cached_property
     def mix(self):
         """The neighbour-sum operator sum_j W_ij Theta_j (dense or sparse)."""
-        return mix_op(self.graph, mode=self.mix_mode)
+        with span("objective.host"):
+            return mix_op(self.graph, mode=self.mix_mode)
 
     # --- constants -------------------------------------------------------
     @property
@@ -204,8 +206,9 @@ class Objective:
 
     def local_smoothness(self) -> np.ndarray:
         """L_i^loc per agent: smoothness of L_i = emp. loss + lambda_i ||.||^2."""
-        base = self.loss.smoothness(self.data.X, self.data.mask)
-        return base + 2.0 * self.lambdas
+        with span("objective.host"):
+            base = self.loss.smoothness(self.data.X, self.data.mask)
+            return base + 2.0 * self.lambdas
 
     def local_strong_convexity(self) -> np.ndarray:
         """sigma_i^loc >= 2 lambda_i (L2 regularizer)."""
@@ -232,7 +235,8 @@ class Objective:
 
     def lipschitz_l1(self) -> float:
         """L0 for Thm. 1 (possibly clipped per Supp. D.2)."""
-        l0 = self.loss.lipschitz_l1(self.data.X, self.data.mask)
+        with span("objective.host"):
+            l0 = self.loss.lipschitz_l1(self.data.X, self.data.mask)
         if self.clip is not None:
             return min(l0, float(self.clip))
         return l0
@@ -248,19 +252,20 @@ class Objective:
         cache = self.__dict__.setdefault("_tensor_cache", {})
         key = (resolve_device(device), dtype)
         if key not in cache:
-            host = {
-                "deg": self.degrees,
-                "conf": self.confidences,
-                "alpha": self.alphas(),
-                "lam": self.lambdas,
-                "X": self.data.X,
-                "y": self.data.y,
-                "mask": self.data.mask,
-            }
-            cache[key] = {
-                k: torch.as_tensor(np.asarray(v)).to(device=key[0], dtype=dtype)
-                for k, v in host.items()
-            }
+            with span("objective.tensors", sync=key[0]):
+                host = {
+                    "deg": self.degrees,
+                    "conf": self.confidences,
+                    "alpha": self.alphas(),
+                    "lam": self.lambdas,
+                    "X": self.data.X,
+                    "y": self.data.y,
+                    "mask": self.data.mask,
+                }
+                cache[key] = {
+                    k: torch.as_tensor(np.asarray(v)).to(device=key[0], dtype=dtype)
+                    for k, v in host.items()
+                }
         return cache[key]
 
     # --- values and gradients ----------------------------------------------

@@ -30,6 +30,8 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.obs.trace import span
+
 KERNELS = ("sparse_mix", "fused_row_update", "graph_mix", "dp_clip_noise", "ssm_chunk")
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 NVCC_FLAGS = (
@@ -98,24 +100,26 @@ def build(names=KERNELS, ptxas_info: bool = False) -> dict[str, str]:
     todo = [name for name in names if not library_path(name).exists()]
     if not todo:
         return {}
-    build_dir().mkdir(parents=True, exist_ok=True)
-    tool = nvcc()
-    extra = ("-Xptxas", "-v") if ptxas_info else ()
-    jobs = []
-    for name in todo:
-        out = library_path(name)
-        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        cmd = [tool, *NVCC_FLAGS, *extra, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        jobs.append((name, proc, tmp, out))
-    logs, failed = {}, []
-    for name, proc, tmp, out in jobs:
-        log, _ = proc.communicate()
-        logs[name] = log
-        if proc.returncode != 0:
-            failed.append(f"--- {name}.cu (nvcc exit {proc.returncode}) ---\n{log}")
-        else:
-            os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+    with span("kernels.build", kernels=todo):
+        build_dir().mkdir(parents=True, exist_ok=True)
+        tool = nvcc()
+        extra = ("-Xptxas", "-v") if ptxas_info else ()
+        jobs = []
+        for name in todo:
+            out = library_path(name)
+            tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+            cmd = [tool, *NVCC_FLAGS, *extra, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                    text=True)
+            jobs.append((name, proc, tmp, out))
+        logs, failed = {}, []
+        for name, proc, tmp, out in jobs:
+            log, _ = proc.communicate()
+            logs[name] = log
+            if proc.returncode != 0:
+                failed.append(f"--- {name}.cu (nvcc exit {proc.returncode}) ---\n{log}")
+            else:
+                os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return logs
@@ -126,7 +130,8 @@ def load(name: str) -> ctypes.CDLL:
     lib = _LOADED.get(name)
     if lib is None:
         build((name,))
-        lib = ctypes.CDLL(str(library_path(name)))
+        with span("kernels.load", kernel=name):
+            lib = ctypes.CDLL(str(library_path(name)))
         lib.kernel_error_string.argtypes = [ctypes.c_int]
         lib.kernel_error_string.restype = ctypes.c_char_p
         _LOADED[name] = lib

@@ -12,7 +12,11 @@ Port of the parts of ``repro.obs`` the engines need:
   for ``torch.profiler``, and as NVTX ranges on a CUDA device) with the
   reference's Chrome-trace export, and :func:`profile_supertick`, which
   attributes a super-tick's time to its named phases by differencing the
-  engines' phase programs;
+  engines' phase programs; :func:`span` marks a section of the program
+  (set-up passes and copies, kernel builds, captures, the host side of a
+  replay) on the process-wide recorder that :func:`recording` makes
+  active, and is a shared no-op that reads no clock while none is;
+  :meth:`SpanRecorder.seconds` sums each span name's exclusive seconds;
 * :mod:`repro_torch.obs.roofline` — the slot's counted bytes and flops
   placed on the card's peaks (``supertick_report``);
 * :mod:`repro_torch.obs.report` — :class:`RunReport` (periodic metric
@@ -37,7 +41,14 @@ from repro_torch.obs.metrics import (
     topology_log_init,
 )
 from repro_torch.obs.report import RunReport, merge_bench_summary
-from repro_torch.obs.trace import PhaseProfile, SpanRecorder, profile_supertick, validate_trace
+from repro_torch.obs.trace import (
+    PhaseProfile,
+    SpanRecorder,
+    profile_supertick,
+    recording,
+    span,
+    validate_trace,
+)
 
 __all__ = [
     "ExchangeVolume",
@@ -50,7 +61,9 @@ __all__ = [
     "TOPOLOGY_COUNTERS",
     "merge_bench_summary",
     "profile_supertick",
+    "recording",
     "serve_counters_init",
+    "span",
     "summarize_counters",
     "topology_log_init",
     "validate_trace",

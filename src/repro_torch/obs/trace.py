@@ -18,6 +18,18 @@ takes the difference; two mechanisms say that:
 :meth:`SpanRecorder.export_chrome_trace` writes the reference's
 Chrome/Perfetto ``trace.json``; :func:`validate_trace` is its loader, and
 each package reads the other's trace.
+
+The program's own spans go through one process-wide recorder, off by
+default. :func:`span` marks a section of the port (the set-up's host
+passes and copies, the kernel build, the captures, and on the timed path
+the host side of a replayed chunk: ``capture.bind``, ``capture.replay``).
+With no recorder active it returns a shared no-op context: it opens no
+``record_function``, pushes no NVTX range and reads no clock. Inside
+:func:`recording` each span is a :meth:`SpanRecorder.span` of the active
+recorder, and :meth:`SpanRecorder.seconds` sums each name's exclusive
+seconds (its time minus the spans nested in it, on the same thread). A
+set-up span given ``sync=device`` synchronizes that device at its exit
+while recording, so the device work it enqueued lands in it.
 """
 
 from __future__ import annotations
@@ -25,6 +37,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import threading
 import time
 
 import numpy as np
@@ -39,30 +52,58 @@ class SpanRecorder:
     recorder's creation. ``tid`` separates tracks (0 = live host spans,
     1 = synthetic per-phase attribution). ``device``: where the traced
     work runs; on a CUDA device every live span is also an NVTX range.
+    :meth:`seconds` gives each live span name's exclusive seconds.
     """
 
     def __init__(self, device=None):
         self._t0 = time.perf_counter()
         self.events: list[dict] = []
         self.nvtx = device is not None and torch.device(device).type == "cuda"
+        self._seconds: dict[str, float] = {}
+        self._lock = threading.Lock()
+        self._local = threading.local()  # each thread's stack of nested spans' seconds
 
     def _now_us(self) -> float:
         return (time.perf_counter() - self._t0) * 1e6
 
+    def seconds(self) -> dict:
+        """``{name: exclusive seconds}`` of the live spans so far: each span's
+        time minus that of the spans nested in it on its thread."""
+        with self._lock:
+            return dict(self._seconds)
+
     @contextlib.contextmanager
-    def span(self, name: str, tid: int = 0, **args):
+    def span(self, name: str, tid: int = 0, sync=None, **args):
         """Record a live span around a host-side section (also annotated
-        for ``torch.profiler``, and for NVTX on a CUDA device)."""
+        for ``torch.profiler``, and for NVTX on a CUDA device). ``sync``: a
+        device synchronized before the span ends, so that the work the
+        section enqueued there counts in it."""
+        stack = getattr(self._local, "stack", None)
+        if stack is None:
+            stack = self._local.stack = []
+        stack.append(0.0)  # the seconds of the spans nested in this one
         start = self._now_us()
-        with torch.profiler.record_function(name):
-            if self.nvtx:
-                torch.cuda.nvtx.range_push(name)
-            try:
-                yield
-            finally:
+        try:
+            with torch.profiler.record_function(name):
                 if self.nvtx:
-                    torch.cuda.nvtx.range_pop()
-        self.add(name, start, self._now_us() - start, tid=tid, **args)
+                    torch.cuda.nvtx.range_push(name)
+                try:
+                    yield
+                    if sync is not None and torch.device(sync).type == "cuda":
+                        torch.cuda.synchronize(sync)
+                finally:
+                    if self.nvtx:
+                        torch.cuda.nvtx.range_pop()
+        except BaseException:
+            stack.pop()  # a failed section records nothing; its time stays its parent's
+            raise
+        dur = self._now_us() - start
+        inner = stack.pop()
+        if stack:
+            stack[-1] += dur
+        with self._lock:
+            self._seconds[name] = self._seconds.get(name, 0.0) + (dur - inner) / 1e6
+        self.add(name, start, dur, tid=tid, **args)
 
     def add(self, name: str, start_us: float, dur_us: float, tid: int = 0, **args):
         """Append one complete event (used for synthetic attribution spans)."""
@@ -82,6 +123,31 @@ class SpanRecorder:
         """Write the collected spans as a Chrome/Perfetto ``trace.json``."""
         with open(path, "w") as f:
             json.dump({"traceEvents": self.events, "displayTimeUnit": "ms"}, f, indent=1)
+
+
+_ACTIVE: SpanRecorder | None = None  # the process-wide recorder of recording()
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str, sync=None, **args):
+    """A span of the program: the active recorder's :meth:`SpanRecorder.span`
+    inside :func:`recording`, else a shared no-op context that reads no clock."""
+    rec = _ACTIVE
+    if rec is None:
+        return _OFF
+    return rec.span(name, sync=sync, **args)
+
+
+@contextlib.contextmanager
+def recording(recorder: SpanRecorder):
+    """Make ``recorder`` the process-wide recorder of :func:`span` (every
+    thread's) until the block ends, then restore the one before it."""
+    global _ACTIVE
+    prev, _ACTIVE = _ACTIVE, recorder
+    try:
+        yield recorder
+    finally:
+        _ACTIVE = prev
 
 
 def _jsonable(v):

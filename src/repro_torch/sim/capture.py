@@ -78,6 +78,8 @@ import gc
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.obs.trace import span
+
 
 def _copy_leaf(src, dst) -> None:
     """Copy a state leaf (a tensor, a dict of tensors, or an empty ``()`` /
@@ -124,31 +126,34 @@ def load_state(src, dst) -> None:
         dst.generator.set_state(src.generator.get_state())
 
 
-def capture(fn, generator, stream, pool=None):
+def capture(fn, generator, stream, pool=None, **args):
     """Capture ``fn()`` as a CUDA graph on ``stream`` with ``generator``
     registered (None: ``fn`` draws nothing); returns ``(graph, output,
     launches a replay)``. The launches counted while capturing are taken
     back out (a capture launches nothing). The garbage collector is off
-    meanwhile: a graph it destroyed would invalidate the capture."""
-    graph = torch.cuda.CUDAGraph()
-    if generator is not None:
-        graph.register_generator_state(generator)
-    before = _build.launch_counts()
-    current = torch.cuda.current_stream(stream.device)
-    collecting = gc.isenabled()
-    gc.disable()
-    try:
-        # thread_local: a capture checks only this thread's CUDA calls, so
-        # a serving thread reading snapshots meanwhile breaks nothing.
-        with torch.cuda.graph(graph, pool=pool, stream=stream,
-                              capture_error_mode="thread_local"):
-            out = fn()
-    finally:
-        launches = {k: v - before[k] for k, v in _build.launch_counts().items()}
-        _build.add_launches({k: -v for k, v in launches.items()})
-        torch.cuda.set_stream(current)  # a failed capture_end skips the stream's exit
-        if collecting:
-            gc.enable()
+    meanwhile: a graph it destroyed would invalidate the capture. The
+    capture is the span ``capture.graph`` (``args``: what the graph holds),
+    around the graph's context and never inside it."""
+    with span("capture.graph", sync=stream.device, **args):
+        graph = torch.cuda.CUDAGraph()
+        if generator is not None:
+            graph.register_generator_state(generator)
+        before = _build.launch_counts()
+        current = torch.cuda.current_stream(stream.device)
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            # thread_local: a capture checks only this thread's CUDA calls, so
+            # a serving thread reading snapshots meanwhile breaks nothing.
+            with torch.cuda.graph(graph, pool=pool, stream=stream,
+                                  capture_error_mode="thread_local"):
+                out = fn()
+        finally:
+            launches = {k: v - before[k] for k, v in _build.launch_counts().items()}
+            _build.add_launches({k: -v for k, v in launches.items()})
+            torch.cuda.set_stream(current)  # a failed capture_end skips the stream's exit
+            if collecting:
+                gc.enable()
     return graph, out, launches
 
 
@@ -194,7 +199,9 @@ class ChunkGraphs:
         if self.live is None:
             self.live = state
             return state
-        load_state(state, self.live)
+        if state is not self.live:
+            with span("capture.bind"):
+                load_state(state, self.live)
         return self.live
 
     def advance(self, state, slots: int):
@@ -205,7 +212,7 @@ class ChunkGraphs:
             self.stream = torch.cuda.Stream(eng.device)
             current = torch.cuda.current_stream(eng.device)
             self.stream.wait_stream(current)
-            with torch.cuda.stream(self.stream):
+            with span("engine.warm_slot", sync=eng.device), torch.cuda.stream(self.stream):
                 state = eng._slot(state, None)
             current.wait_stream(self.stream)
             self.warm = True
@@ -215,9 +222,10 @@ class ChunkGraphs:
         for steps, replays in ((S, slots // S), (1, slots % S)):
             if replays:
                 graph, launches = self._graph(steps)
-                for _ in range(replays):
-                    graph.replay()
-                    _build.add_launches(launches)
+                with span("capture.replay"):
+                    for _ in range(replays):
+                        graph.replay()
+                        _build.add_launches(launches)
         return state
 
     def _graph(self, steps: int):
@@ -235,7 +243,8 @@ class ChunkGraphs:
             return out
 
         try:
-            graph, out, launches = capture(slots, live.generator, self.stream, pool)
+            graph, out, launches = capture(slots, live.generator, self.stream, pool,
+                                           slots=steps)
         except Exception as e:
             raise RuntimeError(
                 f"capturing {steps} engine slot(s) as a CUDA graph failed: {e}") from e
@@ -305,7 +314,7 @@ class PhaseProgram:
         try:
             self.graph, self.out, self.launches = capture(
                 lambda: eng._slot(scratch, None, upto=self.upto), scratch.generator, stream,
-                pools[0].pool() if pools else None)
+                pools[0].pool() if pools else None, upto=self.upto)
         except Exception as e:
             raise RuntimeError(
                 f"capturing the slot prefix up to {self.upto!r} as a CUDA graph failed: {e}"

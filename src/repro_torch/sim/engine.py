@@ -67,6 +67,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.fused_row_update import MAX_M, MAX_P
 from repro_torch.obs.metrics import ExchangeVolume, MetricsAccumulator, topology_log_init
 from repro_torch.obs.report import RunReport
+from repro_torch.obs.trace import span
 from repro_torch.sim import clocks
 from repro_torch.sim.capture import ChunkGraphs, PhaseProgram, phase_program
 from repro_torch.sim.config import EngineConfig, resolve_config
@@ -515,45 +516,46 @@ class AsyncEngine:
                 "bake the neighbour lists); leave fused='auto' for dynamic runs"
             )
 
-        def f32(a):
-            return torch.as_tensor(np.asarray(a), dtype=torch.float32, device=dev)
+        with span("engine.tables", sync=dev):
+            def f32(a):
+                return torch.as_tensor(np.asarray(a), dtype=torch.float32, device=dev)
 
-        self._wake_p = f32(self.wake_probs)
-        self._deg_counts = f32(neighbor_counts(update.graph))
-        churn = self.scenario.churn
-        self._leave = f32(churn.leave_vector(self.n)) if churn else None
-        self._rejoin_v = churn.rejoin_vector(self.n) if churn else None
-        self._rejoin = f32(self._rejoin_v) if churn else None
-        strag = self.scenario.straggler
-        self._drop = f32(strag.drop_vector(self.n)) if strag else None
-        self._arange_b = torch.arange(self.batch_size, device=dev)
+            self._wake_p = f32(self.wake_probs)
+            self._deg_counts = f32(neighbor_counts(update.graph))
+            churn = self.scenario.churn
+            self._leave = f32(churn.leave_vector(self.n)) if churn else None
+            self._rejoin_v = churn.rejoin_vector(self.n) if churn else None
+            self._rejoin = f32(self._rejoin_v) if churn else None
+            strag = self.scenario.straggler
+            self._drop = f32(strag.drop_vector(self.n)) if strag else None
+            self._arange_b = torch.arange(self.batch_size, device=dev)
 
-        delay = self.scenario.delay
-        self.depth = (delay.max_delay + 1) if delay else 1
-        if delay:
-            # Delayed mixing always runs over padded neighbour tiles: the
-            # per-edge (delay, neighbour) pair gather has no dense form.
-            idx, w = self._padded_tables(update)
-            self._idx = torch.as_tensor(idx, dtype=torch.long, device=dev)
-            self._w = torch.as_tensor(w, dtype=self.dtype, device=dev)
-            self._delays = torch.as_tensor(
-                delay.delay_tiles(idx.shape), dtype=torch.long, device=dev
-            )
-        else:
-            self._idx = self._w = self._delays = None
+            delay = self.scenario.delay
+            self.depth = (delay.max_delay + 1) if delay else 1
+            if delay:
+                # Delayed mixing always runs over padded neighbour tiles: the
+                # per-edge (delay, neighbour) pair gather has no dense form.
+                idx, w = self._padded_tables(update)
+                self._idx = torch.as_tensor(idx, dtype=torch.long, device=dev)
+                self._w = torch.as_tensor(w, dtype=self.dtype, device=dev)
+                self._delays = torch.as_tensor(
+                    delay.delay_tiles(idx.shape), dtype=torch.long, device=dev
+                )
+            else:
+                self._idx = self._w = self._delays = None
 
-        obj = getattr(update, "obj", None)  # the data of the updates the kernel serves
-        fused_knob = False if self.dynamic else cfg.fused
-        self.fused = _resolve_fused(update, fused_knob, dev, self.dtype, delay is not None,
-                                    self.p, obj.data.X.shape[1] if obj is not None else 0)
-        if self.fused:
-            # The fused kernel consumes padded (n, K) neighbour tables
-            # whatever the MixOp backend (dense graphs go through the CSR form).
-            idx, w = self._padded_tables(update)
-            self._fidx = torch.as_tensor(idx, dtype=torch.int32, device=dev)
-            self._fw = torch.as_tensor(w, dtype=torch.float32, device=dev)
-        else:
-            self._fidx = self._fw = None
+            obj = getattr(update, "obj", None)  # the data of the updates the kernel serves
+            fused_knob = False if self.dynamic else cfg.fused
+            self.fused = _resolve_fused(update, fused_knob, dev, self.dtype, delay is not None,
+                                        self.p, obj.data.X.shape[1] if obj is not None else 0)
+            if self.fused:
+                # The fused kernel consumes padded (n, K) neighbour tables
+                # whatever the MixOp backend (dense graphs go through the CSR form).
+                idx, w = self._padded_tables(update)
+                self._fidx = torch.as_tensor(idx, dtype=torch.int32, device=dev)
+                self._fw = torch.as_tensor(w, dtype=torch.float32, device=dev)
+            else:
+                self._fidx = self._fw = None
 
         self.metrics_spec = cfg.metrics_spec()
         self._macc = (
@@ -656,37 +658,38 @@ class AsyncEngine:
     def init_state(self, Theta0, seed: int | None = None) -> SimState:
         """Fresh engine state from an (n, p) initial model matrix (copied)."""
         dev = self.device
-        if not isinstance(Theta0, torch.Tensor):
-            Theta0 = torch.as_tensor(np.asarray(Theta0))
-        Theta = Theta0.to(device=dev, dtype=self.dtype).clone()
-        if Theta.shape != (self.n, self.p):
-            raise ValueError(f"Theta0 must be {(self.n, self.p)}, got {tuple(Theta.shape)}")
-        if self._delays is not None:
-            hist = Theta.unsqueeze(0).repeat(self.depth, 1, 1)
-        else:
-            hist = torch.zeros((0, 0, 0), dtype=self.dtype, device=dev)  # no-delay placeholder
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(self._seed if seed is None else int(seed))
-        ustate = self.update.init_state()
-        if isinstance(ustate, torch.Tensor):
-            ustate = ustate.to(dev)
-        active = torch.ones(self.n, dtype=torch.bool, device=dev)
-        if self._pending:
-            # Scheduled arrivals are in the arrays but not in the system yet:
-            # inactive (never woken) and edge-detached until admitted.
-            active[torch.as_tensor(sorted(self._pending), device=dev)] = False
-        return SimState(
-            Theta=Theta,
-            hist=hist,
-            ptr=torch.zeros((), dtype=torch.long, device=dev),
-            active=active,
-            generator=gen,
-            ustate=ustate,
-            applied=torch.zeros((), dtype=torch.long, device=dev),
-            dropped=torch.zeros((), dtype=torch.long, device=dev),
-            messages=torch.zeros((), dtype=torch.float32, device=dev),
-            metrics=None if self._macc is None else self._macc.init(dev),
-        )
+        with span("engine.init_state", sync=dev):
+            if not isinstance(Theta0, torch.Tensor):
+                Theta0 = torch.as_tensor(np.asarray(Theta0))
+            Theta = Theta0.to(device=dev, dtype=self.dtype).clone()
+            if Theta.shape != (self.n, self.p):
+                raise ValueError(f"Theta0 must be {(self.n, self.p)}, got {tuple(Theta.shape)}")
+            if self._delays is not None:
+                hist = Theta.unsqueeze(0).repeat(self.depth, 1, 1)
+            else:
+                hist = torch.zeros((0, 0, 0), dtype=self.dtype, device=dev)  # no-delay placeholder
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(self._seed if seed is None else int(seed))
+            ustate = self.update.init_state()
+            if isinstance(ustate, torch.Tensor):
+                ustate = ustate.to(dev)
+            active = torch.ones(self.n, dtype=torch.bool, device=dev)
+            if self._pending:
+                # Scheduled arrivals are in the arrays but not in the system yet:
+                # inactive (never woken) and edge-detached until admitted.
+                active[torch.as_tensor(sorted(self._pending), device=dev)] = False
+            return SimState(
+                Theta=Theta,
+                hist=hist,
+                ptr=torch.zeros((), dtype=torch.long, device=dev),
+                active=active,
+                generator=gen,
+                ustate=ustate,
+                applied=torch.zeros((), dtype=torch.long, device=dev),
+                dropped=torch.zeros((), dtype=torch.long, device=dev),
+                messages=torch.zeros((), dtype=torch.float32, device=dev),
+                metrics=None if self._macc is None else self._macc.init(dev),
+            )
 
     def state_dict(self, state: SimState, step: int | None = None):
         """The complete resume closure as ``(files, manifest)``: every state

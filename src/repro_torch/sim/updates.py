@@ -60,6 +60,7 @@ from repro_torch.core.mixing import MixOp, mix_op
 from repro_torch.core.model_propagation import propagation_objective, propagation_rows_from
 from repro_torch.core.objective import Objective
 from repro_torch.kernels import ops
+from repro_torch.obs.trace import span
 
 
 def _eq4_fused_args(obj, krows, cols, w, consts, noise):
@@ -288,7 +289,8 @@ class DPCDUpdate:
                 "the batched engine supports the uniform budget split only; "
                 "the Prop. 2 schedule needs the sequential dp_cd.run_private"
             )
-        eps_step, scales = uniform_noise_plan(obj, cfg, planned_Ti)
+        with span("objective.host"):
+            eps_step, scales = uniform_noise_plan(obj, cfg, planned_Ti)
         return cls(obj=obj, cfg=cfg, planned_Ti=planned_Ti, eps_step=eps_step, scales=scales)
 
     @property

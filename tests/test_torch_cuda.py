@@ -30,6 +30,7 @@ Mamba2 blocks and models, whose float32 routes differ in many sums.
 
 import contextlib
 import dataclasses
+import time
 
 import numpy as np
 import pytest
@@ -744,6 +745,35 @@ def test_captured_launch_counts_equal_eager(dev, case):
     assert counts[0] == counts[1]
     kernel = "fused_row_update" if eng.fused else "sparse_mix"
     assert counts[0][kernel] == (37 if case != "delay" else 0)
+
+
+@pytest.mark.parametrize("case", ["fused", "dp_unfused"])
+def test_recorded_card_spans_leave_the_captured_state_as_unrecorded(dev, case):
+    """With the port's recorder active, a card engine's set-up and two runs
+    of 37 captured slots (the second from a foreign state) record the
+    card's spans: the eager warm-up slot, both captures with their slots,
+    the replays and the foreign state's bind, each >= 0 and together within
+    the wall time; the state equals an unrecorded twin's bit for bit."""
+    from repro_torch.obs import SpanRecorder, recording
+
+    rec = SpanRecorder(dev)
+    t0 = time.perf_counter()
+    with recording(rec):
+        eng, Theta0 = _capture_engine(dev, case)
+        eng.advance(eng.init_state(Theta0), 37)
+        got = eng.advance(eng.init_state(Theta0), 37)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    twin, _ = _capture_engine(dev, case)
+    twin.advance(twin.init_state(Theta0), 37)
+    _assert_states_equal(got, twin.advance(twin.init_state(Theta0), 37))
+    sec = rec.seconds()
+    assert {"graph.validate", "objective.host", "engine.tables", "engine.init_state",
+            "engine.warm_slot", "capture.graph", "capture.replay", "capture.bind"} <= set(sec)
+    names = [e["name"] for e in rec.events]
+    assert names.count("engine.warm_slot") == 1 and names.count("capture.bind") == 1
+    assert sorted(e["args"]["slots"] for e in rec.events if e["name"] == "capture.graph") == [1, 16]
+    assert all(v >= 0.0 for v in sec.values()) and sum(sec.values()) <= wall
 
 
 def test_metrics_on_card_agree_with_the_state_and_theta_is_unchanged(dev):
