@@ -621,30 +621,49 @@ def kernel_checks(obj, engine, dense_obj, results) -> None:
     results["sparse_mix"] = results["sparse_mix_RB"]  # the main path's shape
 
     # fused_row_update on the full slab, its inputs packed by the engine's own
-    # code (the calls CDUpdate.apply_fused makes).
-    krows, consts = fused_rows(obj, woken, valid, dev)
-    cols = engine._fidx[slot_rows]
+    # code. The main row is the form the engine's fused slot launches: the
+    # whole tables (engine._fidx/_fw/_ftab) read at src = slot_rows (the calls
+    # AsyncEngine._slot and CDUpdate.apply_fused make). The row-gathered form
+    # (src=None, the reference kernel's contract and the benches') is kept as
+    # the row "fused_row_update_gathered"; the two must give the same bits.
+    src = slot_rows.to(torch.int32)
+    krows, tab = fused_rows(obj, woken, valid, dev, consts=engine._ftab)
+    _, consts = fused_rows(obj, woken, valid, dev)
+    forms = {
+        "gathered": (_eq4_fused_args(obj, krows, engine._fidx[slot_rows], engine._fw[slot_rows],
+                                     consts, None), {}),
+        "indexed": (_eq4_fused_args(obj, krows, engine._fidx, engine._fw, tab, None, src),
+                    {"src": src}),
+    }
+    B, K = krows.shape[0], engine._fidx.shape[1]
+    m = tab["X"].shape[1]
     ww = engine._fw[slot_rows]
-    args = _eq4_fused_args(obj, krows, cols, ww, consts, None)
-    got = ops.fused_row_update(*args, theta.clone(), n)
-    want = ref.fused_row_update_ref(*args, theta.clone(), n)
-    B, K = cols.shape
-    m = args[4].shape[1]
-    vmask = valid[:, None]
-    real = (ww != 0) & vmask
+    cols = engine._fidx[slot_rows]
+    real = (ww != 0) & valid[:, None]
     rows_read = int(torch.unique(torch.cat([cols[real].long(), woken[valid]])).numel())
-    nbytes = (nvalid * (4 + 2 * K * 4 + 4 * 4 + m * p * 4 + 2 * m * 4)
-              + rows_read * p * 4 + nvalid * p * 4)
     flops = 2.0 * int(real.sum()) * p + nvalid * (4.0 * m * p + 8.0 * p)
-    slab_k, slab_p = theta.clone(), theta.clone()
-    plan = row_plan(B, p, (theta, args[4], args[7]))
-    timing = dict(
-        B=B, K=K, valid=nvalid, passes=plan.passes, float4=plan.vec,
-        ms=time_ms(lambda: ops.fused_row_update(*args, slab_k, n)),
-        plain_ms=time_ms(lambda: ref.fused_row_update_ref(*args, slab_p, n)),
-        library_ms=None, **bound(nbytes, flops),
-    )
-    check_kernel("fused_row_update", got, want, results, **timing)
+    outs = {}
+    for form, (args, kw) in forms.items():
+        got = ops.fused_row_update(*args, theta.clone(), n, **kw)
+        want = ref.fused_row_update_ref(*args, theta.clone(), n, **kw)
+        outs[form] = got
+        # Each valid row reads its krows (and src) entry, its (K,) table rows,
+        # its coefficients and points, the rows it mixes, and writes its row.
+        nbytes = (nvalid * (4 + 2 * K * 4 + 4 * 4 + m * p * 4 + 2 * m * 4)
+                  + 4 * B * len(kw) + rows_read * p * 4 + nvalid * p * 4)
+        slab_k, slab_p = theta.clone(), theta.clone()
+        plan = row_plan(B, p, (theta, args[4], args[7]))
+        timing = dict(
+            B=B, K=K, valid=nvalid, passes=plan.passes, float4=plan.vec, form=form,
+            ms=time_ms(lambda: ops.fused_row_update(*args, slab_k, n, **kw)),
+            plain_ms=time_ms(lambda: ref.fused_row_update_ref(*args, slab_p, n, **kw)),
+            library_ms=None, **bound(nbytes, flops),
+        )
+        check_kernel("fused_row_update", got, want, results, **timing)
+        results[f"fused_row_update_{form}"] = results["fused_row_update"]
+    if not torch.equal(outs["indexed"], outs["gathered"]):
+        raise SystemExit("fused_row_update: the indexed form's bits differ from the gathered's")
+    results["fused_row_update"] = results.pop("fused_row_update_indexed")  # the main path's
 
     # graph_mix: dense A @ Theta at n = 2047, p = 100 (MixOp.all, dense); the
     # library call in full float32.
@@ -5436,6 +5455,7 @@ def main() -> int:
         for name in _build.KERNELS
     ]
     log(json.dumps({"main_path": main_path, "sparse_mix_Rn": results["sparse_mix_Rn"],
+                    "fused_row_update_gathered": results["fused_row_update_gathered"],
                     "fused_row_update_sharded": results["fused_row_update_sharded"],
                     "dp_clip_noise_bf16": results["dp_clip_noise_bf16"],
                     "ssm_chunk_bf16": results["ssm_chunk_bf16"]}))

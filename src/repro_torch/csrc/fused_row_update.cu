@@ -3,17 +3,26 @@
 // Replaces the Pallas TPU kernel
 // src/repro/kernels/fused_row_update.py::fused_row_update (body
 // _fused_row_update_kernel). For each woken row b of one engine super-tick
-// (rows[b] indexes the (nt, p) Theta slab; rows[b] >= limit is a sentinel):
+// (rows[b] indexes the (nt, p) Theta slab; rows[b] >= limit is a sentinel),
+// with s = src[b] its row of the per-agent tables (s = b without src):
 //
 //   th     = Theta[rows[b]]
-//   neigh  = sum_k w[b, k] * Theta[idx[b, k]]
-//   r_i    = 2 (x_i . th - y_i)                     for the m points of row b
+//   neigh  = sum_k w[s, k] * Theta[idx[s, k]]
+//   r_i    = 2 (x_i . th - y_i)       for the m points X[s], y[s], mask[s]
 //            (optionally scaled by min(1, clip / (|r_i| * |x_i|_1)))
 //   grad   = sum_i mask_i r_i x_i / max(sum_i mask_i, 1) + 2 lam th + noise[b]
 //   new    = (1 - alpha) th + alpha (neigh / deg - mu c grad)       (Eq. 4)
 //
-// with coef[b] = [alpha, deg, mu c, 2 lam], the quadratic loss only, and
+// with coef[s] = [alpha, deg, mu c, 2 lam], the quadratic loss only, and
 // new written to Theta[rows[b]] unless rows[b] >= limit.
+//
+// The tables. Without src they are row-gathered, (B, .), as the reference
+// kernel takes them. With src they are the whole per-agent tables of
+// nt_tab rows (idx/w (nt_tab, K), coef (nt_tab, C >= 4), X (nt_tab, m, p),
+// y/mask (nt_tab, m)), and each warp reads its row's entries where they
+// lie: the engine copies none of them before the launch. rows, noise and
+// the scratch stay indexed by b. A sentinel's table rows are never read; a
+// valid row's src lies in [0, nt_tab).
 //
 // Snapshot rule, and the choice made here: every read must see the
 // start-of-slot Theta, even where one woken row is another woken row's
@@ -39,7 +48,8 @@
 // What the design does about it (the access pattern of sparse_mix.cu):
 // - One warp per woken row, 4 rows a block, lanes along p in passes of
 //   128 columns: a float4 a lane where p % 4 == 0 and Theta, X and noise
-//   start on 16-byte boundaries (a p = 100 row is one load over 25 lanes),
+//   start on 16-byte boundaries (a p = 100 row is one load over 25 lanes;
+//   every (m, p) block of X then starts on one too, whichever src reads),
 //   4 floats a lane 32 apart in a scalar instance elsewhere. The wrapper
 //   picks the instance and the number of passes (1, 2, 4 or 8: p <= 1024).
 // - X is read once: the row's points go in chunks of 8 / passes, held in
@@ -133,6 +143,7 @@ __device__ __forceinline__ float abs_sum4(const float4& a, float acc) {
 
 struct Args {
   const int* rows;
+  const int* src;  // (B,) table rows, or nullptr: row b
   const int* idx;
   const float* w;
   const float* coef;
@@ -164,14 +175,16 @@ __device__ __forceinline__ void row_update(const Args& a, int b, int lane) {
   const int K = a.K, m = a.m, p = a.p, limit = a.limit;
   const float clip = a.clip;
   const int row = a.rows[b];
+  // The table row, loaded beside rows[b] rather than after it.
+  const size_t s = a.src != nullptr ? (size_t)__ldg(a.src + b) : (size_t)b;
   if (row < 0 || row >= limit) return;  // sentinel: never scattered, skip the work
   // Loads that depend on nothing else go first: the first 32 (idx, w)
   // pairs and the row's coefficients, a lane each.
-  const int* idx_b = idx + (size_t)b * K;
-  const float* w_b = w + (size_t)b * K;
+  const int* idx_b = idx + s * K;
+  const float* w_b = w + s * K;
   int j_cur = lane < K ? __ldg(idx_b + lane) : 0;
   float w_cur = lane < K ? __ldg(w_b + lane) : 0.f;
-  const float coef_l = lane < 4 ? __ldg(a.coef + (size_t)b * a.coef_stride + lane) : 0.f;
+  const float coef_l = lane < 4 ? __ldg(a.coef + s * a.coef_stride + lane) : 0.f;
 
   float4 th[PASSES];
 #pragma unroll
@@ -183,14 +196,14 @@ __device__ __forceinline__ void row_update(const Args& a, int b, int lane) {
 #pragma unroll
   for (int ps = 0; ps < PASSES; ++ps) g[ps] = make_float4(0.f, 0.f, 0.f, 0.f);
   float mass = 0.f;
-  const float* Xb = X + (size_t)b * m * p;
+  const float* Xb = X + s * m * p;
   for (int i0 = 0; i0 < m; i0 += kPoints) {
     float4 xr[kPoints][PASSES];
     float dot[kPoints], l1[kPoints];
     // The chunk's targets and mask, lane u holding point i0 + u.
     const bool mine = lane < kPoints && i0 + lane < m;
-    const float y_l = mine ? __ldg(y + (size_t)b * m + i0 + lane) : 0.f;
-    const float mask_l = mine ? __ldg(mask + (size_t)b * m + i0 + lane) : 0.f;
+    const float y_l = mine ? __ldg(y + s * m + i0 + lane) : 0.f;
+    const float mask_l = mine ? __ldg(mask + s * m + i0 + lane) : 0.f;
 #pragma unroll
     for (int u = 0; u < kPoints; ++u) {
       dot[u] = 0.f;
@@ -344,15 +357,16 @@ cudaError_t launch_passes(int passes, const Args& a, cudaStream_t s) {
 }  // namespace
 
 // scratch: (B, p) float32, the new rows between the compute and the
-// scatter. passes: 1, 2, 4 or 8 with 128 passes >= p (the wrapper's plan);
-// vec: 1 for the float4 instance (p % 4 == 0; theta, X, noise and scratch
-// 16-byte aligned), 0 for the scalar one.
-extern "C" int fused_row_update_launch(const int* rows, const int* idx, const float* w,
-                                       const float* coef, int coef_stride, const float* X,
-                                       const float* y, const float* mask, const float* noise,
-                                       float* theta, float* scratch, int B, int K, int m,
-                                       int p, int limit, float clip, int use_clip, int passes,
-                                       int vec, void* stream) {
+// scatter. src: (B,) rows of the whole per-agent tables, or nullptr for
+// tables row-gathered at b. passes: 1, 2, 4 or 8 with 128 passes >= p (the
+// wrapper's plan); vec: 1 for the float4 instance (p % 4 == 0; theta, X,
+// noise and scratch 16-byte aligned), 0 for the scalar one.
+extern "C" int fused_row_update_launch(const int* rows, const int* src, const int* idx,
+                                       const float* w, const float* coef, int coef_stride,
+                                       const float* X, const float* y, const float* mask,
+                                       const float* noise, float* theta, float* scratch, int B,
+                                       int K, int m, int p, int limit, float clip, int use_clip,
+                                       int passes, int vec, void* stream) {
   if (B <= 0 || p <= 0) return 0;
   if (p > kMaxP || m > kMaxM || m < 0 || K < 0) return static_cast<int>(cudaErrorInvalidValue);
   if ((passes != 1 && passes != 2 && passes != 4 && passes != 8) || passes * kPassCols < p)
@@ -361,7 +375,7 @@ extern "C" int fused_row_update_launch(const int* rows, const int* idx, const fl
   if (vec && (p % 4 != 0 || !aligned(theta) || !aligned(X) || !aligned(scratch) ||
               (noise != nullptr && !aligned(noise))))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{rows, idx, w, coef, coef_stride, X, y, mask, noise, theta, scratch,
+  const Args a{rows, src, idx, w, coef, coef_stride, X, y, mask, noise, theta, scratch,
                B, K, m, p, limit, clip, use_clip};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(vec ? launch_passes<true>(passes, a, s)

@@ -16,6 +16,14 @@ rows into a (B, p) scratch, then scatters them. The valid rows of one
 call must be distinct. :func:`row_plan` plans its launch here, in Python,
 so the CPU tests reach it. :func:`fused_row_update_plain` is the plain
 PyTorch version: the CPU path and the kernel's yardstick.
+
+The per-agent inputs (``idx``, ``w``, ``coef``, ``X``, ``y``, ``mask``)
+come in one of two forms. Without ``src`` they are row-gathered, (B, .),
+row b for woken row b: the reference kernel's contract. With ``src``, a
+(B,) int32 index, they are whole tables of ``nt_tab`` rows and woken row
+b reads row ``src[b]`` of each: the engine hands its tables over as they
+are and copies none of them before the launch. ``rows``, ``noise`` and
+the result stay indexed by b. Both forms give the same bits.
 """
 
 from __future__ import annotations
@@ -63,15 +71,20 @@ def row_plan(B: int, p: int, tensors) -> RowPlan:
     return RowPlan(passes=passes, vec=vec, blocks=-(-B // ROWS_PER_BLOCK))
 
 
-def fused_row_update_plain(rows, idx, w, coef, X, y, mask, noise, theta, limit, clip=None):
+def fused_row_update_plain(rows, idx, w, coef, X, y, mask, noise, theta, limit, clip=None,
+                           src=None):
     """Same contract as the kernel; the arithmetic runs in float32.
 
     rows (B,) slab rows (>= limit: sentinel); idx/w (B, K) row-gathered
     neighbour tables over the slab; coef (B, 4+) per-row
     ``[alpha, deg, mu*conf, 2*lam]``; X (B, m, p), y/mask (B, m); noise
     (B, p) or None (zeros); theta (nt, p), updated in place and returned.
+    ``src`` (B,): the same six as whole tables, gathered here at ``src``.
     """
     f32 = torch.float32
+    if src is not None:
+        s = src.long()
+        idx, w, coef, X, y, mask = (t[s] for t in (idx, w, coef, X, y, mask))
     nt = theta.shape[0]
     t32 = theta.to(f32)
     rows = rows.long()
@@ -97,35 +110,40 @@ def fused_row_update_plain(rows, idx, w, coef, X, y, mask, noise, theta, limit, 
 
 
 _ARGTYPES = (
-    [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 6
+    [ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_void_p] * 6
     + [ctypes.c_int] * 5 + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 )
 
 
-def fused_row_update_cuda(rows, idx, w, coef, X, y, mask, noise, theta, limit, clip=None):
-    """Launch the CUDA kernel on contiguous CUDA tensors: rows/idx int32,
-    everything else float32, ``p <= MAX_P``, ``m <= MAX_M``,
-    ``0 < limit <= nt``. Updates ``theta`` in place and returns it."""
+def fused_row_update_cuda(rows, idx, w, coef, X, y, mask, noise, theta, limit, clip=None,
+                          src=None):
+    """Launch the CUDA kernel on contiguous CUDA tensors: rows/idx/src
+    int32, everything else float32, ``p <= MAX_P``, ``m <= MAX_M``,
+    ``0 < limit <= nt``; with ``src``, the six per-agent tables of
+    ``nt_tab`` rows each and every valid row's ``src`` in ``[0, nt_tab)``
+    (the card cannot check it). Updates ``theta`` in place and returns it."""
     dev = theta.device
     f32 = torch.float32
     _build.check_tensor(theta, "theta", dtype=f32, ndim=2, device=dev)
     nt, p = theta.shape
     _build.check_tensor(rows, "rows", dtype=torch.int32, ndim=1, device=dev)
     B = rows.shape[0]
+    if src is not None:
+        _build.check_tensor(src, "src", dtype=torch.int32, ndim=1, device=dev, shape=(B,))
     _build.check_tensor(idx, "idx", dtype=torch.int32, ndim=2, device=dev)
-    K = idx.shape[1]
-    if idx.shape[0] != B:
+    nt_tab, K = idx.shape  # the tables' rows: B when row-gathered
+    if src is None and nt_tab != B:
         raise ValueError(f"idx must have {B} rows, got shape {tuple(idx.shape)}")
-    _build.check_tensor(w, "w", dtype=f32, ndim=2, device=dev, shape=(B, K))
+    _build.check_tensor(w, "w", dtype=f32, ndim=2, device=dev, shape=(nt_tab, K))
     _build.check_tensor(coef, "coef", dtype=f32, ndim=2, device=dev)
-    if coef.shape[0] != B or coef.shape[1] < 4:
-        raise ValueError(f"coef must be ({B}, 4+), got {tuple(coef.shape)}")
+    if coef.shape[0] != nt_tab or coef.shape[1] < 4:
+        raise ValueError(f"coef must be ({nt_tab}, 4+), got {tuple(coef.shape)}")
     _build.check_tensor(X, "X", dtype=f32, ndim=3, device=dev)
     m = X.shape[1]
-    if X.shape != (B, m, p):
-        raise ValueError(f"X must be ({B}, m, {p}), got {tuple(X.shape)}")
-    _build.check_tensor(y, "y", dtype=f32, ndim=2, device=dev, shape=(B, m))
-    _build.check_tensor(mask, "mask", dtype=f32, ndim=2, device=dev, shape=(B, m))
+    if X.shape != (nt_tab, m, p):
+        raise ValueError(f"X must be ({nt_tab}, m, {p}), got {tuple(X.shape)}")
+    _build.check_tensor(y, "y", dtype=f32, ndim=2, device=dev, shape=(nt_tab, m))
+    _build.check_tensor(mask, "mask", dtype=f32, ndim=2, device=dev, shape=(nt_tab, m))
     if noise is not None:
         _build.check_tensor(noise, "noise", dtype=f32, ndim=2, device=dev, shape=(B, p))
     if p > MAX_P or m > MAX_M:
@@ -137,7 +155,8 @@ def fused_row_update_cuda(rows, idx, w, coef, X, y, mask, noise, theta, limit, c
     fn = _build.bind("fused_row_update", "fused_row_update_launch", _ARGTYPES)
     with _build.on_device(dev):
         status = fn(
-            rows.data_ptr(), idx.data_ptr(), w.data_ptr(), coef.data_ptr(), coef.shape[1],
+            rows.data_ptr(), None if src is None else src.data_ptr(), idx.data_ptr(),
+            w.data_ptr(), coef.data_ptr(), coef.shape[1],
             X.data_ptr(), y.data_ptr(), mask.data_ptr(),
             None if noise is None else noise.data_ptr(),
             theta.data_ptr(), scratch.data_ptr(),

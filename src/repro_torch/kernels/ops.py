@@ -53,18 +53,21 @@ def graph_mix(mix, theta):
     return graph_mix_cuda(mix, theta)
 
 
-def fused_row_update(rows, idx, w, coef, X, y, mask, noise, theta, limit, clip=None):
+def fused_row_update(rows, idx, w, coef, X, y, mask, noise, theta, limit, clip=None,
+                     src=None):
     """Fused woken-row super-tick over the (nt, p) slab ``theta``, IN PLACE.
 
     rows (B,) slab rows (sentinel >= limit skipped; valid rows distinct);
     idx/w (B, K) row-gathered neighbour tables over the slab; coef (B, 4)
     per-row [alpha, deg, mu*conf, 2*lam]; X (B, m, p), y/mask (B, m);
-    noise (B, p) or None. Returns ``theta``. Quadratic loss only — see
-    :mod:`repro_torch.kernels.fused_row_update`.
+    noise (B, p) or None. ``src`` (B,) int32: those six are whole tables
+    instead, read at ``src[b]`` for row b. Returns ``theta``. Quadratic
+    loss only — see :mod:`repro_torch.kernels.fused_row_update`.
     """
+    args = (rows, idx, w, coef, X, y, mask, noise, theta, limit, clip, src)
     if _on_cpu(theta):
-        return fused_row_update_plain(rows, idx, w, coef, X, y, mask, noise, theta, limit, clip)
-    return fused_row_update_cuda(rows, idx, w, coef, X, y, mask, noise, theta, limit, clip)
+        return fused_row_update_plain(*args)
+    return fused_row_update_cuda(*args)
 
 
 def dp_clip_noise(grads, noise, clip, noise_scale):

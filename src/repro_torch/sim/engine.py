@@ -73,7 +73,7 @@ from repro_torch.sim.capture import ChunkGraphs, PhaseProgram, phase_program
 from repro_torch.sim.config import EngineConfig, resolve_config
 from repro_torch.sim.partition import partition_graph
 from repro_torch.sim.scenarios import Scenario
-from repro_torch.sim.updates import LocalUpdate
+from repro_torch.sim.updates import LocalUpdate, fused_tables
 
 
 def _resolve_fused(update, fused, device: torch.device, dtype, has_delay: bool, p: int,
@@ -550,12 +550,15 @@ class AsyncEngine:
                                         self.p, obj.data.X.shape[1] if obj is not None else 0)
             if self.fused:
                 # The fused kernel consumes padded (n, K) neighbour tables
-                # whatever the MixOp backend (dense graphs go through the CSR form).
+                # whatever the MixOp backend (dense graphs go through the CSR
+                # form), and the update's whole per-agent tables: it reads a
+                # woken agent's rows of them where they lie.
                 idx, w = self._padded_tables(update)
                 self._fidx = torch.as_tensor(idx, dtype=torch.int32, device=dev)
                 self._fw = torch.as_tensor(w, dtype=torch.float32, device=dev)
+                self._ftab = fused_tables(obj, dev)
             else:
-                self._fidx = self._fw = None
+                self._fidx = self._fw = self._ftab = None
 
         self.metrics_spec = cfg.metrics_spec()
         self._macc = (
@@ -750,9 +753,11 @@ class AsyncEngine:
         Theta = state.Theta
         hist = state.hist
         if self.fused:
-            # One kernel call: gather + mix + Eq. 4 + masked scatter, in place.
+            # One kernel call: gather + mix + Eq. 4 + masked scatter, in place;
+            # it reads the woken agents' rows of the whole tables at slot_rows.
             Theta, applied, ustate = self.update.apply_fused(
-                Theta, woken, valid, gen, state.ustate, self._fidx[slot_rows], self._fw[slot_rows]
+                Theta, woken, valid, gen, state.ustate, self._fidx, self._fw,
+                consts=self._ftab, src=slot_rows
             )
             if upto == "fused_row_update":
                 return Theta, applied

@@ -25,7 +25,10 @@ to its sequential twin (``eq4_theta_rows`` in ``coordinate_descent``,
 ``apply_fused`` (CD and DP, quadratic loss) is the one-launch path: the
 ``fused_row_update`` CUDA kernel gathers, mixes, updates and scatters the
 woken rows into Theta in place; a budget-exhausted DP row is a kernel
-sentinel.
+sentinel. The single-device engine hands it the whole per-agent tables
+of :func:`fused_tables` (the coefficient pack made once) as ``consts``
+with a source index ``src``, and the kernel reads each woken row's
+entries where they lie.
 
 For the sharded engine each update also exposes ``agent_constants`` —
 the per-agent host arrays (datasets, theory constants, noise scales) its
@@ -63,18 +66,15 @@ from repro_torch.kernels import ops
 from repro_torch.obs.trace import span
 
 
-def _eq4_fused_args(obj, krows, cols, w, consts, noise):
-    """The fused kernel's inputs for one Eq. 4/6 woken batch, in the order
-    ``ops.fused_row_update`` takes them before the slab.
-
-    ``consts``: the row-gathered float32 constants (each (B, ...)); the
-    per-row coefficient pack mirrors the unfused ``eq4_theta_rows_from``
-    term grouping — ``[alpha, deg, mu * conf, 2 * lam]`` — so the two paths
-    differ only in float32 reduction order. ``noise``: (B, p) gradient
-    perturbation, or None for the non-private step.
-    """
+def eq4_fused_coef(obj, consts):
+    """The fused kernel's coefficient pack ``[alpha, deg, mu * conf,
+    2 * lam]``, (R, 4) float32, from the (R,) constants in ``consts``: the
+    term grouping of the unfused ``eq4_theta_rows_from``, so the two paths
+    differ only in float32 reduction order. Each entry is one elementwise
+    float32 expression of its agent's constants, so the pack of the whole
+    table, row-gathered, has the bits of the pack of the gathered rows."""
     f32 = torch.float32
-    coef = torch.stack(
+    return torch.stack(
         [
             consts["alpha"].to(f32),
             consts["deg"].to(f32),
@@ -83,6 +83,28 @@ def _eq4_fused_args(obj, krows, cols, w, consts, noise):
         ],
         dim=1,
     )
+
+
+def fused_tables(obj, device) -> dict:
+    """The per-agent tables the fused kernel reads at a source index, over
+    all n agents: ``coef`` the (n, 4) pack of :func:`eq4_fused_coef` and the
+    float32 data ``X``, ``y``, ``mask`` of ``obj.tensors`` (not copied).
+    The single-device engine makes them once and keeps them."""
+    t = obj.tensors(device, torch.float32)
+    return {"coef": eq4_fused_coef(obj, t), "X": t["X"], "y": t["y"], "mask": t["mask"]}
+
+
+def _eq4_fused_args(obj, krows, cols, w, consts, noise, src=None):
+    """The fused kernel's inputs for one Eq. 4/6 woken batch, in the order
+    ``ops.fused_row_update`` takes them before the slab.
+
+    ``consts``: the row-gathered float32 constants (each (B, ...)), packed
+    here by :func:`eq4_fused_coef`, or with a source index ``src`` the
+    whole :func:`fused_tables`, taken as they are. ``noise``: (B, p)
+    gradient perturbation, or None for the non-private step.
+    """
+    f32 = torch.float32
+    coef = eq4_fused_coef(obj, consts) if src is None else consts["coef"]
     X, y, mask = (consts[k].to(f32) for k in ("X", "y", "mask"))
     return krows, cols, w, coef, X, y, mask, noise
 
@@ -92,8 +114,8 @@ def fused_rows(obj, rows, valid, device, srows=None, ssize=None, consts=None):
     int32, the slab rows ``srows`` (default ``rows``) with the sentinel
     ``ssize`` (default n) where ``valid`` is false (padding, or a
     budget-exhausted private row), and the Eq. 4 constants: ``consts``
-    when given (the sharded engine's row-gathered tiles), else the
-    float32 tensors gathered at ``rows``."""
+    when given (the engine's whole tables, or the sharded engine's
+    row-gathered tiles), else the float32 tensors gathered at ``rows``."""
     if srows is None:
         srows, ssize = rows, obj.n
     if consts is None:
@@ -104,14 +126,16 @@ def fused_rows(obj, rows, valid, device, srows=None, ssize=None, consts=None):
     return krows, consts
 
 
-def _eq4_fused_slab(obj, Theta_slab, krows, cols, w, consts, noise, limit):
+def _eq4_fused_slab(obj, Theta_slab, krows, cols, w, consts, noise, limit, src=None):
     """Run the fused kernel for one Eq. 4/6 woken batch, in place on the slab
-    (inputs as :func:`_eq4_fused_args` packs them)."""
+    (inputs as :func:`_eq4_fused_args` packs them; with ``src``, the (B,)
+    rows of the whole tables that the kernel reads)."""
     return ops.fused_row_update(
-        *_eq4_fused_args(obj, krows, cols, w, consts, noise),
+        *_eq4_fused_args(obj, krows, cols, w, consts, noise, src),
         Theta_slab,
         limit=limit,
         clip=None if obj.clip is None else float(obj.clip),
+        src=None if src is None else src.to(torch.int32),
     )
 
 
@@ -223,23 +247,27 @@ class CDUpdate:
         return self.obj.loss.name == "quadratic"
 
     def apply_fused(self, Theta_slab, rows, valid, generator, state, cols, w, srows=None,
-                    ssize=None, consts=None):
+                    ssize=None, consts=None, src=None):
         """Fused-kernel Eq. 4 step over a float32 slab, in place.
 
         ``rows``: (B,) woken agent ids (sentinel n); ``cols``/``w``: (B, K)
-        int32 / float32 row-gathered neighbour tables over the slab;
-        ``srows``/``ssize``: the slab rows to write and their sentinel,
-        the kernel's ``limit`` (default ``rows``/n: the single-device
-        slab is Theta); ``consts``: the sharded engine's row-gathered
-        constants. Returns the updated slab (the same tensor), the applied
-        mask and the state.
+        int32 / float32 row-gathered neighbour tables over the slab, or
+        with ``src`` the whole (n, K) tables; ``src``: (B,) the agents
+        whose table rows the kernel reads (each valid entry its woken
+        agent); ``srows``/``ssize``: the slab rows to write and their
+        sentinel, the kernel's ``limit`` (default ``rows``/n: the
+        single-device slab is Theta); ``consts``: the sharded engine's
+        row-gathered constants, or with ``src`` the whole
+        :func:`fused_tables`. Returns the updated slab (the same tensor),
+        the applied mask and the state.
         """
         if not self.fused_supported:
             raise _fused_unsupported(self.obj)
         limit = self.n if srows is None else ssize
         krows, consts = fused_rows(self.obj, rows, valid, Theta_slab.device, srows, ssize,
                                    consts)
-        new_slab = _eq4_fused_slab(self.obj, Theta_slab, krows, cols, w, consts, None, limit)
+        new_slab = _eq4_fused_slab(self.obj, Theta_slab, krows, cols, w, consts, None, limit,
+                                   src)
         return new_slab, valid, state
 
     def objective(self, Theta) -> float:
@@ -379,7 +407,7 @@ class DPCDUpdate:
         return self.obj.loss.name == "quadratic"
 
     def apply_fused(self, Theta_slab, rows, valid, generator, state, cols, w, draws=None,
-                    srows=None, ssize=None, consts=None):
+                    srows=None, ssize=None, consts=None, src=None):
         """Fused-kernel Eq. 6 step over a float32 slab, in place.
 
         The budget stopping and noise of :meth:`apply_rows` with the row
@@ -387,9 +415,10 @@ class DPCDUpdate:
         sentinels (``krows = ssize``, n by default), so their row stays as
         it was. The draws are always float32, and take the same calls from
         ``generator`` as :meth:`apply_rows` in a float32 engine, so the two
-        routes see the same noise. ``srows``/``ssize``/``consts`` as in
-        :meth:`CDUpdate.apply_fused` (the counts are read and written at
-        ``srows``).
+        routes see the same noise. ``cols``/``w``/``srows``/``ssize``/
+        ``consts``/``src`` as in :meth:`CDUpdate.apply_fused` (the counts
+        are read and written at ``srows``; the noise scales are gathered at
+        ``rows`` either way).
         """
         if not self.fused_supported:
             raise _fused_unsupported(self.obj)
@@ -397,10 +426,13 @@ class DPCDUpdate:
         safe, applied = self._budget(rows, valid, state, srows, ssize)
         f32 = torch.float32
         z = self._draws((rows.shape[0], Theta_slab.shape[1]), generator, dev, f32, draws)
-        noise = z * self._row_scales(rows, dev, f32, consts)[:, None]
+        # With src, consts are the whole tables and the scales come from rows.
+        scales = self._row_scales(rows, dev, f32, consts if src is None else None)
+        noise = z * scales[:, None]
         limit = self.n if srows is None else ssize
         krows, consts = fused_rows(self.obj, rows, applied, dev, srows, ssize, consts)
-        new_slab = _eq4_fused_slab(self.obj, Theta_slab, krows, cols, w, consts, noise, limit)
+        new_slab = _eq4_fused_slab(self.obj, Theta_slab, krows, cols, w, consts, noise, limit,
+                                   src)
         state.index_add_(0, safe, applied.to(state.dtype))
         return new_slab, applied, state
 

@@ -44,6 +44,8 @@ from repro_torch.models import ssm
 from repro_torch.models.registry import build_model
 from repro_torch.sim import AsyncEngine, CDUpdate, DPCDUpdate
 
+from fused_routes import row_gathered
+
 pytestmark = pytest.mark.cuda
 TOL = 1e-5
 MODEL_TOL = 1e-4
@@ -610,6 +612,124 @@ def test_fused_row_update_nan_reached_only_at_weight_zero_stays_out(dev):
     again = theta.clone()
     ops.fused_row_update(rows, idx, w, coef, X, y, mask, noise, again, nt)
     assert bool(torch.isnan(again[10]).all())
+
+
+def _whole_tables(dev, nt_tab, B, K, m, p, seed):
+    """Per-agent tables of ``nt_tab`` rows (idx/w, coef, X, y, mask) as the
+    engine keeps them, and a (B,) int32 source index of distinct rows."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    _, idx, w, coef, X, y, mask, _, _ = _fused_case(dev, nt_tab, K, m, p, nt_tab, seed)
+    src = torch.randperm(nt_tab, generator=g, device=dev)[:B].to(torch.int32)
+    return src, (idx, w, coef, X, y, mask)
+
+
+# The main path's slot over tables of 50,000 agents; the scalar instance with
+# Theta at a storage offset; an all-sentinel batch.
+@pytest.mark.parametrize("case", ["main", "offset", "all_sentinel"])
+@pytest.mark.parametrize("clip", [None, 0.5])
+def test_fused_row_update_indexed_tables_give_the_gathered_bits(dev, case, clip):
+    """With ``src`` the kernel reads each woken row's entries from the whole
+    tables, where they lie: the same bits as the kernel on the tables
+    row-gathered at ``src`` (``src=None``), and the plain version's values."""
+    from repro_torch.kernels.fused_row_update import row_plan
+
+    B, K, m, p, nt = (4471, 38, 8, 100, 50_000) if case == "main" else (500, 38, 8, 100, 2000)
+    rows, _, _, _, _, _, _, noise, theta = _fused_case(dev, B, K, m, p, nt, 11)
+    if case == "all_sentinel":
+        rows = torch.full_like(rows, nt)
+    src, tables = _whole_tables(dev, nt, B, K, m, p, 12)
+    gathered = tuple(t[src.long()] for t in tables)
+
+    def slab():  # a copy of theta; one float into its buffer in the offset case
+        if case != "offset":
+            return theta.clone()
+        buf = torch.empty(nt * p + 1, device=dev)
+        buf[1:] = theta.flatten()
+        return buf[1:].view(nt, p)
+
+    got, want, plain = slab(), slab(), theta.clone()
+    assert row_plan(B, p, (got, tables[3], noise)).vec == (case != "offset")
+    ops.fused_row_update(rows, *tables, noise, got, nt, clip, src=src)
+    ops.fused_row_update(rows, *gathered, noise, want, nt, clip)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    ref.fused_row_update_ref(rows, *tables, noise, plain, nt, clip, src=src)
+    _close(got, plain, 2e-5)
+    if case == "all_sentinel":
+        assert torch.equal(got, theta)
+    else:
+        assert not torch.equal(got, theta)
+
+
+def _profiled_fused_slot(dev, n=20_000, p=100, m=8):
+    """One eager fused slot of a card engine (CD, quadratic), profiled:
+    the device kernels' names in launch order, and the engine."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(21)
+    graph = random_geometric_graph(n, np.random.default_rng(3), avg_degree=16.0)
+    X = (rng.normal(size=(n, m, p)) / np.sqrt(p)).astype(np.float32)
+    y = np.einsum("nmp,np->nm", X, rng.normal(size=(n, p))).astype(np.float32)
+    obj = make_objective(graph, AgentData(X=X, y=y, mask=np.ones((n, m), np.float32)),
+                         "quadratic", mu=0.5, mix_mode="sparse")
+    eng = AsyncEngine(CDUpdate(obj), slot_wakes=512.0, seed=4, device=dev)
+    assert eng.fused
+    state = eng.init_state(np.zeros((n, p), np.float32))
+    state = eng._slot(state, None)  # warm: allocations, the kernel's build
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        eng._slot(state, None)
+        torch.cuda.synchronize()
+    kernels = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                      and "memcpy" not in e.name.lower() and "memset" not in e.name.lower()),
+                     key=lambda e: e.time_range.start)
+    return [e.name for e in kernels], eng
+
+
+def test_fused_slot_gathers_no_rows_before_the_kernel(dev):
+    """The fused slot hands the kernel whole tables and ``src``: between the
+    sampler's last ``searchsorted`` and ``fused_rows_kernel`` no index or
+    gather kernel runs (the (B, K) table rows, the constants and the (B, m,
+    p) points were gathered there before), only the small elementwise
+    launches that finish the compaction and make ``krows`` and ``src``."""
+    names, _ = _profiled_fused_slot(dev)
+    low = [s.lower() for s in names]
+    fused = [i for i, s in enumerate(low) if "fused_rows_kernel" in s]
+    assert len(fused) == 1, names
+    sampler = [i for i, s in enumerate(low[: fused[0]]) if "searchsorted" in s]
+    assert sampler, names
+    between = low[sampler[-1] + 1: fused[0]]
+    gathers = [s for s in between if "index" in s.split("<")[0] or "gather" in s.split("<")[0]]
+    assert not gathers, gathers
+    # The padding's where and the dropped count, the sentinel where, two int32 casts.
+    assert len(between) <= 6, between
+    assert any("scatter_rows_kernel" in s for s in low[fused[0]:])
+
+
+@pytest.mark.parametrize("private", [False, True])
+def test_fused_engine_indexed_route_equals_row_gathered_on_the_card(dev, private):
+    """24 forced-wake slots of a card engine through the indexed route
+    against the same slots through the row-gathered contract: every state
+    tensor and the generator equal, bit for bit (budget sentinels reached
+    in the private case)."""
+    obj, rng = _dp_problem(seed=2)
+    n, p = obj.n, obj.p
+    upd = (DPCDUpdate.plan(obj, DPConfig(eps_bar=0.5), planned_Ti=3) if private
+           else CDUpdate(obj))
+    masks = list(rng.random((24, n)) < 0.3)
+    Theta0 = rng.normal(size=(n, p))
+    out = []
+    for u in (upd, row_gathered(upd)):
+        eng = AsyncEngine(u, slot_wakes=64.0, seed=3, device=dev)
+        assert eng.fused
+        state = eng.init_state(Theta0)
+        for mask in masks:
+            state = eng.step(state, mask)
+        out.append(state)
+    _assert_states_equal(*out)
+    assert int(out[0].applied) > 0
+    if private:
+        assert int((out[0].ustate >= 3).sum()) > 0
 
 
 @pytest.mark.parametrize("G,Q,N,P,heads", [(4096, 128, 64, 64, 64), (12, 77, 40, 96, 1),
