@@ -588,46 +588,48 @@ def sharded_mix_op(partition, exchange=None) -> ShardedMixOp:
     of the all_gather rows on this partition's measured cut
     (``GraphPartition.exchange_rows``), as in the reference.
     """
-    spec = ExchangeSpec.coerce(exchange)
-    method = spec.method
-    if method == "auto":
-        method = (
-            "p2p"
-            if 4 * partition.exchange_rows("p2p") <= 3 * partition.exchange_rows("all_gather")
-            else "all_gather"
+    with span("halo.plan"):
+        spec = ExchangeSpec.coerce(exchange)
+        method = spec.method
+        if method == "auto":
+            method = (
+                "p2p"
+                if 4 * partition.exchange_rows("p2p") <= 3 * partition.exchange_rows("all_gather")
+                else "all_gather"
+            )
+        offsets, sends, dsts = partition.p2p_plan if method == "p2p" else ((), (), ())
+        bpos: tuple = ()
+        if method == "p2p" and spec.dtype != "f32":
+            # Each offset's send rows as positions in the (sorted, unique)
+            # border list, so compressed sends slice the quantized-once border
+            # pool. Only the valid prefix of a border row is sorted; padding
+            # send entries may land anywhere — the receiver drops them.
+            border = np.asarray(partition.border)
+            bsizes = np.asarray(partition.border_sizes)
+            bpos = tuple(
+                np.stack([
+                    np.searchsorted(border[t, : int(bsizes[t])],
+                                    np.asarray(snd)[t]).astype(np.int32)
+                    for t in range(partition.num_shards)
+                ])
+                for snd in sends
+            )
+        return ShardedMixOp(
+            n=partition.n,
+            num_shards=partition.num_shards,
+            idx=partition.idx,
+            w=partition.w,
+            border=partition.border,
+            halo_src=partition.halo_src,
+            method=method,
+            halo_width=partition.halo.shape[1],
+            p2p_offsets=offsets,
+            p2p_send=sends,
+            p2p_dst=dsts,
+            p2p_bpos=bpos,
+            dtype=spec.dtype,
+            error_feedback=spec.needs_error_feedback_state(),
         )
-    offsets, sends, dsts = partition.p2p_plan if method == "p2p" else ((), (), ())
-    bpos: tuple = ()
-    if method == "p2p" and spec.dtype != "f32":
-        # Each offset's send rows as positions in the (sorted, unique)
-        # border list, so compressed sends slice the quantized-once border
-        # pool. Only the valid prefix of a border row is sorted; padding
-        # send entries may land anywhere — the receiver drops them.
-        border = np.asarray(partition.border)
-        bsizes = np.asarray(partition.border_sizes)
-        bpos = tuple(
-            np.stack([
-                np.searchsorted(border[t, : int(bsizes[t])], np.asarray(snd)[t]).astype(np.int32)
-                for t in range(partition.num_shards)
-            ])
-            for snd in sends
-        )
-    return ShardedMixOp(
-        n=partition.n,
-        num_shards=partition.num_shards,
-        idx=partition.idx,
-        w=partition.w,
-        border=partition.border,
-        halo_src=partition.halo_src,
-        method=method,
-        halo_width=partition.halo.shape[1],
-        p2p_offsets=offsets,
-        p2p_send=sends,
-        p2p_dst=dsts,
-        p2p_bpos=bpos,
-        dtype=spec.dtype,
-        error_feedback=spec.needs_error_feedback_state(),
-    )
 
 
 def mix_op(graph, mode: str = "auto") -> MixOp:

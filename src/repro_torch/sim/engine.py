@@ -1313,77 +1313,78 @@ class ShardedAsyncEngine:
         arrivals' rejoin probability is 0. Called again after every
         topology swap: the tensors are new, so the captured graphs are
         dropped (:meth:`ChunkGraphs.reset`)."""
-        if self._graphs is not None:
-            self._graphs.reset()
-        self._phase_cache.clear()  # the phase programs read the old tiles too
-        self._phase_scratch = None
-        part, dev, S = self.part, self.device, self.local_shards
-        R, B = part.rows_per_shard, self.batch_size
-        self.rows_per_shard = R
-        owned = part.owned[self._shards].reshape(-1).astype(np.int64)
-        real = owned < self.n
-        self._owned = torch.as_tensor(owned, device=dev)
-        # Agent i's row of all S shards' (S * R, p) owned rows (per rank:
-        # of the blocks ``shards_of`` gathers).
-        self._agent_rows = torch.as_tensor(
-            part.shard_of.astype(np.int64) * R + part.local_of, device=dev)
-        real_t = torch.as_tensor(real, device=dev)
-        take = torch.as_tensor(np.where(real, owned, 0), device=dev)
+        with span("engine.tables", sync=self.device):
+            if self._graphs is not None:
+                self._graphs.reset()
+            self._phase_cache.clear()  # the phase programs read the old tiles too
+            self._phase_scratch = None
+            part, dev, S = self.part, self.device, self.local_shards
+            R, B = part.rows_per_shard, self.batch_size
+            self.rows_per_shard = R
+            owned = part.owned[self._shards].reshape(-1).astype(np.int64)
+            real = owned < self.n
+            self._owned = torch.as_tensor(owned, device=dev)
+            # Agent i's row of all S shards' (S * R, p) owned rows (per rank:
+            # of the blocks ``shards_of`` gathers).
+            self._agent_rows = torch.as_tensor(
+                part.shard_of.astype(np.int64) * R + part.local_of, device=dev)
+            real_t = torch.as_tensor(real, device=dev)
+            take = torch.as_tensor(np.where(real, owned, 0), device=dev)
 
-        def tile(a, dtype=torch.float32):
-            """(n, ...) host array -> (S * R, ...) on the device, padding rows 0
-            (``dtype`` None keeps an integer array's own)."""
-            t = torch.as_tensor(np.asarray(a)).to(device=dev, dtype=dtype)[take]
-            keep = real_t.view((-1,) + (1,) * (t.dim() - 1))
-            return torch.where(keep, t, torch.zeros((), dtype=t.dtype, device=dev))
+            def tile(a, dtype=torch.float32):
+                """(n, ...) host array -> (S * R, ...) on the device, padding rows 0
+                (``dtype`` None keeps an integer array's own)."""
+                t = torch.as_tensor(np.asarray(a)).to(device=dev, dtype=dtype)[take]
+                keep = real_t.view((-1,) + (1,) * (t.dim() - 1))
+                return torch.where(keep, t, torch.zeros((), dtype=t.dtype, device=dev))
 
-        def maybe(v):
-            return None if v is None else tile(v).view(S, R)
+            def maybe(v):
+                return None if v is None else tile(v).view(S, R)
 
-        rejoin_v = self._rejoin_v
-        if rejoin_v is not None and self._pending:
-            # Churn rejoin must not resurrect a not-yet-arrived agent (its
-            # rows are edge-detached: zero degree) until admission.
-            rejoin_v = rejoin_v.copy()
-            rejoin_v[sorted(self._pending)] = 0.0
-        self._wake_p = tile(self.wake_probs).view(S, R)
-        self._leave, self._rejoin, self._drop = (maybe(v) for v in
-                                                  (self._leave_v, rejoin_v, self._drop_v))
-        self._deg = tile(neighbor_counts(self._csr))
-        self._consts = None
-        if self._consts_base is not None:
-            base = dict(self._consts_base)
-            if self.dynamic:
-                base["deg"] = self._csr.degrees  # the live graph's, as in the reference
-            self._consts = {}
-            for k, a in base.items():
-                a = np.asarray(a)
-                self._consts[k] = tile(a, self.dtype if np.issubdtype(a.dtype, np.floating)
-                                       else None)
-        if self.fused:
-            self._fidx = self.smix.table("flat_idx", dev, torch.int32)
-            self._fw = self.smix.table("flat_w", dev, torch.float32)
-        else:
-            self._fidx = self._fw = None
-        self._shard_base = (torch.arange(S, device=dev) * R)[:, None]
-        self._arange_sb = torch.arange(B, device=dev).repeat(S, 1)
+            rejoin_v = self._rejoin_v
+            if rejoin_v is not None and self._pending:
+                # Churn rejoin must not resurrect a not-yet-arrived agent (its
+                # rows are edge-detached: zero degree) until admission.
+                rejoin_v = rejoin_v.copy()
+                rejoin_v[sorted(self._pending)] = 0.0
+            self._wake_p = tile(self.wake_probs).view(S, R)
+            self._leave, self._rejoin, self._drop = (maybe(v) for v in
+                                                      (self._leave_v, rejoin_v, self._drop_v))
+            self._deg = tile(neighbor_counts(self._csr))
+            self._consts = None
+            if self._consts_base is not None:
+                base = dict(self._consts_base)
+                if self.dynamic:
+                    base["deg"] = self._csr.degrees  # the live graph's, as in the reference
+                self._consts = {}
+                for k, a in base.items():
+                    a = np.asarray(a)
+                    self._consts[k] = tile(a, self.dtype if np.issubdtype(a.dtype, np.floating)
+                                           else None)
+            if self.fused:
+                self._fidx = self.smix.table("flat_idx", dev, torch.int32)
+                self._fw = self.smix.table("flat_w", dev, torch.float32)
+            else:
+                self._fidx = self._fw = None
+            self._shard_base = (torch.arange(S, device=dev) * R)[:, None]
+            self._arange_sb = torch.arange(B, device=dev).repeat(S, 1)
 
-        if self.metrics_spec is None:
-            self._macc = None
-            self._mstatic = None
-        else:
-            vol = self._exchange_volume()
-            self._macc = MetricsAccumulator(
-                self.metrics_spec,
-                R,
-                churn=self._leave is not None,
-                straggler=self._drop is not None,
-                dp_limit=getattr(self.update, "planned_Ti", None),
-                exchange_offsets=vol.num_offsets if self.smix.method == "p2p" else 0,
-                quantized=self.smix.dtype != "f32",
-                shards=S,
-            )
-            self._mstatic = None if self._macc.exchange_offsets is None else vol.tiles(dev)
+            if self.metrics_spec is None:
+                self._macc = None
+                self._mstatic = None
+            else:
+                vol = self._exchange_volume()
+                self._macc = MetricsAccumulator(
+                    self.metrics_spec,
+                    R,
+                    churn=self._leave is not None,
+                    straggler=self._drop is not None,
+                    dp_limit=getattr(self.update, "planned_Ti", None),
+                    exchange_offsets=vol.num_offsets if self.smix.method == "p2p" else 0,
+                    quantized=self.smix.dtype != "f32",
+                    shards=S,
+                )
+                self._mstatic = None if self._macc.exchange_offsets is None else vol.tiles(dev)
 
     # -- state ------------------------------------------------------------
     def _state(self, Theta_rows, active, ustate) -> ShardedSimState:
@@ -1425,25 +1426,26 @@ class ShardedAsyncEngine:
     def init_state(self, Theta0, seed: int | None = None) -> ShardedSimState:
         """Fresh sharded state from an (n, p) initial model matrix (original
         agent order; the partition maps it to the shard blocks)."""
-        if isinstance(Theta0, torch.Tensor):
-            Theta0 = Theta0.to("cpu").numpy()
-        Theta = np.asarray(Theta0)
-        if Theta.shape != (self.n, self.p):
-            raise ValueError(f"Theta0 must be {(self.n, self.p)}, got {Theta.shape}")
-        S, R, mine = self.local_shards, self.rows_per_shard, self._shards
-        rows = torch.as_tensor(self.part.pad_rows(Theta)[mine]).to(self.device, self.dtype)
-        active_g = np.ones(self.n, bool)
-        if self._pending:
-            # Scheduled arrivals: inactive and edge-detached until admitted.
-            active_g[sorted(self._pending)] = False
-        active = torch.as_tensor(self.part.pad_rows(active_g, fill=False)[mine])
-        ustate = self.update.init_state()
-        if not (isinstance(ustate, tuple) and not ustate):
-            ustate = self._shard_leaf(ustate)
-        state = self._state(rows.view(S * R, self.p), active.to(self.device), ustate)
-        if seed is not None:
-            state.generator.manual_seed(int(seed))
-        return state
+        with span("engine.init_state", sync=self.device):
+            if isinstance(Theta0, torch.Tensor):
+                Theta0 = Theta0.to("cpu").numpy()
+            Theta = np.asarray(Theta0)
+            if Theta.shape != (self.n, self.p):
+                raise ValueError(f"Theta0 must be {(self.n, self.p)}, got {Theta.shape}")
+            S, R, mine = self.local_shards, self.rows_per_shard, self._shards
+            rows = torch.as_tensor(self.part.pad_rows(Theta)[mine]).to(self.device, self.dtype)
+            active_g = np.ones(self.n, bool)
+            if self._pending:
+                # Scheduled arrivals: inactive and edge-detached until admitted.
+                active_g[sorted(self._pending)] = False
+            active = torch.as_tensor(self.part.pad_rows(active_g, fill=False)[mine])
+            ustate = self.update.init_state()
+            if not (isinstance(ustate, tuple) and not ustate):
+                ustate = self._shard_leaf(ustate)
+            state = self._state(rows.view(S * R, self.p), active.to(self.device), ustate)
+            if seed is not None:
+                state.generator.manual_seed(int(seed))
+            return state
 
     def _blank_state(self) -> ShardedSimState:
         """An ``init_state``-shaped zero template built in the (L, R, ...)
@@ -1839,7 +1841,17 @@ class ShardedAsyncEngine:
         return counters, derived
 
     def report_meta(self) -> dict:
-        """Run metadata stamped into a :class:`repro_torch.obs.RunReport`."""
+        """Run metadata stamped into a :class:`repro_torch.obs.RunReport`.
+
+        The exchange plan of the shards this process holds, read on the
+        host from the partition and the plan (no device work):
+        ``rows_per_shard`` (R), ``halo_width`` (Hmax), ``halo_rows`` (the
+        real halo rows), ``rows_shipped_per_slot`` and
+        ``bytes_shipped_per_slot`` (the padded rows on the wire and their
+        payload bytes, :meth:`_exchange_volume` summed over the shards)
+        and ``halo_fraction`` (the share of read rows that cross shards,
+        over all S shards)."""
+        vol = self._exchange_volume()
         return {
             "engine": type(self).__name__,
             "update": type(self.update).__name__,
@@ -1853,6 +1865,13 @@ class ShardedAsyncEngine:
             "exchange_method": self.exchange_method,
             "exchange_dtype": self.smix.dtype,
             "error_feedback": bool(self._use_ef),
+            "capture_mode": self.capture_mode,
+            "rows_per_shard": int(self.rows_per_shard),
+            "halo_width": int(self.smix.halo_width),
+            "halo_rows": int(np.asarray(self.part.halo_sizes)[self._shards].sum()),
+            "rows_shipped_per_slot": int(vol.rows_shipped.sum()),
+            "bytes_shipped_per_slot": float(vol.bytes_shipped.sum()),
+            "halo_fraction": float(self.part.halo_fraction()),
         }
 
     def run(

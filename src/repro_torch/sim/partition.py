@@ -48,6 +48,7 @@ import functools
 import numpy as np
 
 from repro_torch.core.graph import CSRGraph
+from repro_torch.obs.trace import span
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -464,40 +465,41 @@ def partition_graph(
     n, S = csr.n, int(num_shards)
     if not (1 <= S <= max(n, 1)):
         raise ValueError(f"num_shards must lie in [1, n={n}], got {S}")
-    relabel_mode, order = _resolve_order(csr, relabel, coords)
-    bounds = _block_bounds(csr, S, mode, order)
-    sizes = np.diff(bounds).astype(np.int64)
-    R = int(sizes.max())
-    K = max(csr.max_degree(), 1)
-    if tile_width is not None:
-        if tile_width < K:
-            raise ValueError(f"tile_width={tile_width} < max degree {K}")
-        K = int(tile_width)
+    with span("partition.cut"):
+        relabel_mode, order = _resolve_order(csr, relabel, coords)
+        bounds = _block_bounds(csr, S, mode, order)
+        sizes = np.diff(bounds).astype(np.int64)
+        R = int(sizes.max())
+        K = max(csr.max_degree(), 1)
+        if tile_width is not None:
+            if tile_width < K:
+                raise ValueError(f"tile_width={tile_width} < max degree {K}")
+            K = int(tile_width)
 
-    owned = np.full((S, R), n, dtype=np.int32)
-    shard_of = np.empty(n, dtype=np.int32)
-    local_of = np.empty(n, dtype=np.int32)
-    for s in range(S):
-        lo, hi = int(bounds[s]), int(bounds[s + 1])
-        ids = order[lo:hi]
-        owned[s, : hi - lo] = ids.astype(np.int32)
-        shard_of[ids] = s
-        local_of[ids] = np.arange(hi - lo, dtype=np.int32)
+        owned = np.full((S, R), n, dtype=np.int32)
+        shard_of = np.empty(n, dtype=np.int32)
+        local_of = np.empty(n, dtype=np.int32)
+        for s in range(S):
+            lo, hi = int(bounds[s]), int(bounds[s + 1])
+            ids = order[lo:hi]
+            owned[s, : hi - lo] = ids.astype(np.int32)
+            shard_of[ids] = s
+            local_of[ids] = np.arange(hi - lo, dtype=np.int32)
 
-    tiles = _halo_tiles(csr, S, order, bounds, sizes, R, K, shard_of, local_of)
-    return GraphPartition(
-        csr=csr,
-        num_shards=S,
-        mode=mode,
-        relabel=relabel_mode,
-        order=order,
-        bounds=bounds,
-        owned=owned,
-        sizes=sizes,
-        shard_of=shard_of,
-        local_of=local_of,
-        **tiles,
-    )
+        tiles = _halo_tiles(csr, S, order, bounds, sizes, R, K, shard_of, local_of)
+        return GraphPartition(
+            csr=csr,
+            num_shards=S,
+            mode=mode,
+            relabel=relabel_mode,
+            order=order,
+            bounds=bounds,
+            owned=owned,
+            sizes=sizes,
+            shard_of=shard_of,
+            local_of=local_of,
+            **tiles,
+        )
 
 
 def partition_from_ownership(

@@ -392,7 +392,9 @@ def test_run_records_and_reports(quad96):
     assert meta["engine"] == "ShardedAsyncEngine" and meta["num_shards"] == 3
     jmeta_keys = {"engine", "update", "n", "p", "num_shards", "slot_wakes", "batch_size",
                   "fused", "dtype", "exchange_method", "exchange_dtype", "error_feedback"}
-    assert set(meta) == jmeta_keys
+    plan_keys = {"capture_mode", "rows_per_shard", "halo_width", "halo_rows",
+                 "rows_shipped_per_slot", "bytes_shipped_per_slot", "halo_fraction"}
+    assert set(meta) == jmeta_keys | plan_keys  # the reference's keys, then the port's plan
     assert eng.topology_counters() == {k: (0.0 if k == "last_drift" else 0) for k in
                                        eng.topology_counters()}
     a = eng.run(np.zeros((96, 4)), slots=5).Theta
@@ -401,6 +403,28 @@ def test_run_records_and_reports(quad96):
     np.testing.assert_array_equal(a, b)  # seeded: the same stream
     blank = eng._blank_state()
     assert blank.Theta.shape == (3, eng.rows_per_shard, 4) and not blank.active.any()
+
+
+@pytest.mark.parametrize("wire", ["p2p:bf16:ef", "all_gather", "p2p:int8:ef"])
+def test_report_meta_plan_equals_the_exchange_volume_and_the_partition(quad96, wire):
+    """The plan counters of ``report_meta`` are ``_exchange_volume()``
+    summed over the shards and the partition's own counts."""
+    _, port = quad96
+    eng = ShardedAsyncEngine(CDUpdate(port), num_shards=8, relabel="rcm",
+                             partition_mode="degree", exchange=ExchangeSpec.from_string(wire),
+                             slot_wakes=8.0, device="cpu")
+    meta, vol, part = eng.report_meta(), eng._exchange_volume(), eng.part
+    assert meta["rows_per_shard"] == part.rows_per_shard == eng.rows_per_shard
+    assert meta["halo_width"] == part.halo.shape[1] == eng.smix.halo_width
+    assert meta["halo_rows"] == int(part.halo_sizes.sum()) > 0
+    assert meta["rows_shipped_per_slot"] == int(vol.rows_shipped.sum()) > 0
+    assert meta["bytes_shipped_per_slot"] == float(vol.bytes_shipped.sum())
+    assert meta["bytes_shipped_per_slot"] == meta["rows_shipped_per_slot"] * \
+        eng.exchange_spec.payload_bytes_per_row(eng.p)
+    if eng.exchange_method == "p2p":
+        assert meta["rows_shipped_per_slot"] == part.exchange_rows("p2p")
+    assert meta["halo_fraction"] == part.halo_fraction()
+    assert meta["capture_mode"] == "eager: not a CUDA device"
 
 
 def test_default_batch_follows_owned_agents_under_relabel():

@@ -5,8 +5,9 @@ no clock, and a ``torch.profiler`` run over an engine's set-up and
 ``advance`` sees none of the program's span names. Inside ``recording()``
 the set-up spans that the CPU path runs (the graph's validation, the
 objective's host passes, the copies to the device, the engine's tables
-and state) are recorded, on the profiler's clock too, with exclusive
-seconds that sum to no more than the wall time around them; a recorded
+and state; the sharded build's partition cut and halo plan) are
+recorded, on the profiler's clock too, with exclusive seconds that sum
+to no more than the wall time around them; a recorded
 engine stays equal, bit for bit, to an unrecorded twin. Nested spans give
 exclusive seconds, on each thread's own stack. The spans that need the
 card (kernel builds, captures, replays) are held in
@@ -26,7 +27,8 @@ from repro_torch.core import AgentData, DPConfig, make_objective
 from repro_torch.core.graph import knn_graph
 from repro_torch.obs import SpanRecorder, recording, span, validate_trace
 from repro_torch.obs import trace as obs_trace
-from repro_torch.sim import AsyncEngine, CDUpdate, ChurnConfig, DPCDUpdate, Scenario
+from repro_torch.sim import (AsyncEngine, CDUpdate, ChurnConfig, DPCDUpdate, ExchangeSpec,
+                             Scenario, ShardedAsyncEngine)
 from repro_torch.sim.capture import ChunkGraphs
 
 # Every span the program emits; the CPU path runs the first six.
@@ -34,6 +36,8 @@ CPU_SETUP = ("graph.validate", "objective.host", "objective.tensors", "mix.table
              "engine.tables", "engine.init_state")
 PROGRAM_SPANS = CPU_SETUP + ("kernels.build", "kernels.load", "engine.warm_slot",
                              "capture.graph", "capture.bind", "capture.replay")
+# The sharded build's set-up spans.
+SHARDED_SETUP = ("partition.cut", "halo.plan", "engine.tables", "engine.init_state")
 
 
 def _setup(private: bool, n: int = 48, p: int = 4, m: int = 3, seed: int = 0):
@@ -50,6 +54,47 @@ def _setup(private: bool, n: int = 48, p: int = 4, m: int = 3, seed: int = 0):
     eng = AsyncEngine(update, slot_wakes=8.0, seed=3, device="cpu", dtype=torch.float32,
                       scenario=Scenario(churn=ChurnConfig(leave_prob=0.05, rejoin_prob=0.3)))
     return eng, eng.init_state(np.zeros((n, p)))
+
+
+def _sharded_setup(n: int = 96, p: int = 4, m: int = 3):
+    """A small sharded engine as the benchmark's sharded cell builds it (8
+    shards, RCM, degree blocks, the p2p bf16 wire with error feedback) and
+    its state."""
+    rng = np.random.default_rng(1)
+    graph = knn_graph(rng.normal(size=(n, 6)), k=6)
+    X = rng.normal(size=(n, m, p)) / np.sqrt(p)
+    y = np.einsum("nmp,np->nm", X, rng.normal(size=(n, p)))
+    obj = make_objective(graph, AgentData(X=X, y=y, mask=np.ones((n, m))), "quadratic",
+                         mu=0.5, mix_mode="sparse")
+    eng = ShardedAsyncEngine(CDUpdate(obj), num_shards=8, relabel="rcm", partition_mode="degree",
+                             exchange=ExchangeSpec("p2p", "bf16", True), fused=True,
+                             slot_wakes=16.0, seed=3, device="cpu")
+    return eng, eng.init_state(np.zeros((n, p)))
+
+
+@pytest.mark.parametrize("recorded", [False, True], ids=["off", "on"])
+def test_sharded_build_records_its_setup_spans(recorded):
+    """The sharded build's partition cut, halo plan, tables and state are
+    spans on the recorder, on the profiler's clock too; with no recorder
+    none of their names reaches the profiler."""
+    def run():
+        eng, state = _sharded_setup()
+        eng.advance(state, 3)
+
+    if not recorded:
+        assert not _profiled_names(run) & set(SHARDED_SETUP)
+        return
+    rec = SpanRecorder()
+    with recording(rec):
+        seen = _profiled_names(run)
+    sec = rec.seconds()
+    assert set(SHARDED_SETUP) <= set(sec) and set(SHARDED_SETUP) <= seen, sorted(sec)
+    assert all(sec[k] >= 0.0 for k in SHARDED_SETUP)
+    # ``tools/setup_spans.py`` counts the partition cut and the halo plan as host work.
+    split = _setup_spans_tool().phases(sec)
+    assert split["host_prep"] == pytest.approx(sum(
+        sec.get(k, 0.0) for k in ("graph.validate", "objective.host", "partition.cut",
+                                  "halo.plan")))
 
 
 def _leaves(state) -> dict:

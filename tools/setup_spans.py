@@ -48,7 +48,7 @@ ROOT = Path(__file__).resolve().parents[1]
 
 # The program's set-up spans by what they do.
 PHASES = {
-    "host_prep": ("graph.validate", "objective.host"),
+    "host_prep": ("graph.validate", "objective.host", "partition.cut", "halo.plan"),
     "to_device": ("objective.tensors", "mix.tables", "engine.tables", "engine.init_state"),
     "kernels": ("kernels.build", "kernels.load"),
     "capture": ("engine.warm_slot", "capture.graph"),
